@@ -1,0 +1,713 @@
+"""Planner/executor merge engine (`repro.core.engine`, in PyTorch).
+
+Execution splits into:
+
+  * a **planner** that walks the canonical contribution set and emits one
+    `LeafTask` per model tensor, keyed by a per-tensor **sub-root** — the
+    hash of that leaf's ordered contribution digests plus everything else
+    that shapes the output (strategy, cfg, base leaf). Sub-roots are
+    byte-equal to the reference's, so both packages name the same leaf
+    merge with the same key;
+  * an **executor** that runs the plan leaf by leaf with bounded live
+    memory, fusing same-dtype elementwise leaves into one [k, N]
+    dispatch; with `kernels=True` the fused batches go through the CUDA
+    kernels of `repro_torch.kernels` (the reference's `pallas=True`);
+  * a byte-budgeted **per-leaf cache** keyed by sub-root, per
+    `EngineCache` (each `Replica` owns one).
+
+Sub-root of leaf i of a k-way merge described by a `MergeSpec`:
+
+    sub_root_i = SHA-256( domain || spec.cache_fragment() ||
+                          base_i || k || d_1,i || ... || d_k,i )
+
+with d_j,i the `tensor_digest` of contribution j's leaf i in canonical
+order and base_i the base leaf's digest (a fixed marker without base).
+The ported strategies consume no PRNG key, so neither the seed nor the
+leaf index enters.
+
+Strategies that declare a `LeafFold` resume from the longest cached
+prefix when a leaf's ordered subset grew append-only, bit-equal to the
+full recompute by the LeafFold contract.
+
+Not ported yet, and refused rather than approximated: sparse
+contributions (ROADMAP A4), and the int8 and DARE kernel routes (B2,
+B6).
+"""
+from __future__ import annotations
+
+import hashlib
+import math
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
+
+import torch
+
+from repro_torch import pytree
+from repro_torch.api.spec import coerce_spec, MergeSpec
+from repro_torch.core.hashing import tensor_digest
+from repro_torch.obs import CounterView, MetricsRegistry, span
+from repro_torch.strategies import get_strategy
+from repro_torch.strategies.base import run_fold, Strategy
+
+_DOMAIN_LEAF = b"repro/engine/leaf-subroot/v2"
+_NO_BASE = b"\x00" * 32          # base=None marker (zeros_like base)
+
+
+def _as_spec(spec: Optional[MergeSpec], strategy_name: Optional[str],
+             reduction: Optional[str], cfg: Dict[str, Any]) -> MergeSpec:
+    """An explicit MergeSpec, or a lenient one built from a strategy
+    name + kwargs. A stray reduction=/cfg argument NEXT TO a spec
+    raises."""
+    if spec is None and strategy_name is None:
+        raise TypeError("either a MergeSpec or a strategy name is "
+                        "required")
+    if spec is not None and strategy_name is not None \
+            and strategy_name != spec.strategy:
+        raise TypeError(f"conflicting strategies: positional "
+                        f"{strategy_name!r} vs spec {spec.strategy!r}")
+    return coerce_spec(spec if spec is not None else strategy_name,
+                       cfg, reduction=reduction, lenient=True)
+
+
+# ---------------------------------------------------------------------------
+# Per-contribution leaf metadata (digest memo)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ContribMeta:
+    """One contribution as the planner sees it: tree structure plus
+    per-leaf content digests, memoized by element id (content-addressed:
+    an eid fully determines the payload bytes)."""
+    treedef: Any
+    digests: Tuple[bytes, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    paths: Tuple[str, ...] = ()
+
+    @property
+    def leaf_count(self) -> int:
+        return len(self.digests)
+
+
+_META_MEMO: "OrderedDict[str, ContribMeta]" = OrderedDict()
+_META_MEMO_LIMIT = 1024
+
+
+def contrib_meta(contribution: Any, *, eid: Optional[str] = None
+                 ) -> ContribMeta:
+    """Flatten + digest one contribution; memoized by content id."""
+    if eid is not None and eid in _META_MEMO:
+        _META_MEMO.move_to_end(eid)
+        return _META_MEMO[eid]
+    flat, treedef = pytree.flatten_with_path(contribution)
+    leaves = [leaf for _, leaf in flat]
+    for leaf in leaves:
+        if not isinstance(leaf, torch.Tensor):
+            raise NotImplementedError(
+                f"leaf of type {type(leaf).__name__}: the port merges "
+                "torch.Tensor leaves only (int8 wire payloads and their "
+                "merge-on-arrival kernel wait for ROADMAP B2)")
+    meta = ContribMeta(
+        treedef=treedef,
+        digests=tuple(tensor_digest(leaf) for leaf in leaves),
+        shapes=tuple(tuple(leaf.shape) for leaf in leaves),
+        dtypes=tuple(leaf.dtype for leaf in leaves),
+        paths=tuple(pytree.keystr(p) for p, _ in flat),
+    )
+    if eid is not None:
+        _META_MEMO[eid] = meta
+        while len(_META_MEMO) > _META_MEMO_LIMIT:
+            _META_MEMO.popitem(last=False)
+    return meta
+
+
+# ---------------------------------------------------------------------------
+# Plans
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LeafTask:
+    index: int                    # global flatten index
+    path: str                     # keystr
+    sub_root: bytes               # per-tensor content address of output
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    stacked_nbytes: int           # k * leaf nbytes: live bytes to execute
+    contributors: Tuple[int, ...] = ()
+    digests: Tuple[bytes, ...] = ()
+    base_frag: bytes = b""
+
+    @property
+    def k(self) -> int:
+        return len(self.contributors)
+
+
+@dataclass(frozen=True)
+class MergePlan:
+    strategy: str
+    reduction: str
+    seed: int
+    k: int
+    cfg: Tuple[Tuple[str, Any], ...]      # sorted (name, value) pairs
+    treedef: Any
+    tasks: Tuple[LeafTask, ...]
+    spec: Optional[MergeSpec] = None
+    frag: bytes = b""                     # spec fragment (prefix probing)
+
+    def cfg_dict(self) -> Dict[str, Any]:
+        return dict(self.cfg)
+
+
+def _leaf_subroot(frag: bytes, base_frag: bytes,
+                  digests: Sequence[bytes], needs_key: bool,
+                  seed: int, index: int) -> bytes:
+    """Sub-root over ONE leaf's ordered contribution digests (the
+    reference's derivation, byte for byte)."""
+    h = hashlib.sha256(_DOMAIN_LEAF)
+    h.update(frag)
+    h.update(base_frag)
+    h.update(len(digests).to_bytes(4, "big"))
+    for d in digests:
+        h.update(d)
+    if needs_key:
+        h.update(str(seed).encode())
+        h.update(index.to_bytes(4, "big"))
+    return h.digest()
+
+
+def plan_merge(metas: Sequence[ContribMeta],
+               strategy_name: Optional[str] = None, *,
+               base: Any = None, seed: int = 0,
+               reduction: Optional[str] = None,
+               spec: Optional[MergeSpec] = None,
+               coverages: Optional[Sequence[Optional[Tuple[str, ...]]]]
+               = None, **cfg) -> MergePlan:
+    """Emit a per-leaf merge plan from contribution metadata (canonical
+    order). Payloads are not needed to plan — only their digests."""
+    if not metas:
+        raise ValueError("plan_merge() requires at least one contribution")
+    if coverages is not None and any(c is not None for c in coverages):
+        raise NotImplementedError(
+            "sparse contributions are not ported yet (ROADMAP A4)")
+    spec = _as_spec(spec, strategy_name, reduction, cfg)
+    strat = get_strategy(spec.strategy)
+    k = len(metas)
+    first = metas[0]
+    with span("engine.plan", strategy=spec.strategy, k=k,
+              leaves=first.leaf_count):
+        frag = spec.cache_fragment(
+            with_reduction=(strat.binary_only and k > 2))
+        for m in metas[1:]:
+            if m.treedef != first.treedef or m.shapes != first.shapes \
+                    or m.dtypes != first.dtypes:
+                raise ValueError("contributions disagree on tree structure")
+        treedef = first.treedef
+        paths = pytree.leaf_paths(treedef)
+        if base is None:
+            base_frags: Sequence[bytes] = [_NO_BASE] * len(paths)
+        else:
+            base_frags = [tensor_digest(bl)
+                          for bl in treedef.flatten_up_to(base)]
+        tasks = []
+        for i, path in enumerate(paths):
+            digs = tuple(m.digests[i] for m in metas)
+            nbytes = math.prod(first.shapes[i]) * first.dtypes[i].itemsize
+            tasks.append(LeafTask(
+                index=i, path=path,
+                sub_root=_leaf_subroot(frag, base_frags[i], digs,
+                                       strat.needs_key, seed, i),
+                shape=first.shapes[i], dtype=first.dtypes[i],
+                stacked_nbytes=k * nbytes, contributors=tuple(range(k)),
+                digests=digs, base_frag=base_frags[i]))
+    return MergePlan(strategy=spec.strategy, reduction=spec.reduction,
+                     seed=seed, k=k, cfg=spec.cfg, treedef=treedef,
+                     tasks=tuple(tasks), spec=spec, frag=frag)
+
+
+def plan_for(contribs: Sequence[Any],
+             strategy_name: Optional[str] = None, *,
+             contrib_ids: Optional[Sequence[str]] = None,
+             base: Any = None, seed: int = 0,
+             reduction: Optional[str] = None,
+             spec: Optional[MergeSpec] = None, **cfg) -> MergePlan:
+    """Convenience planner over resident payloads (ids memoize digests)."""
+    ids: Sequence[Optional[str]] = contrib_ids or [None] * len(contribs)
+    metas = [contrib_meta(c, eid=e) for c, e in zip(contribs, ids)]
+    return plan_merge(metas, strategy_name, base=base, seed=seed,
+                      reduction=reduction, spec=spec, **cfg)
+
+
+# ---------------------------------------------------------------------------
+# Byte-budgeted sub-root cache
+# ---------------------------------------------------------------------------
+
+_DEFAULT_ENTRY_LIMIT = 65536
+_DEFAULT_BYTE_LIMIT = 256 * 2 ** 20
+
+
+class CacheInfo(NamedTuple):
+    entries: int
+    bytes: int
+    entry_limit: int
+    byte_limit: int
+    hits: int
+    misses: int
+
+
+class EngineCache:
+    """One replica's merge-output cache + executor counters.
+
+    sub_root -> (value, nbytes, aux); aux is an incremental strategy's
+    float32 fold accumulator. LRU eviction under both an entry count
+    and a resident-byte budget. Counters live on a per-cache registry
+    (`self.obs`); `self.stats` is a Counter-shaped view over
+    `engine_events_total{event=...}`."""
+
+    __slots__ = ("_data", "_bytes", "entry_limit", "byte_limit", "obs",
+                 "stats", "peak_stacked")
+
+    def __init__(self, entries: int = _DEFAULT_ENTRY_LIMIT, *,
+                 bytes: int = _DEFAULT_BYTE_LIMIT,  # noqa: A002
+                 obs: Optional[MetricsRegistry] = None):
+        self._data: "OrderedDict[bytes, Tuple[Any, int, Any]]" = \
+            OrderedDict()
+        self._bytes = 0
+        self.entry_limit = entries
+        self.byte_limit = bytes
+        self.obs = obs if obs is not None else MetricsRegistry()
+        self.stats = CounterView(self.obs, "engine_events_total")
+        self.peak_stacked = 0
+
+    def set_limit(self, entries: Optional[int] = None, *,
+                  bytes: Optional[int] = None) -> None:  # noqa: A002
+        """Bound the cache; evicts LRU-first immediately."""
+        if entries is not None:
+            if entries < 1:
+                raise ValueError("cache entry limit must be >= 1")
+            self.entry_limit = entries
+        if bytes is not None:
+            if bytes < 0:
+                raise ValueError("cache byte limit must be >= 0")
+            self.byte_limit = bytes
+        self._evict()
+
+    def info(self) -> CacheInfo:
+        return CacheInfo(len(self._data), self._bytes, self.entry_limit,
+                         self.byte_limit, self.stats["hits"],
+                         self.stats["misses"])
+
+    def clear(self) -> None:
+        self._data.clear()
+        self._bytes = 0
+        self.obs.gauge("engine_cache_resident_bytes").set(0)
+
+    def _evict(self) -> None:
+        evicted = 0
+        while self._data and (len(self._data) > self.entry_limit
+                              or self._bytes > self.byte_limit):
+            _, (_, nbytes, _) = self._data.popitem(last=False)
+            self._bytes -= nbytes
+            evicted += 1
+        if evicted:
+            self.stats["evictions"] += evicted
+            self.obs.gauge("engine_cache_resident_bytes").set(self._bytes)
+
+    def get(self, key: bytes) -> Optional[Any]:
+        if key in self._data:
+            self._data.move_to_end(key)
+            return self._data[key][0]
+        return None
+
+    def put(self, key: bytes, value: Any, nbytes: int,
+            aux: Any = None) -> None:
+        if key in self._data:
+            self._bytes -= self._data[key][1]
+        self._data[key] = (value, nbytes, aux)
+        self._data.move_to_end(key)
+        self._bytes += nbytes
+        self.obs.gauge("engine_cache_resident_bytes").set(self._bytes)
+        self._evict()
+
+    def aux(self, key: bytes) -> Optional[Any]:
+        """The fold accumulator cached alongside a value (no recency
+        bump, no counting — a resumption probe)."""
+        ent = self._data.get(key)
+        return ent[2] if ent is not None else None
+
+    def __contains__(self, key: bytes) -> bool:
+        return key in self._data
+
+    def exec_stats(self) -> Dict[str, int]:
+        out = dict(self.stats)
+        out["peak_stacked_bytes"] = self.peak_stacked
+        return out
+
+    def reset_exec_stats(self) -> None:
+        self.stats.clear()
+        self.peak_stacked = 0
+        self.obs.gauge("engine_peak_stacked_bytes").set(0)
+
+    def note_stacked(self, nbytes: int) -> None:
+        self.peak_stacked = max(self.peak_stacked, nbytes)
+        self.obs.gauge("engine_peak_stacked_bytes").set_max(nbytes)
+
+
+_DEFAULT_CACHE = EngineCache()
+
+
+def _cache_or_default(cache: Optional[EngineCache]) -> EngineCache:
+    return cache if cache is not None else _DEFAULT_CACHE
+
+
+def clear_cache() -> None:
+    """Drop the default cache's merge outputs AND the planner digest
+    memo."""
+    _DEFAULT_CACHE.clear()
+    _META_MEMO.clear()
+
+
+# ---------------------------------------------------------------------------
+# Executor
+# ---------------------------------------------------------------------------
+
+
+def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
+                 base: Any = None, use_cache: bool = True,
+                 max_batch_bytes: Optional[int] = None,
+                 kernels: bool = False,
+                 cache: Optional[EngineCache] = None) -> Any:
+    """Run a merge plan and return the merged pytree.
+
+    `contribs` is the canonical-order payload list; it may be None when
+    every task is cached. Live stacked memory is bounded by the batch
+    byte cap (default: the largest single leaf's stack).
+
+    `kernels=True` is the reference's `pallas=True`: fused batches of the
+    linear family go through the `nary_accum` kernel, and histogram-trim
+    TIES through `block_amax` / `block_hist` / `ties_block` (CUDA for
+    CUDA tensors, their plain versions for CPU tensors). Those outputs
+    accumulate in fp32 and are held to a tolerance, not to the exact
+    path's bytes, so they are NEVER written to the sub-root cache.
+    """
+    cache = _cache_or_default(cache)
+    strat = get_strategy(plan.strategy)
+    outputs: List[Optional[Any]] = [None] * len(plan.tasks)
+    cache.obs.gauge("engine_plan_leaves").set(len(plan.tasks))
+    cache.obs.gauge("engine_sparse_leaves_skipped").set(0)
+    base_leaves = (plan.treedef.flatten_up_to(base)
+                   if base is not None else None)
+
+    misses: List[LeafTask] = []
+    resumes: List[Tuple[LeafTask, int, Any]] = []
+    for t in plan.tasks:
+        hit = cache.get(t.sub_root) if use_cache else None
+        if hit is not None:
+            outputs[t.index] = hit
+            cache.stats["hits"] += 1
+        else:
+            if use_cache:
+                cache.stats["misses"] += 1
+                rp = _fold_resume_point(strat, plan, t, cache)
+                if rp is not None:
+                    resumes.append((t, rp[0], rp[1]))
+                    continue
+            misses.append(t)
+    with span("engine.execute", strategy=plan.strategy, k=plan.k,
+              leaves=len(plan.tasks),
+              misses=len(misses) + len(resumes)):
+        if misses or resumes:
+            if contribs is None:
+                raise KeyError(
+                    f"{len(misses) + len(resumes)} leaf tasks miss the "
+                    "cache but no payloads were supplied")
+            if len(contribs) != plan.k:
+                raise ValueError(f"plan expects {plan.k} contributions, "
+                                 f"got {len(contribs)}")
+            flat = [plan.treedef.flatten_up_to(c) for c in contribs]
+
+            def leaf_of(j: int, t: LeafTask):
+                return flat[j][t.index]
+
+            cfg = plan.cfg_dict()
+            for t, m, aux in resumes:
+                # the leaf's ordered subset grew append-only past a
+                # cached prefix: fold only the new tail
+                new = [leaf_of(j, t) for j in t.contributors[m:]]
+                b = _base_leaf(base_leaves, t.index, new[0])
+                cache.note_stacked(t.stacked_nbytes)
+                kw = dict(strat.defaults)
+                kw.update(cfg)
+                val, acc = run_fold(strat.fold, new, b, acc=aux, k=t.k,
+                                    **kw)
+                outputs[t.index] = val
+                cache.stats["leaf_tasks"] += 1
+                cache.stats["dispatches"] += 1
+                cache.stats["fold_resumes"] += 1
+                cache.obs.counter("resolve_fold_updates_total").inc(
+                    t.k - m)
+                cache.put(t.sub_root, val,
+                          int(val.nbytes) + int(acc.nbytes), aux=acc)
+            if misses:
+                if max_batch_bytes is None:
+                    max_batch_bytes = max(t.stacked_nbytes
+                                          for t in plan.tasks)
+                kernel_fuse = kernels and \
+                    _kernel_route(strat, cfg) is not None
+                for group in _dispatch_groups(strat, misses,
+                                              max_batch_bytes,
+                                              fuse=kernel_fuse):
+                    approximate = False
+                    if len(group) == 1:
+                        o, a = _execute_leaf(strat, plan, group[0],
+                                             leaf_of, base_leaves, cache)
+                        out, auxs = [o], [a]
+                    else:
+                        out, auxs, approximate = _execute_batch(
+                            strat, plan, group, leaf_of, base_leaves,
+                            cache, kernels=kernels)
+                        cache.stats["batched_leaves"] += len(group)
+                    cache.stats["dispatches"] += 1
+                    cache.stats["leaf_tasks"] += len(group)
+                    for t, o, a in zip(group, out, auxs):
+                        outputs[t.index] = o
+                        if use_cache and not approximate:
+                            nb = int(o.nbytes) + (int(a.nbytes)
+                                                  if a is not None else 0)
+                            cache.put(t.sub_root, o, nb, aux=a)
+    return plan.treedef.unflatten(outputs)
+
+
+def _fold_resume_point(strat: Strategy, plan: MergePlan, task: LeafTask,
+                       cache: EngineCache) -> Optional[Tuple[int, Any]]:
+    """Longest cached proper prefix of a missed fold-capable task:
+    (m, accumulator), or None. Probes longest-first."""
+    fold = strat.fold
+    if fold is None or task.k < 2 or task.k < fold.min_k:
+        return None
+    for m in range(task.k - 1, fold.min_k - 1, -1):
+        key = _leaf_subroot(plan.frag, task.base_frag,
+                            task.digests[:m], strat.needs_key,
+                            plan.seed, task.index)
+        aux = cache.aux(key)
+        if aux is not None:
+            return m, aux
+    return None
+
+
+def _dispatch_groups(strat: Strategy, misses: List[LeafTask],
+                     max_batch_bytes: int, *,
+                     fuse: bool = False) -> List[List[LeafTask]]:
+    """Partition missed tasks into dispatches. Elementwise strategies
+    (and, with `fuse`, strategies with a kernel flat-batch route) fuse
+    same-dtype leaves up to the batch byte cap, largest first;
+    everything else runs one leaf per dispatch."""
+    if not (strat.batchable or fuse):
+        return [[t] for t in misses]
+    groups: List[List[LeafTask]] = []
+    by_dtype: Dict[Any, List[LeafTask]] = {}
+    for t in misses:
+        by_dtype.setdefault((t.dtype, t.contributors), []).append(t)
+    for tasks in by_dtype.values():
+        tasks = sorted(tasks, key=lambda t: (-t.stacked_nbytes, t.index))
+        cur: List[LeafTask] = []
+        cur_bytes = 0
+        for t in tasks:
+            if cur and cur_bytes + t.stacked_nbytes > max_batch_bytes:
+                groups.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(t)
+            cur_bytes += t.stacked_nbytes
+        if cur:
+            groups.append(cur)
+    return groups
+
+
+def _base_leaf(base_leaves, idx: int, like) -> Any:
+    if base_leaves is None:
+        return torch.zeros_like(like)
+    return base_leaves[idx]
+
+
+def _execute_leaf(strat: Strategy, plan: MergePlan, task: LeafTask,
+                  leaf_of, base_leaves, cache: EngineCache
+                  ) -> Tuple[Any, Any]:
+    """One leaf over its ordered contributors: the fold for incremental
+    strategies (keeping the accumulator for resumption), else the leaf
+    function on the [k, ...] stack."""
+    slices = [leaf_of(j, task) for j in task.contributors]
+    cache.note_stacked(task.stacked_nbytes)
+    b = _base_leaf(base_leaves, task.index, slices[0])
+    cfg = plan.cfg_dict()
+    if strat.fold is not None and len(slices) >= strat.fold.min_k:
+        kw = dict(strat.defaults)
+        kw.update(cfg)
+        return run_fold(strat.fold, slices, b, **kw)
+    return strat.apply_leaf(torch.stack(slices), b, leaf_index=task.index,
+                            seed=plan.seed, **cfg), None
+
+
+def _kernel_route(strat: Strategy, cfg: Dict[str, Any]) -> Optional[str]:
+    """The kernel flat-batch route beyond the elementwise nary one, or
+    None: "ties_hist" for TIES with the histogram trim (its sort-free
+    threshold keeps per-leaf statistics through batching). DARE is not
+    in the port's catalog yet (ROADMAP A3, B6): `get_strategy` refuses
+    it before a route is chosen."""
+    if strat.name == "ties" and \
+            str(cfg.get("trim_method", "quantile")) == "histogram":
+        return "ties_hist"
+    return None
+
+
+def _base_row(base_leaves, t: LeafTask, device) -> torch.Tensor:
+    """The leaf's base as an fp32 row; zeros without a base."""
+    if base_leaves is None:
+        return torch.zeros(math.prod(t.shape), dtype=torch.float32,
+                           device=device)
+    return base_leaves[t.index].reshape(-1).to(torch.float32)
+
+
+def _kernel_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
+                  leaf_of, base_leaves, cache: EngineCache
+                  ) -> Optional[Tuple[List[Any], List[Any], bool]]:
+    """The histogram-TIES flat batch: three launches for the group,
+    keeping per-leaf tile boundaries so per-leaf thresholds survive
+    batching. None when the group takes no such route."""
+    cfg = plan.cfg_dict()
+    if not group[0].dtype.is_floating_point \
+            or _kernel_route(strat, cfg) != "ties_hist":
+        return None
+    from repro_torch.kernels import ops as kops
+    rows = [[leaf_of(j, t).reshape(-1) for j in t.contributors]
+            for t in group]
+    device = rows[0][0].device
+    bases = [_base_row(base_leaves, t, device) for t in group]
+    cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
+    flats = kops.ties_batch_merge(rows, bases, float(cfg.get("trim", 0.2)))
+    cache.stats["pallas_dispatches"] += 1
+    cache.obs.counter("kernel_dispatch_total").inc(kernel="ties_hist")
+    outs = [f.reshape(t.shape).to(t.dtype) for f, t in zip(flats, group)]
+    return outs, [None] * len(group), True
+
+
+def _nary_weights(name: str, k: int, cfg: Dict[str, Any]
+                  ) -> Optional[Tuple[List[float], bool]]:
+    """(weights, uses_base) for strategies of the nary_accum form
+    out = base + sum_i w_i (x_i - base); None if not of that form."""
+    if name == "weight_average":
+        return [1.0 / k] * k, False
+    if name == "linear":
+        t = float(cfg.get("t", 0.5))
+        if k == 2:
+            return [1.0 - t, t], False
+        return [1.0 / k] * k, False
+    if name == "task_arithmetic":
+        return [float(cfg.get("lam", 1.0))] * k, True
+    if name == "negative_merge":
+        return [-float(cfg.get("lam", 0.5)) / k] * k, True
+    return None
+
+
+def _nary_pallas_batch(strat: Strategy, group: List[LeafTask], leaf_of,
+                       base_leaves, cfg: Dict[str, Any],
+                       cache: EngineCache) -> Optional[List[Any]]:
+    """The linear family's fused `nary_accum` dispatch over a group
+    (the reference's `_nary_pallas_batch`); None when the strategy has
+    no nary weight form. bf16 rows stream in bf16 and widen in the
+    kernel, as the reference's `preserve_dtype`."""
+    ki = group[0].k
+    form = _nary_weights(strat.name, ki, cfg)
+    if form is None:
+        return None
+    weights, uses_base = form
+    from repro_torch.kernels import ops as kops
+    rows = [[leaf_of(j, t).reshape(-1) for j in t.contributors]
+            for t in group]
+    device = rows[0][0].device
+    bases = [_base_row(base_leaves if uses_base else None, t, device)
+             for t in group]
+    cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
+    flats = kops.nary_flat_merge(rows, bases, weights)
+    cache.stats["pallas_dispatches"] += 1
+    cache.obs.counter("kernel_dispatch_total").inc(kernel="nary_accum")
+    return [f.reshape(t.shape).to(t.dtype) for f, t in zip(flats, group)]
+
+
+def _execute_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
+                   leaf_of, base_leaves, cache: EngineCache, *,
+                   kernels: bool) -> Tuple[List[Any], List[Any], bool]:
+    """Fused dispatch over same-dtype, same-contributor leaves: flatten
+    each leaf's k slices, concatenate along the element axis, apply the
+    leaf function ONCE on [k, N], slice the outputs back — byte-equal to
+    leaf-at-a-time execution for elementwise strategies. Returns
+    (outputs, auxs, approximate); approximate=True means a kernel route
+    produced the outputs and the caller must not cache them."""
+    contributors = group[0].contributors
+    ki = len(contributors)
+    cfg = plan.cfg_dict()
+    if kernels and group[0].dtype.is_floating_point:
+        routed = _kernel_batch(strat, plan, group, leaf_of, base_leaves,
+                               cache)
+        if routed is not None:
+            return routed
+        outs = _nary_pallas_batch(strat, group, leaf_of, base_leaves, cfg,
+                                  cache)
+        if outs is not None:
+            return outs, [None] * len(group), True
+    stacked = torch.cat(
+        [torch.stack([leaf_of(j, t).reshape(-1) for j in contributors])
+         for t in group], dim=1)
+    # the per-leaf stacks and the concatenated copy are both live while
+    # cat runs: account 2x
+    cache.note_stacked(2 * int(stacked.nbytes))
+    if base_leaves is None:
+        b = torch.zeros(stacked.shape[1:], dtype=stacked.dtype,
+                        device=stacked.device)
+    else:
+        b = torch.cat([base_leaves[t.index].reshape(-1) for t in group])
+    acc = None
+    if strat.fold is not None and ki >= strat.fold.min_k:
+        kw = dict(strat.defaults)
+        kw.update(cfg)
+        merged, acc = run_fold(strat.fold, stacked, b, **kw)
+    else:
+        merged = strat.apply_leaf(stacked, b, leaf_index=group[0].index,
+                                  seed=plan.seed, **cfg)
+    outs: List[Any] = []
+    auxs: List[Any] = []
+    off = 0
+    for t in group:
+        n = math.prod(t.shape)
+        outs.append(merged[off:off + n].reshape(t.shape))
+        auxs.append(acc[off:off + n].reshape(t.shape)
+                    if acc is not None else None)
+        off += n
+    return outs, auxs, False
+
+
+def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
+          contrib_ids: Optional[Sequence[str]] = None, base: Any = None,
+          seed: int = 0, reduction: Optional[str] = None,
+          use_cache: bool = True,
+          max_batch_bytes: Optional[int] = None, kernels: bool = False,
+          spec: Optional[MergeSpec] = None,
+          cache: Optional[EngineCache] = None, **cfg) -> Any:
+    """Merge an ORDERED contribution list through the engine.
+
+    Byte-identical to `core.resolve.reference_apply` on the same inputs.
+    `kernels=True` is the reference's `pallas=True` (see execute_plan).
+    Takes a MergeSpec (`spec=`) or a strategy name + kwargs.
+    """
+    if not contribs:
+        raise ValueError("merge() requires at least one contribution")
+    spec = _as_spec(spec, strategy_name, reduction, cfg)
+    cache = _cache_or_default(cache)
+    cache.stats["planned_merges"] += 1
+    plan = plan_for(contribs, contrib_ids=contrib_ids,
+                    base=base, seed=seed, spec=spec)
+    return execute_plan(plan, contribs, base=base, use_cache=use_cache,
+                        max_batch_bytes=max_batch_bytes, kernels=kernels,
+                        cache=cache)

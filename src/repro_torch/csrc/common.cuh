@@ -1,0 +1,45 @@
+// Shared helpers for the merge kernels: widening loads and the launch
+// geometry. Every kernel reads its stacked input as fp32 or bf16 and
+// widens in registers (bf16 -> fp32 is exact: the 16 bits are the top
+// half of the fp32 pattern), so a bf16 batch never has an fp32 copy in
+// device memory.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace merge {
+
+__device__ __forceinline__ float widen(float v) { return v; }
+
+__device__ __forceinline__ float widen(uint16_t bits) {
+  return __uint_as_float(static_cast<uint32_t>(bits) << 16);
+}
+
+// NaN-propagating max, as jnp.max: fmaxf would drop a NaN operand.
+__device__ __forceinline__ float nanmax(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+
+// jnp.sign: +1 / -1, and the argument itself for +0, -0 and NaN.
+__device__ __forceinline__ float sign_of(float v) {
+  return v > 0.f ? 1.f : (v < 0.f ? -1.f : v);
+}
+
+// Grid for a grid-stride loop over `items` with `threads` per block:
+// enough blocks to cover the work, capped so huge batches still launch.
+inline unsigned int grid_for(long long items, int threads) {
+  long long blocks = (items + threads - 1) / threads;
+  const long long cap = 132LL * 64;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return static_cast<unsigned int>(blocks);
+}
+
+}  // namespace merge
+
+extern "C" const char* merge_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,33 @@
+"""Hand-written CUDA kernels for the merge engine's flat-batch routes,
+each with its plain PyTorch version beside it (the CPU path and the
+oracle), and a launch count on each wrapper.
+
+  B1 `nary_accum.nary_accum`   linear family        csrc/nary_accum.cu
+  B3 `histogram.block_amax`    histogram-trim TIES  csrc/histogram.cu
+  B4 `histogram.block_hist`    histogram-trim TIES  csrc/histogram.cu
+  B5 `histogram.ties_block`    histogram-trim TIES  csrc/histogram.cu
+"""
+from typing import Dict
+
+from repro_torch.kernels import histogram as _histogram
+from repro_torch.kernels import nary_accum as _nary_accum
+
+WRAPPERS = {"nary_accum": _nary_accum.nary_accum,
+            "block_amax": _histogram.block_amax,
+            "block_hist": _histogram.block_hist,
+            "ties_block": _histogram.ties_block}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+# detcheck tier manifest (docs/ANALYSIS.md):
+# kernel outputs feed merged bytes; launch order never changes them
+DETCHECK_TIER = "deterministic"
