@@ -4,12 +4,22 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/csrc`, holds each
 against its plain PyTorch version at a batch shape the merge engine
-dispatches, then drives the port's main path at Phi-3-mini's full width
-and depth (3,821,079,552 bf16 parameters per model, k = 4
-contributions): `Replica.contribute` -> Merkle root -> seed ->
-`engine.merge(..., kernels=True)` for weight_average, task_arithmetic
-and histogram-trim TIES. At depth 2 it holds the kernel route against
-the exact route (`Replica.resolve`).
+dispatches, then drives the port's main paths at Phi-3-mini's full
+width and depth (3,821,079,552 bf16 parameters per model, k = 4
+contributions), each with the kernel launch counts set to 0 just
+before it and read just after:
+
+  bf16   `Replica.contribute` -> Merkle root -> seed ->
+         `engine.merge(..., kernels=True)` for weight_average,
+         task_arithmetic and histogram-trim TIES;
+  dare   the same contributions through DARE with the kernel RNG
+         (`kernel_env.dare_kernel_rng`), seeded from the Merkle root;
+  int8   the contributions compressed to int8 on the card, merged on
+         arrival (weight_average, task_arithmetic).
+
+At depth 2 it holds the kernel routes against the exact routes
+(`Replica.resolve`, and the exact path over the same int8 payloads),
+and the exact DARE path's threefry draw on the card against the CPU's.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -34,6 +44,9 @@ K = 4                       # contributions per merge
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+# Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: half the rate,
+# on a pipe of its own that issues beside the FP32 one
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 # linear family: kernel route (fp32 accumulate, one bf16 rounding) vs
 # exact route (fp32 fold, one bf16 rounding): one bf16 ulp
 LIN_ATOL, LIN_RTOL = 1e-5, 2.0 ** -7
@@ -43,6 +56,14 @@ LIN_ATOL, LIN_RTOL = 1e-5, 2.0 ** -7
 # ten times that, so a fault in the glue between the three kernels (a
 # threshold one bucket off, one leaf's tiles summed wrongly) fails.
 TIES_MAX_DIFF_SHARE = 1e-3
+# int8: the kernel route dequantizes in fp32, the exact route to bf16
+# first, so the two differ by up to a bf16 rounding of each input.
+# weight_average divides those roundings by k: no element beyond one
+# ulp (the H100 read 0). task_arithmetic sums them: the H100 read
+# 1.06e-2 of elements beyond one ulp at 2 layers; the limit is ten times
+# that, so a route that dequantized with the wrong scale or tile fails.
+QUANT_MAX_DIFF_SHARE = {"weight_average": 0.0, "task_arithmetic": 0.1}
+DARE_P = 0.5
 
 
 def log(msg: str) -> None:
@@ -66,10 +87,17 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops) -> tuple:
+    """(ms, "bytes" | "operations", bytes ms, operations ms): the larger
+    of the bytes over the memory rate and the operations over their peak
+    rate. `ops` counts fp32 operations, or is a pair (fp32, int32); the
+    two pipes issue side by side, so the slower of the two bounds them."""
+    fops, iops = ops if isinstance(ops, tuple) else (ops, 0.0)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = max(fops / FP32_OPS_PER_S, iops / INT32_OPS_PER_S) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", t_bytes, t_ops
+    return t_ops, "operations", t_bytes, t_ops
 
 
 def phase_device() -> dict:
@@ -96,9 +124,11 @@ def phase_build() -> None:
     log(f"[build] nvcc for {sorted(logs)} in parallel: {dt:.1f} s")
 
 
-def main_path_lengths(cfg) -> list:
+def main_path_lengths(cfg, itemsize: int = 2) -> list:
     """Leaf lengths of the largest fused batch the engine dispatches for
-    this model at k = K, from the engine's own packing rule."""
+    this model at k = K, from the engine's own packing rule, with every
+    contribution priced at `itemsize` bytes per element (2: bf16; 1:
+    int8 payloads)."""
     from repro_torch.core.engine import _dispatch_groups, LeafTask
     from repro_torch.models.model import Model
     from repro_torch.models.schema import schema_leaves
@@ -110,20 +140,54 @@ def main_path_lengths(cfg) -> list:
             n *= d
         tasks.append(LeafTask(index=i, path=path, sub_root=b"",
                               shape=pdef.shape, dtype=torch.bfloat16,
-                              stacked_nbytes=K * n * 2,
+                              stacked_nbytes=K * n * itemsize,
                               contributors=tuple(range(K))))
     groups = _dispatch_groups(get_strategy("weight_average"), tasks,
                               max(t.stacked_nbytes for t in tasks))
     big = max((g for g in groups if len(g) > 1),
               key=lambda g: sum(t.stacked_nbytes for t in g))
-    return [t.stacked_nbytes // (K * 2) for t in big]
+    return [t.stacked_nbytes // (K * itemsize) for t in big]
+
+
+def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
+                  ops, src: str, replaces: str) -> None:
+    """One kernel against its plain version (bitwise), then timed: median
+    of 10 CUDA-event-timed launches, the plain version's of 3."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    if got.dtype.is_floating_point:
+        err = float((got - want).abs().max())
+    else:
+        err = float((got.to(torch.int64) - want.to(torch.int64))
+                    .abs().max())
+    if not same:
+        raise AssertionError(f"{name}: kernel != plain version "
+                             f"(max abs err {err})")
+    del got, want
+    ms = cuda_ms(kern, 10)
+    plain_ms = cuda_ms(plain, 3)
+    bms, by, t_bytes, t_ops = bound_ms(nbytes, ops)
+    rows[name] = {"name": name, "route": "cuda", "source": src,
+                  "replaces": replaces, "max_abs_err": err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                  "library_ms": None}
+    log(f"[kernels] {name}: bitwise equal to plain; {ms:.3f} ms "
+        f"(bound {bms:.3f} ms by {by}: {nbytes / 1e9:.2f} GB in "
+        f"{t_bytes:.3f} ms, operations {t_ops:.3f} ms; "
+        f"{nbytes / ms / 1e6:.0f} GB/s); plain "
+        f"{plain_ms:.2f} ms")
 
 
 def phase_kernels(cfg) -> dict:
     """Each kernel against its plain version on one fused batch of the
-    main path (bf16 rows, as the engine dispatches them)."""
+    main path: bf16 rows for B1, B3-B6 (as the engine dispatches them),
+    int8 rows for B2."""
+    from repro_torch.kernels import dare as D
     from repro_torch.kernels import histogram as H
     from repro_torch.kernels import nary_accum as N
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels.common import padded_len
     from repro_torch.kernels.config import kernel_env
     dev = torch.device(DEVICE)
     block, bins = kernel_env.block, kernel_env.hist_bins
@@ -135,7 +199,7 @@ def phase_kernels(cfg) -> dict:
         torch.bfloat16)
     base = torch.randn((npad,), generator=g, device=dev) * 0.02
     w = torch.full((K,), 1.0 / K, device=dev)
-    log(f"[kernels] batch of {len(lengths)} leaves {lengths}: "
+    log(f"[kernels] bf16 batch of {len(lengths)} leaves {lengths}: "
         f"stacked [{K}, {npad}] bf16, {nb} tiles of {block}")
     lid = torch.tensor(leaf_id, device=dev)
     vld = torch.tensor(valid, dtype=torch.int32, device=dev)
@@ -144,7 +208,13 @@ def phase_kernels(cfg) -> dict:
                               for j in range(len(lengths))])[lid]
                  + 1e-12).contiguous()
     thr_meta = (amax_meta * 0.3).contiguous()
+    # (leaf seed, leaf padded length, start column) per tile, as the
+    # engine builds them; seeds near the uint32 wrap
+    dmeta = torch.cat([D.leaf_meta(2 ** 32 - 1 - j, padded_len(n, block),
+                                   block, device=dev)
+                       for j, n in enumerate(lengths)])
     xe = K * npad * 2                       # stacked bytes (bf16)
+    rows: dict = {}
     cases = {
         "nary_accum": (lambda: N.nary_accum(x, base, w),
                        lambda: N.nary_accum_plain(x, base, w),
@@ -169,31 +239,19 @@ def phase_kernels(cfg) -> dict:
                        xe + npad * 4 * 2 + nb * K * 4, 12 * K * npad,
                        "src/repro_torch/csrc/histogram.cu",
                        "src/repro/kernels/histogram.py:141"),
+        # per stacked element: the hash (~17 int32 ops: index, 3
+        # multiplies, 3 shifts, 4 xors, convert, scale, compare) and 4
+        # fp32 ops (sub, 2 mul, add); per column a multiply and an add
+        "dare_block": (lambda: D.dare_block(x, base, dmeta, DARE_P, block),
+                       lambda: D.dare_block_plain(x, base, dmeta, DARE_P,
+                                                  block),
+                       xe + npad * 4 * 2 + nb * 3 * 4,
+                       (4 * K * npad + 2 * npad, 17 * K * npad),
+                       "src/repro_torch/csrc/dare.cu",
+                       "src/repro/kernels/dare.py:45"),
     }
-    rows = {}
     for name, (kern, plain, nbytes, ops, src, replaces) in cases.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        if got.dtype.is_floating_point:
-            same = torch.equal(got, want)
-            err = float((got - want).abs().max())
-        else:
-            same = torch.equal(got, want)
-            err = float((got.to(torch.int64) - want.to(torch.int64))
-                        .abs().max())
-        if not same:
-            raise AssertionError(f"{name}: kernel != plain version "
-                                 f"(max abs err {err})")
-        ms = cuda_ms(kern, 10)
-        plain_ms = cuda_ms(plain, 3)
-        bms, by = bound_ms(nbytes, ops)
-        rows[name] = {"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "max_abs_err": err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                      "library_ms": None}
-        log(f"[kernels] {name}: bitwise equal to plain; {ms:.3f} ms "
-            f"(bound {bms:.3f} ms by {by}, {nbytes / 1e9:.2f} GB; "
-            f"{nbytes / ms / 1e6:.0f} GB/s); plain {plain_ms:.2f} ms")
+        hold_and_time(rows, name, kern, plain, nbytes, ops, src, replaces)
     # B3 keeps a NaN, as jnp.max does (fmaxf alone would drop it)
     xn = torch.zeros((K, 2 * block), dtype=torch.bfloat16, device=dev)
     xn[2, block + 7] = float("nan")
@@ -201,7 +259,39 @@ def phase_kernels(cfg) -> dict:
     if not (bool(torch.isnan(got[1, 2])) and int(torch.isnan(got).sum()) == 1):
         raise AssertionError("block_amax dropped or spread a NaN")
     log("[kernels] block_amax propagates a NaN to its tile only")
-    del x, base
+    # B6 keeps each element with probability 1 - p: with every tau = 1
+    # and base 0, out = (kept rows) * rescale / K exactly, so the kept
+    # share is sum(out) / (npad * rescale)
+    x.fill_(1.0)
+    out = D.dare_block(x, torch.zeros_like(base), dmeta, DARE_P, block)
+    kept = float(out.double().sum()) / (npad * D.rescale_of(DARE_P))
+    if abs(kept - (1 - DARE_P)) > 1e-3:
+        raise AssertionError(f"dare_block kept {kept:.6f}, expected "
+                             f"{1 - DARE_P} within 1e-3")
+    log(f"[kernels] dare_block kept share {kept:.6f} (1 - p = "
+        f"{1 - DARE_P}; limit 1e-3)")
+    del x, out, amax_meta, thr_meta, bmax
+    torch.cuda.empty_cache()
+    # B2 on the largest int8 batch (int8 pricing halves the cap and the
+    # leaves alike)
+    qlengths = main_path_lengths(cfg, itemsize=1)
+    qleaf_id, _, qpad = H.batch_layout(qlengths, block)
+    if qpad != npad:
+        base = torch.randn((qpad,), generator=g, device=dev) * 0.02
+    q = torch.randint(-127, 128, (K, qpad), generator=g, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand((len(qlengths), K), generator=g, device=dev) \
+        * 1e-3 + 1e-5
+    smeta = scales[torch.tensor(qleaf_id, device=dev)].contiguous()
+    log(f"[kernels] int8 batch of {len(qlengths)} leaves {qlengths}: "
+        f"stacked [{K}, {qpad}] int8")
+    hold_and_time(rows, "quant_nary",
+                  lambda: Q.quant_nary(q, base, smeta, w, block),
+                  lambda: Q.quant_nary_plain(q, base, smeta, w, block),
+                  K * qpad + qpad * 4 * 2 + smeta.numel() * 4 + K * 4,
+                  4 * K * qpad + qpad, "src/repro_torch/csrc/quant.cu",
+                  "src/repro/kernels/quant.py:36")
+    del q, base, smeta
     torch.cuda.empty_cache()
     return rows
 
@@ -228,19 +318,87 @@ def make_models(cfg, device):
 STRATEGIES = (("weight_average", {}, False),
               ("task_arithmetic", {"lam": 1.0}, True),
               ("ties", {"trim": 0.2, "trim_method": "histogram"}, True))
+QUANT_STRATEGIES = STRATEGIES[:2]
+DARE_SPEC = ("dare", {"p": DARE_P}, True)
+# the kernels each main path must launch
+PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
+                         "ties_block"),
+                "dare": ("dare_block",), "int8": ("quant_nary",)}
+
+
+def check_output(name: str, out, base) -> None:
+    from repro_torch import pytree
+    for o, b in zip(pytree.leaves(out), pytree.leaves(base)):
+        if o.shape != b.shape or o.dtype != b.dtype:
+            raise AssertionError(f"{name}: output leaf {o.shape} "
+                                 f"{o.dtype} != {b.shape} {b.dtype}")
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{name}: non-finite output")
+
+
+def run_path(path: str, merges, disp) -> dict:
+    """Drive one main path: launch counts set to 0 just before it, read
+    just after; every kernel of the path must have launched and its
+    dispatch counter grown. `merges`: (label, thunk) pairs."""
+    from repro_torch import kernels
+    before = disp.snapshot()
+    kernels.reset_launch_counts()
+    per = {}
+    for label, thunk in merges:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = kernels.launch_counts()
+        t0 = time.perf_counter()
+        thunk()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c1 = kernels.launch_counts()
+        per[label] = ms
+        log(f"[main] {path} {label}: {ms:.0f} ms; launches "
+            f"{ {k: c1[k] - c0[k] for k in c1 if c1[k] > c0[k]} }; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    counts = kernels.launch_counts()
+    for k in PATH_KERNELS[path]:
+        if counts[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 f"{path} main path")
+    grown = disp.grown(before)
+    log(f"[main] {path} path launches {counts}; kernel_dispatch_total "
+        f"grew {grown}")
+    return {"launches": counts, "ms": per, "grown": grown}
+
+
+class Dispatches:
+    """kernel_dispatch_total{kernel=...} of one registry."""
+    KINDS = ("nary_accum", "ties_hist", "dare", "quant_nary")
+
+    def __init__(self, obs):
+        self.c = obs.counter("kernel_dispatch_total")
+
+    def snapshot(self) -> dict:
+        return {k: self.c.value(kernel=k) for k in self.KINDS}
+
+    def grown(self, before: dict) -> dict:
+        now = self.snapshot()
+        return {k: now[k] - before[k] for k in self.KINDS
+                if now[k] > before[k]}
 
 
 def phase_main_path(cfg) -> dict:
-    from repro_torch import kernels, pytree
+    from repro_torch import pytree
     from repro_torch.api import MergeSpec, Replica
     from repro_torch.core import engine
+    from repro_torch.core.compression import compress_tree
     from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.kernels.config import kernel_env
+    from repro_torch.strategies import get_strategy
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     base, contribs = make_models(cfg, DEVICE)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in pytree.leaves(base))
-    log(f"[main] {cfg.name}: {len(pytree.leaves(base))} leaves, {n} "
+    nleaves = len(pytree.leaves(base))
+    log(f"[main] {cfg.name}: {nleaves} leaves, {n} "
         f"parameters per model, {K} contributions + base in bf16 "
         f"({(K + 1) * n * 2 / 1e9:.2f} GB) made in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -258,94 +416,205 @@ def phase_main_path(cfg) -> dict:
     log(f"[main] contribute x{K}: {t_hash:.1f} s "
         f"({K * n * 2 / t_hash / 1e9:.2f} GB/s hashed); merkle root "
         f"{root.hex()[:16]}…; seed {seed}")
-    disp = rep.cache.obs.counter("kernel_dispatch_total")
-    before = {k: disp.value(kernel=k) for k in ("nary_accum", "ties_hist")}
-    kernels.reset_launch_counts()
-    per = {}
-    for name, cfgd, uses_base in STRATEGIES:
-        spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
-        torch.cuda.synchronize()
-        c0 = kernels.launch_counts()
-        t0 = time.perf_counter()
-        out = engine.merge(ordered, spec=spec, contrib_ids=order,
-                           base=base if uses_base else None, seed=seed,
-                           kernels=True, use_cache=False, cache=rep.cache)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        c1 = kernels.launch_counts()
-        got = pytree.leaves(out)
-        for o, b in zip(got, pytree.leaves(base)):
-            if o.shape != b.shape or o.dtype != b.dtype:
-                raise AssertionError(f"{name}: output leaf {o.shape} "
-                                     f"{o.dtype} != {b.shape} {b.dtype}")
-            if not bool(torch.isfinite(o).all()):
-                raise AssertionError(f"{name}: non-finite output")
-        delta = {k: c1[k] - c0[k] for k in c1}
-        per[name] = ms
-        log(f"[main] {name}: {ms:.0f} ms; launches {delta}; peak "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        del out, got
-    counts = kernels.launch_counts()
-    after = {k: disp.value(kernel=k) for k in before}
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the "
-                                 "main path")
-    for k in before:
-        if after[k] <= before[k]:
-            raise AssertionError(f"kernel_dispatch_total{{kernel={k}}} "
-                                 "did not grow")
-    log(f"[main] launches over the three merges: {counts}; "
-        f"kernel_dispatch_total {after}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del base, ordered, rep
+    disp = Dispatches(rep.cache.obs)
+
+    def merge_of(contribs, ids, name, cfgd, uses_base, cache=None):
+        def thunk():
+            spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
+            out = engine.merge(contribs, spec=spec, contrib_ids=ids,
+                               base=base if uses_base else None, seed=seed,
+                               kernels=True, use_cache=False,
+                               cache=cache or rep.cache)
+            check_output(name, out, base)
+        return thunk
+
+    paths = {"bf16": run_path("bf16", [
+        (name, merge_of(ordered, order, name, cfgd, ub))
+        for name, cfgd, ub in STRATEGIES], disp)}
+    if not {"nary_accum", "ties_hist"} <= set(paths["bf16"]["grown"]):
+        raise AssertionError("kernel_dispatch_total{nary_accum, ties_hist} "
+                             "did not grow on the bf16 path")
+
+    # DARE through the kernel RNG, seeded from the Merkle root: the
+    # fused groups launch dare_block; the FFN leaves, each alone in its
+    # group, take the exact threefry path
+    kernel_env.dare_kernel_rng = True
+    try:
+        paths["dare"] = run_path("dare", [("dare", merge_of(
+            ordered, order, *DARE_SPEC))], disp)
+    finally:
+        kernel_env.dare_kernel_rng = False
+    if "dare" not in paths["dare"]["grown"]:
+        raise AssertionError("kernel_dispatch_total{kernel=dare} did not "
+                             "grow")
+
+    # int8 merge-on-arrival: compress on the card, drop the bf16 copies
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cts = [compress_tree(c) for c in ordered]
+    torch.cuda.synchronize()
+    log(f"[main] compress x{K} to int8 on the card: "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads)")
+    del ordered, rep
     torch.cuda.empty_cache()
-    return {"launches": counts, "ms": per}
+    qids = ["int8:" + e for e in order]
+    qcache = engine.EngineCache()
+    # the first int8 merge pays for planning: digests of the four
+    # payloads, dequantized one leaf at a time
+    paths["int8"] = run_path("int8", [
+        (name, merge_of(cts, qids, name, cfgd, ub, cache=qcache))
+        for name, cfgd, ub in QUANT_STRATEGIES], Dispatches(qcache.obs))
+    plan = engine.plan_for(cts, contrib_ids=qids, spec=MergeSpec(
+        "weight_average"))
+    groups = engine._dispatch_groups(
+        get_strategy("weight_average"), list(plan.tasks),
+        max(t.stacked_nbytes for t in plan.tasks))
+    singles = sum(1 for grp in groups if len(grp) == 1)
+    multi = nleaves - singles
+    nq = len(QUANT_STRATEGIES)
+    merged = qcache.obs.counter("engine_quant_leaves_merged_total").value()
+    dequant = qcache.stats["dequant_leaves"]
+    log(f"[main] int8: {multi} leaves in multi-leaf groups, {singles} "
+        f"alone; over {nq} merges engine_quant_leaves_merged_total "
+        f"{merged}, dequant_leaves {dequant} ({K} slices per leaf)")
+    if merged != nq * multi or dequant != nq * K * singles \
+            or merged + dequant // K != nq * nleaves:
+        raise AssertionError("int8 leaves not accounted for: expected "
+                             f"{nq * multi} merged on arrival and "
+                             f"{nq * K * singles} slices densified")
+    if "quant_nary" not in paths["int8"]["grown"]:
+        raise AssertionError("kernel_dispatch_total{kernel=quant_nary} "
+                             "did not grow")
+    del cts, base
+    torch.cuda.empty_cache()
+    launches = {k: sum(p["launches"][k] for p in paths.values())
+                for k in paths["bf16"]["launches"]}
+    return {"launches": launches,
+            "ms": {f"{p} {k}": v for p, d in paths.items()
+                   for k, v in d["ms"].items()}}
+
+
+def ulp_diff(exact, kern) -> tuple:
+    """(elements beyond one bf16 ulp, elements, max abs diff)."""
+    from repro_torch import pytree
+    total = bad = 0
+    worst = 0.0
+    for e, k in zip(pytree.leaves(exact), pytree.leaves(kern)):
+        e32, k32 = e.to(torch.float32), k.to(torch.float32)
+        d = (e32 - k32).abs()
+        worst = max(worst, float(d.max()))
+        bad += int((d > LIN_ATOL + LIN_RTOL * e32.abs()).sum())
+        total += d.numel()
+    return bad, total, worst
+
+
+def report(label: str, bad: int, total: int, worst: float, ok: bool,
+           rule: str) -> None:
+    log(f"[exact-vs-kernels] {label}: max abs diff {worst:.3e}; "
+        f"{bad}/{total} = {bad / total:.2e} beyond one bf16 ulp; rule: "
+        f"{rule}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel route outside tolerance")
 
 
 def phase_exact_vs_kernels(cfg) -> None:
-    """Kernel route against the exact route at full width, depth 2."""
+    """Kernel routes against the exact routes at full width, depth 2;
+    the exact DARE path's threefry draw on the card against the CPU's."""
     from repro_torch import pytree
+    from repro_torch import random as prng
     from repro_torch.api import MergeSpec, Replica
     from repro_torch.core import engine
+    from repro_torch.core.compression import compress_tree
     from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.strategies.base import leaf_key
     cfg = cfg.replace(n_layers=2)
     base, contribs = make_models(cfg, DEVICE)
     rep = Replica("chip-smoke-d2", device=DEVICE)
     for c in contribs:
         rep.contribute(c)
+    del contribs
     ref = rep.register_base(base)
     order = canonical_order(rep.state)
+    ordered = [rep.state.store[i] for i in order]
     seed = seed_from_root(rep.merkle_root())
     for name, cfgd, uses_base in STRATEGIES:
         spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
         exact = rep.resolve(spec, use_cache=False)
-        kern = engine.merge([rep.state.store[i] for i in order], spec=spec,
-                            contrib_ids=order, seed=seed,
-                            base=base if uses_base else None,
+        kern = engine.merge(ordered, spec=spec, contrib_ids=order,
+                            seed=seed, base=base if uses_base else None,
                             kernels=True, use_cache=False)
-        total = bad = 0
-        worst = 0.0
-        for e, k in zip(pytree.leaves(exact), pytree.leaves(kern)):
-            e32, k32 = e.to(torch.float32), k.to(torch.float32)
-            d = (e32 - k32).abs()
-            worst = max(worst, float(d.max()))
-            bad += int((d > LIN_ATOL + LIN_RTOL * e32.abs()).sum())
-            total += d.numel()
-        share = bad / total
+        bad, total, worst = ulp_diff(exact, kern)
         if name == "ties":
-            ok = share <= TIES_MAX_DIFF_SHARE
+            ok = bad / total <= TIES_MAX_DIFF_SHARE
             rule = f"share beyond one bf16 ulp <= {TIES_MAX_DIFF_SHARE}"
         else:
             ok = bad == 0
             rule = f"|exact - kernel| <= {LIN_ATOL} + {LIN_RTOL} |exact|"
-        log(f"[exact-vs-kernels] {name} ({cfg.n_layers} layers): max abs "
-            f"diff {worst:.3e}; {bad}/{total} = {share:.2e} beyond one "
-            f"bf16 ulp; rule: {rule}: {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name}: kernel route outside tolerance")
+        report(f"{name} ({cfg.n_layers} layers)", bad, total, worst, ok,
+               rule)
         del exact, kern
-    del base, contribs, rep
+
+    # int8: merge on arrival (fp32 dequantize in registers) against the
+    # exact path over the same payloads (dequantize to bf16, then fold)
+    cts = [compress_tree(c) for c in ordered]
+    qids = ["int8:" + e for e in order]
+    for name, cfgd, uses_base in QUANT_STRATEGIES:
+        spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
+        kw = dict(spec=spec, contrib_ids=qids, seed=seed,
+                  base=base if uses_base else None, use_cache=False)
+        exact = engine.merge(cts, **kw)
+        kern = engine.merge(cts, kernels=True, **kw)
+        bad, total, worst = ulp_diff(exact, kern)
+        limit = QUANT_MAX_DIFF_SHARE[name]
+        report(f"int8 {name} ({cfg.n_layers} layers)", bad, total, worst,
+               bad / total <= limit,
+               f"share beyond one bf16 ulp <= {limit}")
+        del exact, kern
+    del cts
+
+    # exact DARE (threefry, kernel RNG off) through Replica.resolve
+    spec = MergeSpec(*DARE_SPEC[:2], base_ref=ref)
+    t0 = time.perf_counter()
+    out = rep.resolve(spec, use_cache=False)
+    torch.cuda.synchronize()
+    check_output("dare (exact)", out, base)
+    flat, _ = pytree.flatten_with_path(base)
+    i = max(range(len(flat)), key=lambda j: flat[j][1].numel())
+    path, leaf = pytree.keystr(flat[i][0]), flat[i][1]
+    shape = (len(order),) + tuple(leaf.shape)
+    key = leaf_key(seed, i)
+    m = min(1 << 20, leaf.numel())
+    on_card = prng.uniform(key, shape, torch.float32, count=m,
+                           device=DEVICE).cpu()
+    on_host = prng.uniform(key, shape, torch.float32, count=m,
+                           device="cpu")
+    if not torch.equal(on_card, on_host):
+        raise AssertionError("threefry on the card != threefry on the CPU")
+    # the leaf's first 2^20 merged values, recomputed on the CPU
+    n = leaf.numel()
+    b = leaf.reshape(-1)[:m].cpu()
+    acc = torch.zeros(m)
+    for j, eid in enumerate(order):
+        tau = rep.state.store[eid]
+        tau = pytree.flatten(tau)[0][i].reshape(-1)[:m].cpu() - b
+        keep = prng.bernoulli(key, 1.0 - DARE_P, shape, device="cpu",
+                              start=j * n, count=m).to(tau.dtype)
+        acc += (tau * keep) / torch.tensor(1.0 - DARE_P, dtype=tau.dtype)
+    want = b + (acc * (torch.tensor(1.0) / torch.tensor(
+        float(len(order))))).to(b.dtype)
+    got = pytree.flatten(out)[0][i].reshape(-1)[:m].cpu()
+    differ = int((got != want).sum())
+    log(f"[exact-vs-kernels] dare exact path (Replica.resolve, "
+        f"{cfg.n_layers} layers) in {time.perf_counter() - t0:.1f} s; "
+        f"leaf {path}: threefry draw of its first {m} elements equal on "
+        f"the card and the CPU; merged values vs a CPU recomputation: "
+        f"{differ} of {m} differ, max abs diff "
+        f"{float((got.float() - want.float()).abs().max()):.3e}")
+    if differ:
+        raise AssertionError("exact DARE on the card != its CPU "
+                             "recomputation")
+    del out, base, ordered, rep
     torch.cuda.empty_cache()
 
 

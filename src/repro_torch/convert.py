@@ -6,6 +6,7 @@ with the same bytes, so both packages hash and merge the same values.
 The caller names the device: there is no default, since a merge on the
 card needs its inputs on the card. bf16 crosses through a uint16 view
 (numpy has no native bf16). `to_numpy_tree` goes back.
+`from_numpy_compressed` carries an int8 `CompressedTree` across.
 """
 from __future__ import annotations
 
@@ -41,3 +42,24 @@ def from_numpy_tree(tree: Any, device: Any) -> Any:
 
 def to_numpy_tree(tree: Any) -> Any:
     return pytree.tree_map(_to_numpy, tree)
+
+
+def from_numpy_compressed(ct: Any, device: Any):
+    """The port's `CompressedTree` with the same bytes as a reference
+    one (numpy int8 `q`, `np.float32` scale, dtype name, treedef). The
+    reference's treedef rebuilds its container structure through its
+    own `unflatten` method, so nothing of JAX is imported here."""
+    from repro_torch.core.compression import CompressedLeaf, CompressedTree
+    from repro_torch.dtypes import BY_NAME
+
+    def leaf(cl):
+        q = torch.from_numpy(np.array(cl.q, dtype=np.int8, order="C"))
+        return CompressedLeaf(
+            q.to(device),
+            torch.tensor(float(cl.scale), dtype=torch.float32,
+                         device=device),
+            tuple(cl.shape), BY_NAME[str(cl.dtype)])
+
+    structure = ct.treedef.unflatten(list(ct.leaves))
+    flat, treedef = pytree.flatten(structure)
+    return CompressedTree([leaf(cl) for cl in flat], treedef)

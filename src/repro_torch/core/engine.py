@@ -22,16 +22,22 @@ Sub-root of leaf i of a k-way merge described by a `MergeSpec`:
 
 with d_j,i the `tensor_digest` of contribution j's leaf i in canonical
 order and base_i the base leaf's digest (a fixed marker without base).
-The ported strategies consume no PRNG key, so neither the seed nor the
-leaf index enters.
+For strategies that consume a PRNG key (the DARE family) the seed and
+the leaf index enter too.
 
 Strategies that declare a `LeafFold` resume from the longest cached
 prefix when a leaf's ordered subset grew append-only, bit-equal to the
 full recompute by the LeafFold contract.
 
+Quantized contributions (`CompressedTree`, int8 + fp32 scale per leaf)
+are planned in place: digests describe the dequantized tensors, and
+int8 slices are priced at one byte per element. The exact path
+densifies a slice where it reads it (`engine_events_total{event=
+dequant_leaves}`); with `kernels=True` a linear-family group whose
+every slice is int8 merges through `quant_nary` without densifying.
+
 Not ported yet, and refused rather than approximated: sparse
-contributions (ROADMAP A4), and the int8 and DARE kernel routes (B2,
-B6).
+contributions (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -46,6 +52,9 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.api.spec import coerce_spec, MergeSpec
+from repro_torch.core.compression import (
+    compressed_tree_to_structure, CompressedLeaf, CompressedTree,
+    dequantize_leaf)
 from repro_torch.core.hashing import tensor_digest
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
@@ -53,6 +62,22 @@ from repro_torch.strategies.base import run_fold, Strategy
 
 _DOMAIN_LEAF = b"repro/engine/leaf-subroot/v2"
 _NO_BASE = b"\x00" * 32          # base=None marker (zeros_like base)
+
+
+def _is_qleaf(x: Any) -> bool:
+    return isinstance(x, CompressedLeaf)
+
+
+def _dense_leaf(x: Any, *, obs: Optional[MetricsRegistry]) -> Any:
+    """Densify one payload slice if (and only if) it arrived quantized,
+    with `decompress_tree`'s op, so the exact path stays byte-identical
+    to densify-then-merge. Counted (`engine_events_total{event=
+    dequant_leaves}`): the int8 kernel route never calls this."""
+    if not _is_qleaf(x):
+        return x
+    if obs is not None:
+        obs.counter("engine_events_total").inc(event="dequant_leaves")
+    return dequantize_leaf(x)
 
 
 def _as_spec(spec: Optional[MergeSpec], strategy_name: Optional[str],
@@ -86,6 +111,9 @@ class ContribMeta:
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
     paths: Tuple[str, ...] = ()
+    # per-leaf bytes per element as the payload holds it: 1 for an int8
+    # `CompressedLeaf`, else the dtype's itemsize (batch pricing)
+    itemsizes: Tuple[int, ...] = ()
 
     @property
     def leaf_count(self) -> int:
@@ -98,24 +126,33 @@ _META_MEMO_LIMIT = 1024
 
 def contrib_meta(contribution: Any, *, eid: Optional[str] = None
                  ) -> ContribMeta:
-    """Flatten + digest one contribution; memoized by content id."""
+    """Flatten + digest one contribution; memoized by content id.
+
+    A `CompressedTree` is planned in place: its leaves are the int8
+    payloads, digests are taken on a transient dequantization of one
+    leaf at a time (never the densified model), and each int8 leaf is
+    priced at one byte per element."""
     if eid is not None and eid in _META_MEMO:
         _META_MEMO.move_to_end(eid)
         return _META_MEMO[eid]
+    if isinstance(contribution, CompressedTree):
+        contribution = compressed_tree_to_structure(contribution)
     flat, treedef = pytree.flatten_with_path(contribution)
     leaves = [leaf for _, leaf in flat]
     for leaf in leaves:
-        if not isinstance(leaf, torch.Tensor):
-            raise NotImplementedError(
+        if not isinstance(leaf, (torch.Tensor, CompressedLeaf)):
+            raise TypeError(
                 f"leaf of type {type(leaf).__name__}: the port merges "
-                "torch.Tensor leaves only (int8 wire payloads and their "
-                "merge-on-arrival kernel wait for ROADMAP B2)")
+                "torch.Tensor and CompressedLeaf leaves only")
     meta = ContribMeta(
         treedef=treedef,
-        digests=tuple(tensor_digest(leaf) for leaf in leaves),
+        digests=tuple(tensor_digest(_dense_leaf(leaf, obs=None))
+                      for leaf in leaves),
         shapes=tuple(tuple(leaf.shape) for leaf in leaves),
         dtypes=tuple(leaf.dtype for leaf in leaves),
         paths=tuple(pytree.keystr(p) for p, _ in flat),
+        itemsizes=tuple(1 if _is_qleaf(leaf) else leaf.dtype.itemsize
+                        for leaf in leaves),
     )
     if eid is not None:
         _META_MEMO[eid] = meta
@@ -215,13 +252,16 @@ def plan_merge(metas: Sequence[ContribMeta],
         tasks = []
         for i, path in enumerate(paths):
             digs = tuple(m.digests[i] for m in metas)
-            nbytes = math.prod(first.shapes[i]) * first.dtypes[i].itemsize
+            # int8 contributors stack at wire width: the merge-on-arrival
+            # kernel never densifies them
+            stacked = math.prod(first.shapes[i]) * sum(
+                m.itemsizes[i] for m in metas)
             tasks.append(LeafTask(
                 index=i, path=path,
                 sub_root=_leaf_subroot(frag, base_frags[i], digs,
                                        strat.needs_key, seed, i),
                 shape=first.shapes[i], dtype=first.dtypes[i],
-                stacked_nbytes=k * nbytes, contributors=tuple(range(k)),
+                stacked_nbytes=stacked, contributors=tuple(range(k)),
                 digests=digs, base_frag=base_frags[i]))
     return MergePlan(strategy=spec.strategy, reduction=spec.reduction,
                      seed=seed, k=k, cfg=spec.cfg, treedef=treedef,
@@ -387,11 +427,15 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
     byte cap (default: the largest single leaf's stack).
 
     `kernels=True` is the reference's `pallas=True`: fused batches of the
-    linear family go through the `nary_accum` kernel, and histogram-trim
-    TIES through `block_amax` / `block_hist` / `ties_block` (CUDA for
-    CUDA tensors, their plain versions for CPU tensors). Those outputs
+    linear family go through the `nary_accum` kernel (integer leaves
+    too, truncated back into their dtype as the reference does), or
+    `quant_nary` when every slice is int8; histogram-trim TIES through
+    `block_amax` / `block_hist` / `ties_block`; DARE through
+    `dare_block` when `kernel_env.dare_kernel_rng` is set (CUDA for CUDA
+    tensors, their plain versions for CPU tensors). Those outputs
     accumulate in fp32 and are held to a tolerance, not to the exact
     path's bytes, so they are NEVER written to the sub-root cache.
+    Single-leaf groups take the exact path.
     """
     cache = _cache_or_default(cache)
     strat = get_strategy(plan.strategy)
@@ -427,10 +471,17 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
             if len(contribs) != plan.k:
                 raise ValueError(f"plan expects {plan.k} contributions, "
                                  f"got {len(contribs)}")
-            flat = [plan.treedef.flatten_up_to(c) for c in contribs]
+            flat = [plan.treedef.flatten_up_to(
+                compressed_tree_to_structure(c)
+                if isinstance(c, CompressedTree) else c) for c in contribs]
+
+            def leaf_raw(j: int, t: LeafTask):
+                return flat[j][t.index]
 
             def leaf_of(j: int, t: LeafTask):
-                return flat[j][t.index]
+                # the exact path densifies int8 slices where it reads
+                # them (counted); the int8 kernel route reads leaf_raw
+                return _dense_leaf(flat[j][t.index], obs=cache.obs)
 
             cfg = plan.cfg_dict()
             for t, m, aux in resumes:
@@ -468,7 +519,7 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
                     else:
                         out, auxs, approximate = _execute_batch(
                             strat, plan, group, leaf_of, base_leaves,
-                            cache, kernels=kernels)
+                            cache, kernels=kernels, leaf_raw=leaf_raw)
                         cache.stats["batched_leaves"] += len(group)
                     cache.stats["dispatches"] += 1
                     cache.stats["leaf_tasks"] += len(group)
@@ -553,12 +604,16 @@ def _execute_leaf(strat: Strategy, plan: MergePlan, task: LeafTask,
 def _kernel_route(strat: Strategy, cfg: Dict[str, Any]) -> Optional[str]:
     """The kernel flat-batch route beyond the elementwise nary one, or
     None: "ties_hist" for TIES with the histogram trim (its sort-free
-    threshold keeps per-leaf statistics through batching). DARE is not
-    in the port's catalog yet (ROADMAP A3, B6): `get_strategy` refuses
-    it before a route is chosen."""
+    threshold keeps per-leaf statistics through batching); "dare" for
+    DARE when `kernel_env.dare_kernel_rng` is set (opt-in: the kernel's
+    counter-hash sampler is not the catalog's threefry, so replicas
+    agree only when all of them opt in)."""
+    from repro_torch.kernels.config import kernel_env
     if strat.name == "ties" and \
             str(cfg.get("trim_method", "quantile")) == "histogram":
         return "ties_hist"
+    if strat.name == "dare" and kernel_env.dare_kernel_rng:
+        return "dare"
     return None
 
 
@@ -571,24 +626,59 @@ def _base_row(base_leaves, t: LeafTask, device) -> torch.Tensor:
 
 
 def _kernel_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
-                  leaf_of, base_leaves, cache: EngineCache
+                  leaf_raw, base_leaves, cache: EngineCache
                   ) -> Optional[Tuple[List[Any], List[Any], bool]]:
-    """The histogram-TIES flat batch: three launches for the group,
-    keeping per-leaf tile boundaries so per-leaf thresholds survive
-    batching. None when the group takes no such route."""
-    cfg = plan.cfg_dict()
-    if not group[0].dtype.is_floating_point \
-            or _kernel_route(strat, cfg) != "ties_hist":
-        return None
+    """Kernel-frontier dispatch for a group of same-dtype float leaves,
+    keeping per-leaf tile boundaries so per-leaf statistics survive
+    batching. Routes, in the reference's order: histogram-trim TIES
+    (three launches); counter-RNG DARE (opt-in; leaf i's seed is
+    `plan.seed + i`, low 32 bits); int8 merge-on-arrival for
+    linear-family groups whose every slice arrived quantized, which
+    never densifies a slice. None when no route applies; else (outs,
+    auxs, True): fp32-accumulated tolerance outputs, never cached."""
     from repro_torch.kernels import ops as kops
-    rows = [[leaf_of(j, t).reshape(-1) for j in t.contributors]
-            for t in group]
-    device = rows[0][0].device
-    bases = [_base_row(base_leaves, t, device) for t in group]
-    cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
-    flats = kops.ties_batch_merge(rows, bases, float(cfg.get("trim", 0.2)))
+    cfg = plan.cfg_dict()
+    if not group[0].dtype.is_floating_point:
+        return None
+    route = _kernel_route(strat, cfg)
+
+    def dense_rows(t: LeafTask):
+        return [_dense_leaf(leaf_raw(j, t), obs=cache.obs).reshape(-1)
+                for j in t.contributors]
+
+    if route in ("ties_hist", "dare"):
+        rows = [dense_rows(t) for t in group]
+        device = rows[0][0].device
+        bases = [_base_row(base_leaves, t, device) for t in group]
+        cache.note_stacked(2 * sum(int(x.nbytes) for r in rows for x in r))
+        if route == "ties_hist":
+            flats = kops.ties_batch_merge(rows, bases,
+                                          float(cfg.get("trim", 0.2)))
+        else:
+            flats = kops.dare_batch_merge(
+                rows, bases, [plan.seed + t.index for t in group],
+                float(cfg.get("p", 0.5)))
+        kernel = route
+    else:
+        form = _nary_weights(strat.name, group[0].k, cfg)
+        if form is None:
+            return None
+        raw = [[leaf_raw(j, t) for j in t.contributors] for t in group]
+        if not all(_is_qleaf(x) for slices in raw for x in slices):
+            return None
+        weights, uses_base = form
+        device = raw[0][0].q.device
+        bases = [_base_row(base_leaves if uses_base else None, t, device)
+                 for t in group]
+        cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
+        flats = kops.quant_batch_merge(
+            [[x.q.reshape(-1) for x in slices] for slices in raw],
+            [torch.stack([x.scale for x in slices]) for slices in raw],
+            bases, weights)
+        kernel = "quant_nary"
+        cache.obs.counter("engine_quant_leaves_merged_total").inc(len(group))
     cache.stats["pallas_dispatches"] += 1
-    cache.obs.counter("kernel_dispatch_total").inc(kernel="ties_hist")
+    cache.obs.counter("kernel_dispatch_total").inc(kernel=kernel)
     outs = [f.reshape(t.shape).to(t.dtype) for f, t in zip(flats, group)]
     return outs, [None] * len(group), True
 
@@ -638,18 +728,25 @@ def _nary_pallas_batch(strat: Strategy, group: List[LeafTask], leaf_of,
 
 def _execute_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
                    leaf_of, base_leaves, cache: EngineCache, *,
-                   kernels: bool) -> Tuple[List[Any], List[Any], bool]:
+                   kernels: bool, leaf_raw
+                   ) -> Tuple[List[Any], List[Any], bool]:
     """Fused dispatch over same-dtype, same-contributor leaves: flatten
     each leaf's k slices, concatenate along the element axis, apply the
     leaf function ONCE on [k, N], slice the outputs back — byte-equal to
     leaf-at-a-time execution for elementwise strategies. Returns
     (outputs, auxs, approximate); approximate=True means a kernel route
-    produced the outputs and the caller must not cache them."""
+    produced the outputs and the caller must not cache them.
+
+    With `kernels`, as in the reference: float groups try the kernel
+    frontier (`_kernel_batch`, reading raw int8 slices through
+    `leaf_raw`); then every linear-family group, integer ones included,
+    takes `nary_accum`, whose fp32 output is cast back into the leaf
+    dtype (truncating toward zero for integers, as `astype` does)."""
     contributors = group[0].contributors
     ki = len(contributors)
     cfg = plan.cfg_dict()
-    if kernels and group[0].dtype.is_floating_point:
-        routed = _kernel_batch(strat, plan, group, leaf_of, base_leaves,
+    if kernels:
+        routed = _kernel_batch(strat, plan, group, leaf_raw, base_leaves,
                                cache)
         if routed is not None:
             return routed

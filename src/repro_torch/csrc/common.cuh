@@ -28,6 +28,31 @@ __device__ __forceinline__ float sign_of(float v) {
   return v > 0.f ? 1.f : (v < 0.f ? -1.f : v);
 }
 
+// VEC adjacent columns of one row, widened to fp32: fp32 rows in 16-byte
+// float4 loads, bf16 rows in 16-byte loads of 8 values each.
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; j += 4) {
+    float4 q = *reinterpret_cast<const float4*>(p + j);
+    v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const uint16_t* p, float (&v)[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; j += 8) {
+    uint4 q = *reinterpret_cast<const uint4*>(p + j);
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      v[j + 2 * h] = __uint_as_float(w[h] << 16);
+      v[j + 2 * h + 1] = __uint_as_float(w[h] & 0xFFFF0000u);
+    }
+  }
+}
+
 // Grid for a grid-stride loop over `items` with `threads` per block:
 // enough blocks to cover the work, capped so huge batches still launch.
 inline unsigned int grid_for(long long items, int threads) {

@@ -18,29 +18,6 @@
 
 namespace {
 
-template <int VEC>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
-#pragma unroll
-  for (int j = 0; j < VEC; j += 4) {
-    float4 q = *reinterpret_cast<const float4*>(p + j);
-    v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const uint16_t* p, float (&v)[VEC]) {
-#pragma unroll
-  for (int j = 0; j < VEC; j += 8) {
-    uint4 q = *reinterpret_cast<const uint4*>(p + j);
-    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      v[j + 2 * h] = __uint_as_float(w[h] << 16);
-      v[j + 2 * h + 1] = __uint_as_float(w[h] & 0xFFFF0000u);
-    }
-  }
-}
-
 template <typename T, int VEC>
 __global__ void nary_accum_kernel(const T* __restrict__ x,
                                   const float* __restrict__ base,
@@ -54,11 +31,11 @@ __global__ void nary_accum_kernel(const T* __restrict__ x,
        v < nvec; v += stride) {
     const long long c = v * VEC;
     float b[VEC], acc[VEC], xv[VEC];
-    load_row<VEC>(base + c, b);
+    merge::load_row<VEC>(base + c, b);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
     for (int i = 0; i < k; ++i) {
-      load_row<VEC>(x + static_cast<long long>(i) * np + c, xv);
+      merge::load_row<VEC>(x + static_cast<long long>(i) * np + c, xv);
       const float wi = w[i];
 #pragma unroll
       for (int j = 0; j < VEC; ++j)

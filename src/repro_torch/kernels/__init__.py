@@ -6,16 +6,22 @@ oracle), and a launch count on each wrapper.
   B3 `histogram.block_amax`    histogram-trim TIES  csrc/histogram.cu
   B4 `histogram.block_hist`    histogram-trim TIES  csrc/histogram.cu
   B5 `histogram.ties_block`    histogram-trim TIES  csrc/histogram.cu
+  B2 `quant.quant_nary`        int8 linear family   csrc/quant.cu
+  B6 `dare.dare_block`         counter-RNG DARE     csrc/dare.cu
 """
 from typing import Dict
 
+from repro_torch.kernels import dare as _dare
 from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import nary_accum as _nary_accum
+from repro_torch.kernels import quant as _quant
 
 WRAPPERS = {"nary_accum": _nary_accum.nary_accum,
             "block_amax": _histogram.block_amax,
             "block_hist": _histogram.block_hist,
-            "ties_block": _histogram.ties_block}
+            "ties_block": _histogram.ties_block,
+            "quant_nary": _quant.quant_nary,
+            "dare_block": _dare.dare_block}
 
 
 def launch_counts() -> Dict[str, int]:

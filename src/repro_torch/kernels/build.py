@@ -24,12 +24,13 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("nary_accum", "histogram")
+SOURCES = ("nary_accum", "histogram", "quant", "dare")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures: every function returns a cudaError_t as int
 SIGNATURES: Dict[str, Tuple[str, List]] = {
     "nary_accum_f32": ("nary_accum", [_P, _P, _P, _P, _I, _L, _P]),
@@ -42,6 +43,9 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
                                       _P]),
     "ties_block_f32": ("histogram", [_P, _P, _P, _P, _I, _L, _I, _P]),
     "ties_block_bf16": ("histogram", [_P, _P, _P, _P, _I, _L, _I, _P]),
+    "quant_nary": ("quant", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
+    "dare_block_f32": ("dare", [_P, _P, _P, _P, _I, _L, _I, _F, _F, _P]),
+    "dare_block_bf16": ("dare", [_P, _P, _P, _P, _I, _L, _I, _F, _F, _P]),
 }
 
 

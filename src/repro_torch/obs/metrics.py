@@ -101,9 +101,14 @@ declare("engine_sparse_leaves_skipped", "gauge",
         deterministic=True)
 declare("kernel_dispatch_total", "counter",
         "Kernel-frontier flat-batch dispatches by kernel (nary_accum, "
-        "ties_hist) — engine_events_total{event=pallas_dispatches} "
-        "stays as the all-kernel sum, under the reference's name",
+        "ties_hist, dare, quant_nary) — engine_events_total{event="
+        "pallas_dispatches} stays as the all-kernel sum, under the "
+        "reference's name",
         labels=("kernel",), deterministic=True)
+declare("engine_quant_leaves_merged_total", "counter",
+        "Leaves merged directly from int8 wire payloads by the "
+        "merge-on-arrival kernel (dequantized in registers; no "
+        "densified copy in device memory)", deterministic=True)
 declare("resolve_fold_updates_total", "counter",
         "Contributions folded into cached accumulators by prefix-fold "
         "resumption (per EngineCache)", deterministic=True)

@@ -18,10 +18,13 @@ left fold over the ordered contributions of ONE leaf, driven by
 `run_fold` for both the full recompute and the engine's resumption
 from a cached accumulator, so the two are bit-equal by construction.
 
-Two flags of the reference's other strategies stay, at their
-defaults, because the engine reads them: `needs_key` (sub-roots) and
-`binary_only` (batching, the spec fragment). No ported strategy sets
-them; the rest of the catalog is ROADMAP A3.
+Stochastic strategies (`needs_key`) get a threefry key per leaf,
+`fold_in(PRNGKey(seed & 0x7FFFFFFF), leaf_index)` with the leaf's global
+flatten index, from `repro_torch.random`, which draws `jax.random`'s
+bits: both protocols derive the same key, so per-leaf execution equals
+the whole-tree path bitwise, and both equal the reference's draws.
+`binary_only` stays at its default (no ported strategy sets it) because
+the engine reads it; the rest of the catalog is ROADMAP A3.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import pytree
+from repro_torch import random as prng
 
 
 @dataclass(frozen=True)
@@ -72,7 +76,7 @@ class Strategy:
     fn: Callable                 # fn(stacked_tree, base_tree, seed, **cfg)
     binary_only: bool = False
     defaults: Dict[str, Any] = field(default_factory=dict)
-    leaf_fn: Optional[Callable] = None  # leaf_fn(stacked[k,...], base)
+    leaf_fn: Optional[Callable] = None  # leaf_fn(stacked[k,...], base, [key])
     needs_key: bool = False           # leaf_fn consumes a PRNG key
     elementwise: bool = False         # reduces only over the k axis
     cfg_schema: Optional[Dict[str, Tuple[type, Any]]] = None
@@ -94,9 +98,14 @@ class Strategy:
 
     def apply_leaf(self, stacked, base, *, leaf_index: int = 0,
                    seed: int = 0, **cfg) -> Any:
-        """Merge ONE leaf: stacked [k, ...] slices + base leaf."""
+        """Merge ONE leaf: stacked [k, ...] slices + base leaf. A
+        stochastic strategy's key is derived as `leafwise` derives it,
+        from the seed and the global leaf index."""
         kw = dict(self.defaults)
         kw.update(cfg)
+        if self.needs_key:
+            return self.leaf_fn(stacked, base, leaf_key(seed, leaf_index),
+                                **kw)
         return self.leaf_fn(stacked, base, **kw)
 
     @property
@@ -127,11 +136,21 @@ def list_strategies() -> List[str]:
     return sorted(REGISTRY)
 
 
-def leafwise(leaf_fn: Callable) -> Callable:
-    """Lift a per-leaf function (stacked [k,...], base) -> leaf."""
+def leaf_key(seed: int, leaf_index: int) -> prng.Key:
+    """The key of leaf `leaf_index` of a merge seeded `seed`."""
+    return prng.fold_in(prng.PRNGKey(seed & 0x7FFFFFFF), leaf_index)
+
+
+def leafwise(leaf_fn: Callable, needs_key: bool = False) -> Callable:
+    """Lift a per-leaf function (stacked [k,...], base, [key]) -> leaf."""
     def nary(stacked, base, seed, **cfg):
         leaves_s, treedef = pytree.flatten(stacked)
         leaves_b = treedef.flatten_up_to(base)
-        return treedef.unflatten([leaf_fn(sl, bl, **cfg)
-                                  for sl, bl in zip(leaves_s, leaves_b)])
+        outs = []
+        for i, (sl, bl) in enumerate(zip(leaves_s, leaves_b)):
+            if needs_key:
+                outs.append(leaf_fn(sl, bl, leaf_key(seed, i), **cfg))
+            else:
+                outs.append(leaf_fn(sl, bl, **cfg))
+        return treedef.unflatten(outs)
     return nary

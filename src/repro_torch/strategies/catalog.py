@@ -1,8 +1,10 @@
 """The ported strategies of `repro.strategies.catalog`, in PyTorch.
 
-Five of the reference's 26: the linear family (weight_average, linear,
-task_arithmetic, negative_merge) with their LeafFolds, and ties with
-both trims (the exact quantile and the 512-bucket histogram). The rest
+Eight of the reference's 26: the linear family (weight_average, linear,
+task_arithmetic, negative_merge) with their LeafFolds, ties with both
+trims (the exact quantile and the 512-bucket histogram), and the DARE
+family (dare, dare_ties, della), whose masks come from
+`repro_torch.random`'s threefry, bit-equal to `jax.random`. The rest
 wait for ROADMAP A3; `get_strategy` names it.
 
 Conventions: `s` is the stacked contributions [k, ...]; `b` the base
@@ -19,12 +21,22 @@ be held bitwise against the reference where the op order is pinned:
   * sums over the k axis run in index order from zero (`_ksum`), with
     fp32 accumulation for bf16/fp16 as `jnp.sum` upcasts them;
   * histogram counts are exact integers (`torch.bincount`); the
-    reference counts in fp32, which agrees below 2^24 per bucket.
+    reference counts in fp32, which agrees below 2^24 per bucket;
+  * a mean over k is `_ksum`'s sum times the reciprocal of k, then the
+    cast (`jnp.mean` upcasts half precision the same way; see
+    `_kmean_fin`);
+  * random masks are drawn one contribution (row) at a time, in slices
+    of the flat index, so a [k, 805M] leaf never holds its 64-bit
+    counters at once; element i of a draw depends only on the key and
+    i, so the slices equal the whole draw.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch import random as prng
 from repro_torch.strategies.base import LeafFold, leafwise, register, \
     run_fold, Strategy
 
@@ -45,6 +57,22 @@ def _ksum(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
         acc = acc + x[i].to(acc_dt)
     acc = acc.to(x.dtype)
     return acc.unsqueeze(0) if keepdim else acc
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
+def _kmean_fin(acc: torch.Tensor, k: int, dtype: torch.dtype
+               ) -> torch.Tensor:
+    """The end of a mean over k from its `_ksum`-order accumulator.
+    `jnp.mean` is jitted, and XLA turns its division by k into a
+    multiply by the reciprocal 1/k rounded in the accumulator's dtype
+    (probed: not bitwise `sum / k` for k = 3, 5, 9), so the port
+    multiplies too."""
+    recip = _const(1.0, acc) / _const(float(k), acc)
+    return (acc * recip).to(dtype)
 
 
 def _fl(x):
@@ -212,15 +240,75 @@ def _ties_nd_histogram(s, b, trim, bins=512):
     return b + _elect_mean(trimmed)
 
 
+def _bernoulli_row(key, p: float, shape, j: int, like: torch.Tensor
+                   ) -> torch.Tensor:
+    """Row j (flat indices [j * n, (j + 1) * n)) of `jax.random.bernoulli(
+    key, p, shape)`, as 0/1 in `like`'s dtype and shape[1:]."""
+    n = math.prod(shape[1:])
+    pdt = prng.p_dtype(like.dtype)
+    out = torch.empty(n, dtype=like.dtype, device=like.device)
+    for s in range(0, n, prng.CHUNK):
+        c = min(prng.CHUNK, n - s)
+        out[s:s + c] = prng.bernoulli(key, p, shape, dtype=pdt,
+                                      start=j * n + s, count=c,
+                                      device=like.device)
+    return out.reshape(tuple(shape[1:]))
+
+
+def _dare(s, b, key, p=0.5, **kw):
+    """b + mean_k(tau * mask / (1 - p)), mask ~ Bernoulli(1 - p), one
+    contribution at a time."""
+    k = s.shape[0]
+    acc = None
+    for j in range(k):
+        tau = s[j] - b
+        kept = tau.mul_(_bernoulli_row(key, 1.0 - p, s.shape, j, tau)) \
+            .div_(_const(1.0 - p, tau))
+        if acc is None:
+            acc = torch.zeros(tau.shape, dtype=_acc_dtype(tau.dtype),
+                              device=tau.device)
+        acc.add_(kept)
+        del tau, kept
+    return b + _kmean_fin(acc, k, torch.result_type(s, b))
+
+
+def _dare_ties(s, b, key, p=0.5, **kw):
+    tau = _fl(s - b)
+    c = _const(1.0 - p, tau)
+    for j in range(tau.shape[0]):
+        tau[j].mul_(_bernoulli_row(key, 1.0 - p, tau.shape, j, tau)).div_(c)
+    return b + _elect_mean(tau).reshape(s.shape[1:])
+
+
+def _della(s, b, key, p_min=0.2, p_max=0.8, **kw):
+    """Magnitude-based sampling: low-|tau| entries drop more often."""
+    tau = _fl(s - b)
+    k, n = tau.shape
+    r = torch.argsort(torch.argsort(tau.abs(), dim=1, stable=True), dim=1,
+                      stable=True).to(tau.dtype)
+    r = r / _const(float(max(n - 1, 1)), r)
+    p_drop = _const(p_max, r) - _const(p_max - p_min, r) * r
+    del r
+    u = prng.uniform(key, tau.shape, tau.dtype, device=tau.device)
+    keep = (u >= p_drop).to(tau.dtype)
+    del u
+    kept = tau * keep / torch.maximum(_const(1.0, p_drop) - p_drop,
+                                      _const(1e-3, p_drop))
+    acc = torch.zeros(n, dtype=_acc_dtype(tau.dtype), device=tau.device)
+    for j in range(k):
+        acc = acc + kept[j].to(acc.dtype)
+    return b + _kmean_fin(acc, k, tau.dtype).reshape(s.shape[1:])
+
+
 # ------------------------------------------------------------------ registry
 
 
-def _reg(name, leaf_fn, *, schema, elementwise=False, fold=None,
-         **defaults):
-    register(Strategy(name=name, fn=leafwise(leaf_fn),
+def _reg(name, leaf_fn, *, schema, needs_key=False, elementwise=False,
+         fold=None, **defaults):
+    register(Strategy(name=name, fn=leafwise(leaf_fn, needs_key=needs_key),
                       defaults=defaults, leaf_fn=leaf_fn,
-                      elementwise=elementwise, cfg_schema=dict(schema),
-                      fold=fold))
+                      needs_key=needs_key, elementwise=elementwise,
+                      cfg_schema=dict(schema), fold=fold))
 
 
 # `schema` mirrors the reference's declaration exactly — names, types
@@ -236,3 +324,7 @@ _reg("negative_merge", _negative_merge, elementwise=True,
      schema={"lam": (float, 0.5)}, fold=NEGATIVE_FOLD)
 _reg("ties", _ties,
      schema={"trim": (float, 0.2), "trim_method": (str, "quantile")})
+_reg("dare", _dare, needs_key=True, schema={"p": (float, 0.5)})
+_reg("dare_ties", _dare_ties, needs_key=True, schema={"p": (float, 0.5)})
+_reg("della", _della, needs_key=True,
+     schema={"p_min": (float, 0.2), "p_max": (float, 0.8)})

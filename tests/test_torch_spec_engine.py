@@ -215,7 +215,7 @@ def test_unported_paths_raise():
     cs, _ = _contribs(seed=6)
     tc = [convert.from_numpy_tree(c, "cpu") for c in cs]
     with pytest.raises(KeyError, match="ROADMAP A3"):
-        get_strategy("dare")
+        get_strategy("fisher_merge")
     rep = Replica("r", device="cpu")
     for c in tc:
         rep.contribute(c)
