@@ -14,12 +14,18 @@ before it and read just after:
          task_arithmetic and histogram-trim TIES;
   dare   the same contributions through DARE with the kernel RNG
          (`kernel_env.dare_kernel_rng`), seeded from the Merkle root;
+  perleaf  the per-leaf kernel API over the same bf16 trees:
+           `kernels.slerp_merge(c0, c1)`, `kernels.ties_merge(...,
+           trim_method="quantile")` and `kernels.task_arithmetic_merge`;
   int8   the contributions compressed to int8 on the card, merged on
          arrival (weight_average, task_arithmetic).
 
 At depth 2 it holds the kernel routes against the exact routes
 (`Replica.resolve`, and the exact path over the same int8 payloads),
-and the exact DARE path's threefry draw on the card against the CPU's.
+the per-leaf slerp and quantile-TIES kernels against `Replica.resolve`
+(slerp at k = 2, and at k = 4 folded in sequence and as a tree, each
+also over fp32 copies against `reference_apply`), and the exact DARE
+path's threefry draw on the card against the CPU's.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -64,6 +70,25 @@ TIES_MAX_DIFF_SHARE = 1e-3
 # that, so a route that dequantized with the wrong scale or tile fails.
 QUANT_MAX_DIFF_SHARE = {"weight_average": 0.0, "task_arithmetic": 0.1}
 DARE_P = 0.5
+# per-leaf API at depth 2 against Replica.resolve. The exact path runs
+# slerp in bf16 arithmetic (norms, cosine, magnitude each rounded to
+# bf16), a scale error on every element, and each fold step rounds and
+# feeds the next: the H100 read shares of 6.85e-2 (k = 2), 0.470 (k = 4
+# in sequence) and 0.378 (as a tree) beyond one bf16 ulp at 2 layers.
+# Ten times those would exceed 1, so the slerp limits are 1.5 times the
+# reading (the data is seeded; the share moves only if the arithmetic
+# does). The fp32 checks, the exact path and the kernels over fp32 copies
+# of the same contributions (k = 2, and k = 4 in sequence and as a tree),
+# hold the kernels and the fold order themselves: no element may lie
+# beyond 1e-6 + 1e-5 |exact| (the H100 read 0 at k = 2, max abs diff
+# 2.2e-8). Quantile TIES: the exact path trims in bf16, the kernel in
+# fp32, as for histogram TIES; the H100 read 3.36e-4, limit ten times
+# that.
+PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
+                          "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
+                          "slerp k=4 fold fp32": 0.0,
+                          "slerp k=4 tree fp32": 0.0,
+                          "ties quantile": 3.4e-3}
 
 
 def log(msg: str) -> None:
@@ -150,9 +175,12 @@ def main_path_lengths(cfg, itemsize: int = 2) -> list:
 
 
 def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
-                  ops, src: str, replaces: str) -> None:
+                  ops, src: str, replaces: str, library=None,
+                  library_note: str = "") -> None:
     """One kernel against its plain version (bitwise), then timed: median
-    of 10 CUDA-event-timed launches, the plain version's of 3."""
+    of 10 CUDA-event-timed launches, the plain version's of 3, and the
+    one PyTorch call computing the same function (`library`), where
+    there is one, of 10; else `library_note` says why there is none."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     same = torch.equal(got, want)
@@ -167,16 +195,21 @@ def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
     del got, want
     ms = cuda_ms(kern, 10)
     plain_ms = cuda_ms(plain, 3)
+    lib_ms = cuda_ms(library, 10) if library is not None else None
     bms, by, t_bytes, t_ops = bound_ms(nbytes, ops)
     rows[name] = {"name": name, "route": "cuda", "source": src,
                   "replaces": replaces, "max_abs_err": err, "ms": ms,
                   "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                  "library_ms": None}
+                  "library_ms": lib_ms}
+    if library is None:
+        rows[name]["library_note"] = library_note
     log(f"[kernels] {name}: bitwise equal to plain; {ms:.3f} ms "
         f"(bound {bms:.3f} ms by {by}: {nbytes / 1e9:.2f} GB in "
         f"{t_bytes:.3f} ms, operations {t_ops:.3f} ms; "
         f"{nbytes / ms / 1e6:.0f} GB/s); plain "
-        f"{plain_ms:.2f} ms")
+        f"{plain_ms:.2f} ms; library "
+        + (f"{lib_ms:.3f} ms" if lib_ms is not None else
+           f"none ({library_note})"))
 
 
 def phase_kernels(cfg) -> dict:
@@ -215,6 +248,11 @@ def phase_kernels(cfg) -> dict:
                        for j, n in enumerate(lengths)])
     xe = K * npad * 2                       # stacked bytes (bf16)
     rows: dict = {}
+    # B1's library call: one addmm over an fp32 copy of the stack,
+    # base * (1 - sum w) + w @ x = base + sum_i w_i (x_i - base) (cuBLAS
+    # takes no bf16 rows into an fp32 result)
+    xf = x.to(torch.float32)
+    beta = 1.0 - float(w.sum())
     cases = {
         "nary_accum": (lambda: N.nary_accum(x, base, w),
                        lambda: N.nary_accum_plain(x, base, w),
@@ -250,8 +288,13 @@ def phase_kernels(cfg) -> dict:
                        "src/repro_torch/csrc/dare.cu",
                        "src/repro/kernels/dare.py:45"),
     }
+    library = {"nary_accum": lambda: torch.addmm(base, w[None], xf,
+                                                 beta=beta)}
     for name, (kern, plain, nbytes, ops, src, replaces) in cases.items():
-        hold_and_time(rows, name, kern, plain, nbytes, ops, src, replaces)
+        hold_and_time(rows, name, kern, plain, nbytes, ops, src, replaces,
+                      library=library.get(name),
+                      library_note=NO_LIBRARY.get(name, ""))
+    del xf, library
     # B3 keeps a NaN, as jnp.max does (fmaxf alone would drop it)
     xn = torch.zeros((K, 2 * block), dtype=torch.bfloat16, device=dev)
     xn[2, block + 7] = float("nan")
@@ -290,10 +333,62 @@ def phase_kernels(cfg) -> dict:
                   lambda: Q.quant_nary_plain(q, base, smeta, w, block),
                   K * qpad + qpad * 4 * 2 + smeta.numel() * 4 + K * 4,
                   4 * K * qpad + qpad, "src/repro_torch/csrc/quant.cu",
-                  "src/repro/kernels/quant.py:36")
+                  "src/repro/kernels/quant.py:36",
+                  library_note=NO_LIBRARY["quant_nary"])
     del q, base, smeta
     torch.cuda.empty_cache()
+    phase_perleaf_kernels(rows, g)
     return rows
+
+
+def phase_perleaf_kernels(rows: dict, g) -> None:
+    """B7 and B8 against their plain versions at the per-leaf path's
+    largest leaf, an FFN weight of 32 x 3072 x 8192 = 805,306,368
+    elements (a multiple of the tile, so no padding): B7 on K bf16 rows,
+    B8 on two. B8's library calls take an fp32 copy of the two rows
+    (cuBLAS takes no bf16 rows into fp32 sums): the three dot products
+    as `X @ X.T`, the combine as `c @ X`."""
+    from repro_torch.kernels import slerp as S
+    from repro_torch.kernels import ties as T
+    from repro_torch.kernels.config import kernel_env
+    dev = torch.device(DEVICE)
+    block = kernel_env.block
+    n = FFN_LEAF
+    x = (torch.randn((K, n), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    base = torch.randn((n,), generator=g, device=dev) * 0.02
+    thr = torch.rand((K,), generator=g, device=dev) * 0.01
+    nb = n // block
+    log(f"[kernels] per-leaf FFN leaf: [{K}, {n}] bf16 rows")
+    # per stacked element: sub, abs, compare, mul, add; then sign,
+    # compare, add, mul, add; per column a division, a max and an add
+    hold_and_time(rows, "ties_leaf",
+                  lambda: T.ties_leaf(x, base, thr, block),
+                  lambda: T.ties_leaf_plain(x, base, thr, block),
+                  K * n * 2 + n * 4 * 2 + K * 4, 10 * K * n + 3 * n,
+                  "src/repro_torch/csrc/ties.cu",
+                  "src/repro/kernels/ties.py:44",
+                  library_note="no torch call trims each row at its own "
+                  "threshold and means the sign-agreeing entries")
+    u, v = x[0], x[1]
+    c = torch.tensor([0.6, 0.4], device=dev)
+    xf = torch.stack([u, v]).to(torch.float32)
+    hold_and_time(rows, "slerp_reduce",
+                  lambda: S.slerp_reduce(u, v, block),
+                  lambda: S.slerp_reduce_plain(u, v, block),
+                  2 * n * 2 + nb * 3 * 4, 6 * n,
+                  "src/repro_torch/csrc/slerp.cu",
+                  "src/repro/kernels/slerp.py:36",
+                  library=lambda: torch.mm(xf, xf.T))
+    hold_and_time(rows, "slerp_combine",
+                  lambda: S.slerp_combine(u, v, c, block),
+                  lambda: S.slerp_combine_plain(u, v, c, block),
+                  2 * n * 2 + n * 4 + 2 * 4, 3 * n,
+                  "src/repro_torch/csrc/slerp.cu",
+                  "src/repro/kernels/slerp.py:36",
+                  library=lambda: torch.mm(c.view(1, 2), xf))
+    del x, xf, base, u, v
+    torch.cuda.empty_cache()
 
 
 def make_models(cfg, device):
@@ -315,6 +410,19 @@ def make_models(cfg, device):
     return base, contribs
 
 
+# why no single PyTorch call computes these kernels' functions
+NO_LIBRARY = {
+    "block_amax": "no single torch call takes |x - base| per tile and "
+                  "contribution",
+    "block_hist": "no single torch call histograms |x - base| / amax per "
+                  "tile and contribution",
+    "ties_block": "no single torch call trims each tile at its own "
+                  "thresholds and means the sign-agreeing entries",
+    "dare_block": "torch has no counter-hash RNG call",
+    "quant_nary": "no torch call dequantizes int8 rows with per-tile "
+                  "scales and accumulates",
+}
+FFN_LEAF = 32 * 3072 * 8192     # Phi-3-mini's largest leaf (w_up et al.)
 STRATEGIES = (("weight_average", {}, False),
               ("task_arithmetic", {"lam": 1.0}, True),
               ("ties", {"trim": 0.2, "trim_method": "histogram"}, True))
@@ -323,7 +431,10 @@ DARE_SPEC = ("dare", {"p": DARE_P}, True)
 # the kernels each main path must launch
 PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                          "ties_block"),
-                "dare": ("dare_block",), "int8": ("quant_nary",)}
+                "dare": ("dare_block",),
+                "perleaf": ("slerp_reduce", "slerp_combine", "ties_leaf",
+                            "nary_accum"),
+                "int8": ("quant_nary",)}
 
 
 def check_output(name: str, out, base) -> None:
@@ -336,17 +447,20 @@ def check_output(name: str, out, base) -> None:
             raise AssertionError(f"{name}: non-finite output")
 
 
-def run_path(path: str, merges, disp) -> dict:
+def run_path(path: str, merges, disp=None, expect=None) -> dict:
     """Drive one main path: launch counts set to 0 just before it, read
-    just after; every kernel of the path must have launched and its
-    dispatch counter grown. `merges`: (label, thunk) pairs."""
+    just after; every kernel of the path must have launched and, for an
+    engine path (`disp`), its dispatch counter grown. `merges`: (label,
+    thunk) pairs; `expect`: {label: {kernel: launches}} that a call must
+    read exactly."""
     from repro_torch import kernels
-    before = disp.snapshot()
+    before = disp.snapshot() if disp is not None else None
     kernels.reset_launch_counts()
     per = {}
     for label, thunk in merges:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
         c0 = kernels.launch_counts()
         t0 = time.perf_counter()
         thunk()
@@ -354,18 +468,63 @@ def run_path(path: str, merges, disp) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         c1 = kernels.launch_counts()
         per[label] = ms
-        log(f"[main] {path} {label}: {ms:.0f} ms; launches "
-            f"{ {k: c1[k] - c0[k] for k in c1 if c1[k] > c0[k]} }; peak "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        delta = {k: c1[k] - c0[k] for k in c1 if c1[k] > c0[k]}
+        log(f"[main] {path} {label}: {ms:.0f} ms; launches {delta}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"({live / 1e9:.2f} GB live before the call)")
+        if expect is not None and delta != expect[label]:
+            raise AssertionError(f"{path} {label}: launches {delta}, "
+                                 f"expected {expect[label]}")
     counts = kernels.launch_counts()
     for k in PATH_KERNELS[path]:
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the "
                                  f"{path} main path")
-    grown = disp.grown(before)
-    log(f"[main] {path} path launches {counts}; kernel_dispatch_total "
-        f"grew {grown}")
+    grown = disp.grown(before) if disp is not None else {}
+    log(f"[main] {path} path launches {counts}"
+        + (f"; kernel_dispatch_total grew {grown}" if disp else ""))
     return {"launches": counts, "ms": per, "grown": grown}
+
+
+def perleaf_path(ordered, base, nleaves: int) -> dict:
+    """The per-leaf kernel API over the full-width trees: launch counts
+    read per call (one slerp_reduce and one slerp_combine per leaf, one
+    ties_leaf per leaf, one nary_accum per leaf); the quantile
+    thresholds' seconds read from the `kernels.quantile_threshold`
+    spans."""
+    from repro_torch import kernels
+    from repro_torch.obs import set_tracer, Tracer
+
+    def call(label, fn, like):
+        def thunk():
+            check_output(f"perleaf {label}", fn(), like)
+        return label, thunk
+
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        out = run_path("perleaf", [
+            call("slerp_merge", lambda: kernels.slerp_merge(
+                ordered[0], ordered[1], t=0.5), base),
+            call("ties_merge(quantile)", lambda: kernels.ties_merge(
+                ordered, base, 0.2, trim_method="quantile"), base),
+            call("task_arithmetic_merge", lambda: kernels.
+                 task_arithmetic_merge(ordered, base), base)],
+            expect={"slerp_merge": {"slerp_reduce": nleaves,
+                                    "slerp_combine": nleaves},
+                    "ties_merge(quantile)": {"ties_leaf": nleaves},
+                    "task_arithmetic_merge": {"nary_accum": nleaves}})
+    finally:
+        set_tracer(prev)
+    spans = [sp for sp in tracer.spans
+             if sp.name == "kernels.quantile_threshold"]
+    thr_s = sum(sp.duration for sp in spans)
+    big = max(spans, key=lambda sp: sp.attrs["n"])
+    log(f"[main] perleaf quantile thresholds: {thr_s:.2f} s of "
+        f"ties_merge's {out['ms']['ties_merge(quantile)'] / 1e3:.2f} s, "
+        f"{len(spans)} leaves x {K} rows; largest leaf "
+        f"({big.attrs['n']} elements) {big.duration:.3f} s")
+    return out
 
 
 class Dispatches:
@@ -447,6 +606,7 @@ def phase_main_path(cfg) -> dict:
     if "dare" not in paths["dare"]["grown"]:
         raise AssertionError("kernel_dispatch_total{kernel=dare} did not "
                              "grow")
+    paths["perleaf"] = perleaf_path(ordered, base, nleaves)
 
     # int8 merge-on-arrival: compress on the card, drop the bf16 copies
     torch.cuda.synchronize()
@@ -510,12 +670,83 @@ def ulp_diff(exact, kern) -> tuple:
 
 
 def report(label: str, bad: int, total: int, worst: float, ok: bool,
-           rule: str) -> None:
+           rule: str, beyond: str = "one bf16 ulp") -> None:
     log(f"[exact-vs-kernels] {label}: max abs diff {worst:.3e}; "
-        f"{bad}/{total} = {bad / total:.2e} beyond one bf16 ulp; rule: "
+        f"{bad}/{total} = {bad / total:.2e} beyond {beyond}; rule: "
         f"{rule}: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel route outside tolerance")
+
+
+def perleaf_vs_exact(rep, ordered, base, ref, layers: int) -> None:
+    """The per-leaf kernel API against `Replica.resolve`: slerp at k = 2
+    (a replica of the first two contributions), slerp at k = 4 folded in
+    sequence and as a tree (the kernels folded by the same
+    `pairwise_fold`), and quantile TIES at k = 4; then the three slerp
+    merges over fp32 copies, the exact path (`reference_apply`) against
+    the kernels with both in fp32. A fold of the kernels in reversed
+    order is read once against the exact fold, for scale."""
+    from repro_torch import kernels, pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.core.resolve import canonical_order, reference_apply
+    from repro_torch.strategies.base import pairwise_fold
+
+    def hold(label, exact, kern):
+        bad, total, worst = ulp_diff(exact, kern)
+        limit = PERLEAF_MAX_DIFF_SHARE[label]
+        report(f"{label} ({layers} layers)", bad, total, worst,
+               bad / total <= limit, f"share beyond one bf16 ulp <= {limit}")
+
+    def hold_f32(label, exact, kern):
+        total = bad = 0
+        worst = 0.0
+        for e, k in zip(pytree.leaves(exact), pytree.leaves(kern)):
+            d = (e - k).abs()
+            worst = max(worst, float(d.max()))
+            bad += int((d > 1e-6 + 1e-5 * e.abs()).sum())
+            total += d.numel()
+        limit = PERLEAF_MAX_DIFF_SHARE[label]
+        report(f"{label} ({layers} layers)", bad, total, worst,
+               bad / total <= limit,
+               f"share beyond 1e-6 + 1e-5 |exact| <= {limit}",
+               beyond="1e-6 + 1e-5 |exact|")
+
+    def folded(trees, red):
+        return pairwise_fold(trees, lambda a, b, _: kernels.slerp_merge(
+            a, b, t=0.5), 0, red)
+
+    rep2 = Replica("chip-smoke-slerp", device=DEVICE)
+    for c in ordered[:2]:
+        rep2.contribute(c)
+    pair = [rep2.state.store[i] for i in canonical_order(rep2.state)]
+    hold("slerp k=2", rep2.resolve(MergeSpec("slerp", {"t": 0.5}),
+                                   use_cache=False), folded(pair, "fold"))
+    del rep2
+    for red in ("fold", "tree"):
+        exact = rep.resolve(MergeSpec("slerp", {"t": 0.5}, reduction=red),
+                            use_cache=False)
+        hold(f"slerp k=4 {red}", exact, folded(ordered, red))
+        if red == "fold":
+            bad, total, _ = ulp_diff(exact, folded(ordered[::-1], red))
+            log(f"[exact-vs-kernels] slerp k=4 fold, kernels folded in "
+                f"reversed order ({layers} layers, no limit): "
+                f"{bad}/{total} = {bad / total:.2e} beyond one bf16 ulp")
+        del exact
+    for label, trees in (("slerp k=2 fp32", pair),
+                         ("slerp k=4 fold fp32", ordered),
+                         ("slerp k=4 tree fp32", ordered)):
+        red = "tree" if "tree" in label else "fold"
+        f32 = [pytree.tree_map(lambda t: t.to(torch.float32), c)
+               for c in trees]
+        hold_f32(label, reference_apply("slerp", f32, t=0.5, reduction=red),
+                 folded(f32, red))
+        del f32
+    del pair
+    spec = MergeSpec("ties", {"trim": 0.2, "trim_method": "quantile"},
+                     base_ref=ref)
+    hold("ties quantile", rep.resolve(spec, use_cache=False),
+         kernels.ties_merge(ordered, base, 0.2, trim_method="quantile"))
+    torch.cuda.empty_cache()
 
 
 def phase_exact_vs_kernels(cfg) -> None:
@@ -554,6 +785,8 @@ def phase_exact_vs_kernels(cfg) -> None:
         report(f"{name} ({cfg.n_layers} layers)", bad, total, worst, ok,
                rule)
         del exact, kern
+
+    perleaf_vs_exact(rep, ordered, base, ref, cfg.n_layers)
 
     # int8: merge on arrival (fp32 dequantize in registers) against the
     # exact path over the same payloads (dequantize to bf16, then fold)

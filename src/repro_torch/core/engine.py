@@ -58,7 +58,8 @@ from repro_torch.core.compression import (
 from repro_torch.core.hashing import tensor_digest
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
-from repro_torch.strategies.base import run_fold, Strategy
+from repro_torch.strategies.base import pairwise_fold, run_fold, \
+    Strategy
 
 _DOMAIN_LEAF = b"repro/engine/leaf-subroot/v2"
 _NO_BASE = b"\x00" * 32          # base=None marker (zeros_like base)
@@ -586,13 +587,20 @@ def _base_leaf(base_leaves, idx: int, like) -> Any:
 def _execute_leaf(strat: Strategy, plan: MergePlan, task: LeafTask,
                   leaf_of, base_leaves, cache: EngineCache
                   ) -> Tuple[Any, Any]:
-    """One leaf over its ordered contributors: the fold for incremental
-    strategies (keeping the accumulator for resumption), else the leaf
-    function on the [k, ...] stack."""
+    """One leaf over its ordered contributors: a binary-only strategy at
+    k > 2 folds pairwise (`MergeSpec.reduction`: "tree" or in sequence),
+    with the reference's per-step seeds; incremental strategies run
+    their fold (keeping the accumulator for resumption); everything else
+    runs the leaf function on the [k, ...] stack."""
     slices = [leaf_of(j, task) for j in task.contributors]
     cache.note_stacked(task.stacked_nbytes)
-    b = _base_leaf(base_leaves, task.index, slices[0])
     cfg = plan.cfg_dict()
+    if strat.binary_only and len(slices) > 2:
+        return pairwise_fold(slices, lambda x, y, sd: strat.apply_leaf(
+            torch.stack([x, y]), _base_leaf(base_leaves, task.index, x),
+            leaf_index=task.index, seed=sd, **cfg), plan.seed,
+            plan.reduction), None
+    b = _base_leaf(base_leaves, task.index, slices[0])
     if strat.fold is not None and len(slices) >= strat.fold.min_k:
         kw = dict(strat.defaults)
         kw.update(cfg)
@@ -617,12 +625,12 @@ def _kernel_route(strat: Strategy, cfg: Dict[str, Any]) -> Optional[str]:
     return None
 
 
-def _base_row(base_leaves, t: LeafTask, device) -> torch.Tensor:
-    """The leaf's base as an fp32 row; zeros without a base."""
+def _base_row(base_leaves, t: LeafTask) -> Optional[torch.Tensor]:
+    """The leaf's base as a row, None without a base: the flat batch
+    widens it to fp32 in place and leaves a missing base zero."""
     if base_leaves is None:
-        return torch.zeros(math.prod(t.shape), dtype=torch.float32,
-                           device=device)
-    return base_leaves[t.index].reshape(-1).to(torch.float32)
+        return None
+    return base_leaves[t.index].reshape(-1)
 
 
 def _kernel_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
@@ -648,8 +656,7 @@ def _kernel_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
 
     if route in ("ties_hist", "dare"):
         rows = [dense_rows(t) for t in group]
-        device = rows[0][0].device
-        bases = [_base_row(base_leaves, t, device) for t in group]
+        bases = [_base_row(base_leaves, t) for t in group]
         cache.note_stacked(2 * sum(int(x.nbytes) for r in rows for x in r))
         if route == "ties_hist":
             flats = kops.ties_batch_merge(rows, bases,
@@ -667,8 +674,7 @@ def _kernel_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
         if not all(_is_qleaf(x) for slices in raw for x in slices):
             return None
         weights, uses_base = form
-        device = raw[0][0].q.device
-        bases = [_base_row(base_leaves if uses_base else None, t, device)
+        bases = [_base_row(base_leaves if uses_base else None, t)
                  for t in group]
         cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
         flats = kops.quant_batch_merge(
@@ -716,8 +722,7 @@ def _nary_pallas_batch(strat: Strategy, group: List[LeafTask], leaf_of,
     from repro_torch.kernels import ops as kops
     rows = [[leaf_of(j, t).reshape(-1) for j in t.contributors]
             for t in group]
-    device = rows[0][0].device
-    bases = [_base_row(base_leaves if uses_base else None, t, device)
+    bases = [_base_row(base_leaves if uses_base else None, t)
              for t in group]
     cache.note_stacked(2 * sum(t.stacked_nbytes for t in group))
     flats = kops.nary_flat_merge(rows, bases, weights)

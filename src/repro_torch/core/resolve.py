@@ -22,6 +22,7 @@ from repro_torch.core.hashing import pytree_digest
 from repro_torch.core.state import CRDTMergeState
 from repro_torch.obs import layer1_timer
 from repro_torch.strategies import get_strategy
+from repro_torch.strategies.base import pairwise_fold
 
 
 def seed_from_root(root: bytes) -> int:
@@ -97,6 +98,11 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
 def reference_apply(strategy_name: str, contribs: List[Any], *, base=None,
                     seed: int = 0, reduction: str = "fold", **cfg) -> Any:
     """Direct (non-CRDT) strategy application over an ORDERED list: the
-    whole-tree definition the engine is verified against. No ported
-    strategy is binary-only, so `reduction` never changes the result."""
-    return get_strategy(strategy_name)(contribs, base=base, seed=seed, **cfg)
+    whole-tree definition the engine is verified against. A binary-only
+    strategy over k > 2 contributions folds pairwise: in sequence
+    (`reduction="fold"`) or as a balanced tree (`"tree"`)."""
+    strat = get_strategy(strategy_name)
+    if strat.binary_only and len(contribs) > 2:
+        return pairwise_fold(contribs, lambda x, y, sd: strat(
+            [x, y], base=base, seed=sd, **cfg), seed, reduction)
+    return strat(contribs, base=base, seed=seed, **cfg)

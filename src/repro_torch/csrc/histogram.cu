@@ -88,9 +88,8 @@ __global__ void block_hist_kernel(const T* __restrict__ x,
     o[j] = static_cast<int>(hist[j]);
 }
 
-// KMAX > 0: the k trimmed values of a column stay in registers (k <=
-// KMAX, unrolled so every index is a constant). KMAX == 0: any k, the
-// second pass re-reads the column.
+// One thread per column (grid-stride); the tile arithmetic is
+// `merge::ties_column`, with the column's tile's [k] thresholds.
 template <typename T, int KMAX>
 __global__ void ties_block_kernel(const T* __restrict__ x,
                                   const float* __restrict__ base,
@@ -100,54 +99,9 @@ __global__ void ties_block_kernel(const T* __restrict__ x,
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       c < np; c += stride) {
-    const float b = base[c];
-    const float* th = thr + (c / block) * k;
-    float tv[KMAX > 0 ? KMAX : 1];
-    float s = 0.f;
-    if (KMAX > 0) {
-#pragma unroll
-      for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i) {
-        if (i < k) {
-          const float t =
-              __fsub_rn(merge::widen(x[static_cast<long long>(i) * np + c]), b);
-          tv[i] = __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f);
-          s = __fadd_rn(s, tv[i]);
-        }
-      }
-    } else {
-      for (int i = 0; i < k; ++i) {
-        const float t =
-            __fsub_rn(merge::widen(x[static_cast<long long>(i) * np + c]), b);
-        s = __fadd_rn(s, __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f));
-      }
-    }
-    const float elected = merge::sign_of(s);
-    float cnt = 0.f, acc = 0.f;
-    if (KMAX > 0) {
-#pragma unroll
-      for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i) {
-        if (i < k) {
-          const float tr = tv[i];
-          const float ag =
-              (merge::sign_of(tr) == elected && tr != 0.f) ? 1.f : 0.f;
-          cnt = __fadd_rn(cnt, ag);
-          acc = __fadd_rn(acc, __fmul_rn(tr, ag));
-        }
-      }
-    } else {
-      for (int i = 0; i < k; ++i) {
-        const float t =
-            __fsub_rn(merge::widen(x[static_cast<long long>(i) * np + c]), b);
-        const float tr = __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f);
-        const float ag =
-            (merge::sign_of(tr) == elected && tr != 0.f) ? 1.f : 0.f;
-        cnt = __fadd_rn(cnt, ag);
-        acc = __fadd_rn(acc, __fmul_rn(tr, ag));
-      }
-    }
-    out[c] = __fadd_rn(b, __fdiv_rn(acc, fmaxf(cnt, 1.f)));
-  }
+       c < np; c += stride)
+    out[c] = merge::ties_column<T, KMAX>(x, np, c, k, base[c],
+                                         thr + (c / block) * k);
 }
 
 template <typename T>

@@ -8,6 +8,13 @@ oracle), and a launch count on each wrapper.
   B5 `histogram.ties_block`    histogram-trim TIES  csrc/histogram.cu
   B2 `quant.quant_nary`        int8 linear family   csrc/quant.cu
   B6 `dare.dare_block`         counter-RNG DARE     csrc/dare.cu
+  B7 `ties.ties_leaf`          quantile-trim TIES   csrc/ties.cu
+  B8 `slerp.slerp_reduce`      two-pass SLERP       csrc/slerp.cu
+     `slerp.slerp_combine`
+
+The per-leaf entry points over contribution pytrees, as the reference's
+`repro.kernels` exports them: `weighted_merge`, `weight_average_merge`,
+`task_arithmetic_merge`, `ties_merge`, `slerp_merge`, `dare_merge`.
 """
 from typing import Dict
 
@@ -15,13 +22,21 @@ from repro_torch.kernels import dare as _dare
 from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import nary_accum as _nary_accum
 from repro_torch.kernels import quant as _quant
+from repro_torch.kernels import slerp as _slerp
+from repro_torch.kernels import ties as _ties
+from repro_torch.kernels.ops import (  # noqa: F401
+    dare_merge, slerp_merge, task_arithmetic_merge, ties_merge,
+    weight_average_merge, weighted_merge)
 
 WRAPPERS = {"nary_accum": _nary_accum.nary_accum,
             "block_amax": _histogram.block_amax,
             "block_hist": _histogram.block_hist,
             "ties_block": _histogram.ties_block,
             "quant_nary": _quant.quant_nary,
-            "dare_block": _dare.dare_block}
+            "dare_block": _dare.dare_block,
+            "ties_leaf": _ties.ties_leaf,
+            "slerp_reduce": _slerp.slerp_reduce,
+            "slerp_combine": _slerp.slerp_combine}
 
 
 def launch_counts() -> Dict[str, int]:

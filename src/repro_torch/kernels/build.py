@@ -24,7 +24,7 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("nary_accum", "histogram", "quant", "dare")
+SOURCES = ("nary_accum", "histogram", "quant", "dare", "ties", "slerp")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,6 +46,12 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "quant_nary": ("quant", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),
     "dare_block_f32": ("dare", [_P, _P, _P, _P, _I, _L, _I, _F, _F, _P]),
     "dare_block_bf16": ("dare", [_P, _P, _P, _P, _I, _L, _I, _F, _F, _P]),
+    "ties_leaf_f32": ("ties", [_P, _P, _P, _P, _I, _L, _P]),
+    "ties_leaf_bf16": ("ties", [_P, _P, _P, _P, _I, _L, _P]),
+    "slerp_reduce_f32": ("slerp", [_P, _P, _P, _L, _I, _P]),
+    "slerp_reduce_bf16": ("slerp", [_P, _P, _P, _L, _I, _P]),
+    "slerp_combine_f32": ("slerp", [_P, _P, _P, _P, _L, _P]),
+    "slerp_combine_bf16": ("slerp", [_P, _P, _P, _P, _L, _P]),
 }
 
 

@@ -16,10 +16,11 @@ from repro_torch.kernels.common import hash_uniform, M32
 from repro_torch.kernels.dare import rescale_of
 from repro_torch.kernels.histogram import _bin_index
 from repro_torch.kernels.nary_accum import nary_accum_plain as nary_accum_ref
+from repro_torch.kernels.slerp import slerp_scalars
 from repro_torch.kernels.ties import ties_tile
 
 __all__ = ["nary_accum_ref", "hist_threshold_ref", "ties_ref",
-           "ties_hist_ref", "dare_ref", "quant_nary_ref"]
+           "ties_hist_ref", "dare_ref", "quant_nary_ref", "slerp_ref"]
 
 
 def hist_threshold_ref(stacked, base, trim: float = 0.2,
@@ -72,3 +73,14 @@ def quant_nary_ref(q_stacked, scales, base, weights) -> torch.Tensor:
     per row, then `nary_accum_ref`. q [k, N] int8, scales [k] fp32."""
     x = q_stacked.to(torch.float32) * scales.reshape(-1, 1)
     return nary_accum_ref(x, base, weights)
+
+
+def slerp_ref(u, v, t: float = 0.5) -> torch.Tensor:
+    """SLERP of one pair, u, v [n] -> [n] fp32, straight from the
+    formula (`repro/kernels/ref.py:slerp_ref`): whole-row fp32 sums in
+    torch's own order, so it is held to the kernel path within a
+    tolerance, not bitwise. The trig steps are `slerp_scalars`'."""
+    u, v = u.to(torch.float32), v.to(torch.float32)
+    sums = torch.stack([(u * v).sum(), (u * u).sum(), (v * v).sum()])
+    c = slerp_scalars(sums.reshape(1, 3), t)
+    return c[0] * u + c[1] * v

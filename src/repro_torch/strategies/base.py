@@ -23,8 +23,11 @@ Stochastic strategies (`needs_key`) get a threefry key per leaf,
 flatten index, from `repro_torch.random`, which draws `jax.random`'s
 bits: both protocols derive the same key, so per-leaf execution equals
 the whole-tree path bitwise, and both equal the reference's draws.
-`binary_only` stays at its default (no ported strategy sets it) because
-the engine reads it; the rest of the catalog is ROADMAP A3.
+`binary_only` strategies (slerp) merge exactly two contributions; for
+k > 2 the engine and `reference_apply` fold them pairwise with
+`pairwise_fold`, in sequence or as a balanced tree
+(`MergeSpec.reduction`), with per-step seeds. The
+five whole-model strategies are ROADMAP A3.6.
 """
 from __future__ import annotations
 
@@ -68,6 +71,32 @@ def run_fold(fold: LeafFold, stacked, base, *, acc=None, start: int = 0,
         return None, acc
     total = (len(stacked) - start) if k is None else k
     return fold.finalize(acc, total, base, stacked[0].dtype, **cfg), acc
+
+
+def pairwise_fold(items: List[Any], combine: Callable, seed: int,
+                  reduction: str = "fold") -> Any:
+    """A binary-only merge of k >= 1 ordered items, as the reference
+    folds it: in sequence, acc = combine(acc, items[j], seed + j) for
+    j = 1..k-1 (`reduction="fold"`), or as a balanced tree of depth
+    ceil(log2 k) (`"tree"`, equal influence: paper Remark 7) with the
+    pairs numbered seed + 1, seed + 2, ... level by level and an odd item
+    out moved up a level unchanged. `combine(a, b, seed)` merges two."""
+    if reduction != "tree":
+        acc = items[0]
+        for j in range(1, len(items)):
+            acc = combine(acc, items[j], seed + j)
+        return acc
+    level = list(items)
+    rnd = 0
+    while len(level) > 1:
+        nxt = []
+        for j in range(0, len(level) - 1, 2):
+            rnd += 1
+            nxt.append(combine(level[j], level[j + 1], seed + rnd))
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
 
 
 @dataclass(frozen=True)
@@ -124,11 +153,18 @@ def register(strategy: Strategy) -> Strategy:
     return strategy
 
 
+# the reference's whole-model strategies (population search, SVD), not
+# ported yet
+WHOLE_MODEL = ("adarank", "evolutionary_merge", "genetic_merge", "star",
+               "svd_knot_tying")
+
+
 def get_strategy(name: str) -> Strategy:
+    if name in WHOLE_MODEL:
+        raise KeyError(f"strategy {name!r} is a whole-model strategy, not "
+                       "ported yet (ROADMAP A3.6)")
     if name not in REGISTRY:
-        raise KeyError(
-            f"strategy {name!r} is not ported (ROADMAP A3: the catalog "
-            f"port); have {sorted(REGISTRY)}")
+        raise KeyError(f"unknown strategy {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
 
 

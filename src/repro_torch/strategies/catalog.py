@@ -1,11 +1,16 @@
 """The ported strategies of `repro.strategies.catalog`, in PyTorch.
 
-Eight of the reference's 26: the linear family (weight_average, linear,
-task_arithmetic, negative_merge) with their LeafFolds, ties with both
-trims (the exact quantile and the 512-bucket histogram), and the DARE
+The 21 per-leaf strategies of the reference's 26: the linear family
+(weight_average, linear, task_arithmetic, negative_merge) with their
+LeafFolds; fisher_merge, dam, ada_merging, regression_mean; ties with
+both trims (the exact quantile and the 512-bucket histogram); the DARE
 family (dare, dare_ties, della), whose masks come from
-`repro_torch.random`'s threefry, bit-equal to `jax.random`. The rest
-wait for ROADMAP A3; `get_strategy` names it.
+`repro_torch.random`'s threefry, bit-equal to `jax.random`;
+model_breadcrumbs, emr, safe_merge, split_unlearn_merge; and the
+geometry strategies slerp (binary-only: the engine folds k > 2),
+dual_projection, representation_surgery, weight_scope_alignment and
+led_merge. The five whole-model strategies wait for ROADMAP A3.6;
+`get_strategy` names it.
 
 Conventions: `s` is the stacked contributions [k, ...]; `b` the base
 parameters (zeros for raw tensor audits); tau = s - b.
@@ -24,7 +29,12 @@ be held bitwise against the reference where the op order is pinned:
     reference counts in fp32, which agrees below 2^24 per bucket;
   * a mean over k is `_ksum`'s sum times the reciprocal of k, then the
     cast (`jnp.mean` upcasts half precision the same way; see
-    `_kmean_fin`);
+    `_kmean_fin`); other means (`_mean`) and `jnp.var` (`_var`: ddof 0,
+    where torch's default is 1) do the same over torch's own sums, whose
+    order XLA's does not match, so those strategies are held to the
+    reference within a tolerance;
+  * `jnp.quantile` is `kernels.quantile.quantile_rows` (an exact
+    select with JAX's fp32 interpolation index), never `torch.quantile`;
   * random masks are drawn one contribution (row) at a time, in slices
     of the flat index, so a [k, 805M] leaf never holds its 64-bit
     counters at once; element i of a draw depends only on the key and
@@ -34,11 +44,15 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import random as prng
+from repro_torch.kernels.quantile import quantile_rows, weak_float
 from repro_torch.strategies.base import LeafFold, leafwise, register, \
     run_fold, Strategy
+
+EPS = 1e-12
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -78,6 +92,67 @@ def _kmean_fin(acc: torch.Tensor, k: int, dtype: torch.dtype
 def _fl(x):
     """Flatten all but the leading (k) axis."""
     return x.reshape(x.shape[0], -1)
+
+
+def _sum(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """`jnp.sum`: fp32 accumulation for half precision, cast back; the
+    order is torch's (XLA does not pin its own beyond the k axis)."""
+    dims = tuple(range(x.dim())) if dim is None else dim
+    return x.sum(dim=dims, keepdim=keepdim,
+                 dtype=_acc_dtype(x.dtype)).to(x.dtype)
+
+
+def _mean(x: torch.Tensor, dim=None, keepdim: bool = False
+          ) -> torch.Tensor:
+    """`jnp.mean`: the sum times the reciprocal of the count, both in
+    the accumulation dtype (XLA's rewrite of the jitted division, see
+    `_kmean_fin`), then the cast."""
+    dims = tuple(range(x.dim())) if dim is None else \
+        ((dim,) if isinstance(dim, int) else tuple(dim))
+    n = math.prod(x.shape[d] for d in dims)
+    acc = x.sum(dim=dims, keepdim=keepdim, dtype=_acc_dtype(x.dtype))
+    return _kmean_fin(acc, n, x.dtype)
+
+
+def _var(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`jnp.var(x, axis=dim)`: ddof 0 (torch's default would be 1), in
+    fp32 for half precision: mean, centre, square, mean again."""
+    acc_dt = _acc_dtype(x.dtype)
+    xa = x.to(acc_dt)
+    c = xa - _mean(xa, dim, keepdim=True)
+    return _mean(c * c, dim).to(x.dtype)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.linalg.norm(x)` over every element: sqrt(sum(x * x))."""
+    return torch.sqrt(_sum(x * x))
+
+
+def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """`jnp.dot` / `@` (matrix-vector or vector-vector): products and
+    sums in fp32 for half precision, one rounding at the end."""
+    acc = _acc_dtype(x.dtype)
+    return (x.to(acc) @ y.to(acc)).to(x.dtype)
+
+
+def _norms(t: torch.Tensor) -> torch.Tensor:
+    """Per-contribution L2 norms of [k, ...], + EPS."""
+    f = _fl(t)
+    return torch.sqrt(_sum(f * f, 1)) + _const(EPS, f)
+
+
+def _kmean(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.mean(x, axis=0)` with `_ksum`'s order."""
+    acc = torch.zeros(x.shape[1:], dtype=_acc_dtype(x.dtype),
+                      device=x.device)
+    for i in range(x.shape[0]):
+        acc = acc + x[i].to(acc.dtype)
+    return _kmean_fin(acc, x.shape[0], x.dtype)
+
+
+def _bcast(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[k] -> [k, 1, ..., 1] against `like` [k, ...]."""
+    return w.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 # ---------------------------------------------------------------- linear ---
@@ -147,28 +222,37 @@ def _negative_merge(s, b, lam=0.5, **kw):
     return run_fold(NEGATIVE_FOLD, s, b, lam=lam, **kw)[0]
 
 
+def _fisher_merge(s, b, eps=1e-8, **kw):
+    f = s * s + _const(eps, s)
+    return _ksum(f * s) / _ksum(f)
+
+
+def _dam(s, b, **kw):
+    tau = s - b
+    w = _norms(tau)
+    w = w / _sum(w)
+    return b + _ksum(_bcast(w, tau) * tau)
+
+
+def _ada_merging(s, b, eps=1e-8, **kw):
+    tau = s - b
+    var = _var(_fl(tau), 1) + _const(eps, tau)
+    inv = _const(1.0, var) / var
+    w = inv / _sum(inv)
+    return b + _ksum(_bcast(w, tau) * tau)
+
+
+def _regression_mean(s, b, eps=1e-8, **kw):
+    if s.dim() == 1:
+        return _kmean(s)
+    k = s.shape[0]
+    flat = s.reshape(k, s.shape[1], -1)
+    w = _mean(flat * flat, 2) + _const(eps, flat)           # [k, rows]
+    w = w / _sum(w, 0, keepdim=True)
+    return _ksum(w[:, :, None] * flat).reshape(s.shape[1:])
+
+
 # ---------------------------------------------------------------- sparse ---
-
-
-def _quantile_rows(a, q):
-    """`jnp.quantile(a, q, axis=1, keepdims=True)`, linear method, with
-    JAX's fp32 interpolation weights. Sort-based: `torch.quantile`
-    refuses inputs above 2^24 elements."""
-    a = torch.where(torch.isnan(a).any(dim=1, keepdim=True),
-                    torch.full_like(a, float("nan")), a)
-    srt = torch.sort(a, dim=1).values
-    n = a.shape[1]
-    f32 = dict(dtype=torch.float32, device=a.device)
-    nf = torch.tensor(float(n), **f32)
-    qq = torch.tensor(q, **f32) * (nf - torch.tensor(1.0, **f32))
-    low, high = torch.floor(qq), torch.ceil(qq)
-    hw = qq - low
-    lw = torch.tensor(1.0, **f32) - hw
-    lo = int(torch.clamp(low, 0, n - 1))
-    hi = int(torch.clamp(high, 0, n - 1))
-    res = srt[:, lo:lo + 1].to(torch.float32) * lw \
-        + srt[:, hi:hi + 1].to(torch.float32) * hw
-    return res.to(a.dtype)
 
 
 def _hist_counts(a_row, amax, bins):
@@ -189,7 +273,7 @@ def _hist_bucket(counts, n, trim, dtype):
 def _trim_mask(tau_flat, trim):
     """Keep entries with |tau| >= per-contribution trim quantile."""
     a = tau_flat.abs()
-    return (a >= _quantile_rows(a, trim)).to(tau_flat.dtype)
+    return (a >= quantile_rows(a, trim)).to(tau_flat.dtype)
 
 
 def _elect_mean(trimmed):
@@ -300,15 +384,129 @@ def _della(s, b, key, p_min=0.2, p_max=0.8, **kw):
     return b + _kmean_fin(acc, k, tau.dtype).reshape(s.shape[1:])
 
 
+def _model_breadcrumbs(s, b, beta=0.1, gamma=0.1, **kw):
+    tau = _fl(s - b)
+    a = tau.abs()
+    qlo = quantile_rows(a, beta)
+    qhi = quantile_rows(a, 1.0 - gamma)
+    mask = ((a >= qlo) & (a <= qhi)).to(tau.dtype)
+    return b + _kmean(tau * mask).reshape(s.shape[1:])
+
+
+def _elect_agree_mean(tau):
+    """sum(tau * agree) / max(sum(agree), 1) over k, agree = sign(tau)
+    equal to the elected sign (zeros included, unlike `_elect_mean`)."""
+    elected = torch.sign(_ksum(tau, keepdim=True))
+    agree = (torch.sign(tau) == elected).to(tau.dtype)
+    return _ksum(tau * agree) / torch.clamp_min(_ksum(agree), 1.0)
+
+
+def _emr(s, b, trim=0.1, **kw):
+    tau = _fl(s - b)
+    m = _elect_agree_mean(tau)
+    am = m.abs()
+    q = quantile_rows(am.reshape(1, -1), trim).reshape(())
+    m = m * (am >= q).to(m.dtype)
+    rho = _mean(_norms(s - b)) / (_norm(m) + _const(EPS, m))
+    return b + (rho * m).reshape(s.shape[1:])
+
+
+def _safe_merge(s, b, k_sigma=6.0, **kw):
+    tau = s - b
+    mu = _mean(tau)
+    sd = torch.sqrt(_var(tau.reshape(1, -1), 1)[0]) + _const(EPS, tau)
+    ks = _const(k_sigma, tau)
+    clipped = torch.minimum(torch.maximum(tau, mu - ks * sd), mu + ks * sd)
+    return b + _kmean(clipped)
+
+
+def _split_unlearn_merge(s, b, **kw):
+    tau = _fl(s - b)
+    k = tau.shape[0]
+    kept = _elect_agree_mean(tau)
+    # variance-compensation rescale: sqrt(k) in the type of a weakly
+    # typed JAX float, then in the data's dtype
+    root_k = _const(float(np.sqrt(weak_float(tau.dtype)(k))), tau)
+    target = root_k * _mean(_norms(s - b))
+    merged = kept * target / (_norm(kept) + _const(EPS, kept))
+    return b + merged.reshape(s.shape[1:])
+
+
+# -------------------------------------------------------------- geometry ---
+
+
+def _slerp(s, b, t=0.5, **kw):
+    if s.shape[0] != 2:
+        raise ValueError(f"slerp is binary, got k={s.shape[0]}")
+    u, v = _fl(s)[0], _fl(s)[1]
+    nu, nv = _norm(u) + _const(EPS, u), _norm(v) + _const(EPS, v)
+    uh, vh = u / nu, v / nv
+    cos = torch.clamp(_dot(uh, vh), -1.0, 1.0)
+    omega = torch.arccos(cos)
+    so = torch.sin(omega)
+    one_t, tt = _const(1.0 - t, so), _const(t, so)
+    small = so < _const(1e-6, so)
+    w1 = torch.where(small, one_t, torch.sin(one_t * omega) / so)
+    w2 = torch.where(small, tt, torch.sin(tt * omega) / so)
+    direction = w1 * uh + w2 * vh
+    mag = one_t * nu + tt * nv
+    return (direction * mag).reshape(s.shape[1:])
+
+
+def _dual_projection(s, b, gamma=0.5, eps=1e-12, **kw):
+    tau = _fl(s - b)
+    mu = _kmean(tau)
+    denom = _dot(mu, mu) + _const(eps, mu)
+    proj = _dot(tau, mu)[:, None] / denom * mu[None, :]
+    resid = tau - proj
+    merged = _kmean(proj + _const(gamma, resid) * resid)
+    return b + merged.reshape(s.shape[1:])
+
+
+def _representation_surgery(s, b, eps=1e-8, **kw):
+    if s.dim() < 3:
+        n = _norms(s)
+        target = _mean(n)
+        return _kmean(s * _bcast(target / n, s))
+    flat = s.reshape(s.shape[0], s.shape[1], -1)
+    n = torch.sqrt(_sum(flat * flat, 1)) + _const(eps, flat)   # [k, cols]
+    target = _mean(n, 0, keepdim=True)
+    aligned = flat * (target / n)[:, None, :]
+    return _kmean(aligned).reshape(s.shape[1:])
+
+
+def _weight_scope_alignment(s, b, **kw):
+    n = _norms(s)
+    gm = torch.exp(_mean(torch.log(n)))
+    dirs = s / _bcast(n, s)
+    mean_dir = _kmean(dirs)
+    mean_dir = mean_dir / (_norm(mean_dir) + _const(EPS, mean_dir))
+    return gm * mean_dir
+
+
+def _led_merge(s, b, beta=5.0, gamma=0.7, **kw):
+    tau = s - b
+    at = tau.abs()
+    scale = _mean(at) + _const(EPS, at)
+    x = _const(beta, at) * at / scale
+    # jax.nn.softmax over k: exp(x - max_k x) / sum_k
+    e = torch.exp(x - x.amax(dim=0, keepdim=True))
+    w = e / _ksum(e, keepdim=True)
+    dom = _ksum(w * tau)
+    return b + _const(gamma, dom) * dom \
+        + _const(1.0 - gamma, dom) * _kmean(tau)
+
+
 # ------------------------------------------------------------------ registry
 
 
-def _reg(name, leaf_fn, *, schema, needs_key=False, elementwise=False,
-         fold=None, **defaults):
+def _reg(name, leaf_fn, *, schema, needs_key=False, binary_only=False,
+         elementwise=False, fold=None, **defaults):
     register(Strategy(name=name, fn=leafwise(leaf_fn, needs_key=needs_key),
-                      defaults=defaults, leaf_fn=leaf_fn,
-                      needs_key=needs_key, elementwise=elementwise,
-                      cfg_schema=dict(schema), fold=fold))
+                      binary_only=binary_only, defaults=defaults,
+                      leaf_fn=leaf_fn, needs_key=needs_key,
+                      elementwise=elementwise, cfg_schema=dict(schema),
+                      fold=fold))
 
 
 # `schema` mirrors the reference's declaration exactly — names, types
@@ -322,9 +520,29 @@ _reg("task_arithmetic", _task_arithmetic, elementwise=True,
      schema={"lam": (float, 1.0)}, fold=TASK_ARITH_FOLD)
 _reg("negative_merge", _negative_merge, elementwise=True,
      schema={"lam": (float, 0.5)}, fold=NEGATIVE_FOLD)
+_reg("fisher_merge", _fisher_merge, elementwise=True,
+     schema={"eps": (float, 1e-8)})
+_reg("dam", _dam, schema={})
+_reg("ada_merging", _ada_merging, schema={"eps": (float, 1e-8)})
+_reg("regression_mean", _regression_mean, schema={"eps": (float, 1e-8)})
+
 _reg("ties", _ties,
      schema={"trim": (float, 0.2), "trim_method": (str, "quantile")})
 _reg("dare", _dare, needs_key=True, schema={"p": (float, 0.5)})
 _reg("dare_ties", _dare_ties, needs_key=True, schema={"p": (float, 0.5)})
 _reg("della", _della, needs_key=True,
      schema={"p_min": (float, 0.2), "p_max": (float, 0.8)})
+_reg("model_breadcrumbs", _model_breadcrumbs,
+     schema={"beta": (float, 0.1), "gamma": (float, 0.1)})
+_reg("emr", _emr, schema={"trim": (float, 0.1)})
+_reg("safe_merge", _safe_merge, schema={"k_sigma": (float, 6.0)})
+_reg("split_unlearn_merge", _split_unlearn_merge, schema={})
+
+_reg("slerp", _slerp, binary_only=True, schema={"t": (float, 0.5)})
+_reg("dual_projection", _dual_projection,
+     schema={"gamma": (float, 0.5), "eps": (float, 1e-12)})
+_reg("representation_surgery", _representation_surgery,
+     schema={"eps": (float, 1e-8)})
+_reg("weight_scope_alignment", _weight_scope_alignment, schema={})
+_reg("led_merge", _led_merge, schema={"beta": (float, 5.0),
+                                      "gamma": (float, 0.7)})

@@ -18,8 +18,9 @@ tile edge, and k in {1, 4, 16}.
 
 bf16 stacks reach the port as bf16 (its kernels widen in registers) and
 the reference as their exact fp32 widening (its `pad_stacked` copy).
-The CUDA kernels themselves run only on a GPU: the `cuda`-marked test
-holds them against these plain versions there and skips here.
+The CUDA kernels themselves run only on a GPU: `tests/test_torch_cuda.py`,
+which imports neither JAX nor `repro`, holds them against these plain
+versions there.
 """
 import numpy as np
 import pytest
@@ -221,35 +222,3 @@ def test_no_device_route_falls_back_silently():
     with pytest.raises(TypeError, match="fp32 or bf16"):
         histogram.block_amax(torch.zeros((2, 2048), dtype=torch.float16),
                              torch.zeros(2048), BLOCK)
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_equal_plain_versions():
-    """On a GPU: every CUDA kernel bitwise equal to its plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    for dtype in DTYPES:
-        for k in KS:
-            tx, tb, _, _, leaf_id, valid = _batch(k, LENGTHS["leaves"],
-                                                  dtype)
-            tx, tb = tx.cuda(), tb.cuda()
-            w = torch.linspace(-1, 1, k, device="cuda")
-            assert torch.equal(nary.nary_accum(tx, tb, w),
-                               nary.nary_accum_plain(tx, tb, w))
-            bmax = histogram.block_amax(tx, tb, BLOCK)
-            assert torch.equal(bmax,
-                               histogram.block_amax_plain(tx, tb, BLOCK))
-            amax = _amax_meta(bmax.cpu(), leaf_id, len(LENGTHS["leaves"]))
-            amax = amax.cuda()
-            vld = torch.tensor(valid, dtype=torch.int32, device="cuda")
-            assert torch.equal(
-                histogram.block_hist(tx, tb, amax, vld, BINS, BLOCK),
-                histogram.block_hist_plain(tx, tb, amax, vld, BINS, BLOCK))
-            thr = (amax * 0.4).contiguous()
-            assert torch.equal(
-                histogram.ties_block(tx, tb, thr, BLOCK),
-                histogram.ties_block_plain(tx, tb, thr, BLOCK))
-    tx, tb, _, _, _, _ = _batch(4, [5000], "float32")
-    tx[2, 4097] = float("nan")
-    got = histogram.block_amax(tx.cuda(), tb.cuda(), BLOCK).cpu()
-    assert torch.isnan(got[2, 2]) and int(torch.isnan(got).sum()) == 1

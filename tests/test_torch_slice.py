@@ -159,11 +159,25 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
+           if "repro_torch" in f.parts}
+    # slice 3's modules are among the files checked
+    assert {"kernels/ties.py", "kernels/slerp.py", "kernels/ops.py",
+            "kernels/quantile.py", "strategies/catalog.py",
+            "core/engine.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{f.relative_to(ROOT)} imports {mod}"
+
+
+def test_gpu_tests_import_neither_jax_nor_the_reference():
+    """`tests/test_torch_cuda.py` runs on the GPU machine, which has no
+    JAX (and so no ml_dtypes)."""
+    for mod in _imports(ROOT / "tests" / "test_torch_cuda.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                         "ml_dtypes"), mod
 
 
 def test_replica_without_device_needs_cuda():

@@ -88,8 +88,8 @@ def test_spec_validation_matches_reference():
             JSpec("ties", bad)
         with pytest.raises(SpecError):
             MergeSpec("ties", bad)
-    with pytest.raises(KeyError, match="ROADMAP A3"):
-        MergeSpec("slerp")
+    with pytest.raises(KeyError, match="ROADMAP A3.6"):
+        MergeSpec("star")
 
 
 @pytest.mark.parametrize("with_base", [False, True])
@@ -214,8 +214,8 @@ def test_kernel_outputs_never_enter_the_cache():
 def test_unported_paths_raise():
     cs, _ = _contribs(seed=6)
     tc = [convert.from_numpy_tree(c, "cpu") for c in cs]
-    with pytest.raises(KeyError, match="ROADMAP A3"):
-        get_strategy("fisher_merge")
+    with pytest.raises(KeyError, match="ROADMAP A3.6"):
+        get_strategy("svd_knot_tying")
     rep = Replica("r", device="cpu")
     for c in tc:
         rep.contribute(c)
