@@ -18,14 +18,23 @@ before it and read just after:
            `kernels.slerp_merge(c0, c1)`, `kernels.ties_merge(...,
            trim_method="quantile")` and `kernels.task_arithmetic_merge`;
   int8   the contributions compressed to int8 on the card, merged on
-         arrival (weight_average, task_arithmetic).
+         arrival (weight_average, task_arithmetic);
+  serve  the model served from a merge: replica A adds the K
+         contributions in order and replica B in reverse; each resolves
+         `MergeSpec("ties", base_ref=...)` (byte-identical trees), then
+         `greedy_decode` serves A's tree (batch 4, a 4064-token prompt
+         from `make_batch`, 32 tokens; every attention call on B9, the
+         flash attention kernel), and B's tree must give the same tokens
+         and last logits, byte for byte.
 
 At depth 2 it holds the kernel routes against the exact routes
 (`Replica.resolve`, and the exact path over the same int8 payloads),
 the per-leaf slerp and quantile-TIES kernels against `Replica.resolve`
 (slerp at k = 2, and at k = 4 folded in sequence and as a tree, each
 also over fp32 copies against `reference_apply`), and the exact DARE
-path's threefry draw on the card against the CPU's.
+path's threefry draw on the card against the CPU's, and the served
+forward with B9 against the same forward with B9's plain version on the
+card (bf16 and fp32 compute).
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -50,6 +59,7 @@ K = 4                       # contributions per merge
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 # Hopper has 64 INT32 lanes per SM against 128 FP32 lanes: half the rate,
 # on a pipe of its own that issues beside the FP32 one
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
@@ -84,6 +94,21 @@ DARE_P = 0.5
 # 2.2e-8). Quantile TIES: the exact path trims in bf16, the kernel in
 # fp32, as for histogram TIES; the H100 read 3.36e-4, limit ten times
 # that.
+# serving: batch 4 of a 4064-token prompt and 32 generated tokens, so
+# max_len is 4096, Phi-3-mini's 4k context
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4064, 32
+# B9 against its plain version on the card, which sums the D-long dots
+# and the keys in another order and exponentiates with other code: fp32
+# within FLASH_F32_ATOL (outputs of order 1), bf16 no element beyond one
+# bf16 ulp of |plain| + 1e-6 (equal fp32 values up to that difference,
+# each rounded once)
+FLASH_F32_ATOL = 1e-5
+# the depth-2 served forward with B9 against the same forward with its
+# plain version, on logits while the two runs' tokens agree; tokens must
+# agree at every step whose top-2 logit margin exceeds the limit. bf16:
+# one attention output a bf16 ulp apart moves the logits by a few bf16
+# ulps; fp32: summation order only
+SERVE_LOGIT_LIMIT = {"bfloat16": 0.35, "float32": 1.2e-4}
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -338,6 +363,7 @@ def phase_kernels(cfg) -> dict:
     del q, base, smeta
     torch.cuda.empty_cache()
     phase_perleaf_kernels(rows, g)
+    phase_flash_kernel(rows, cfg, g)
     return rows
 
 
@@ -391,6 +417,113 @@ def phase_perleaf_kernels(rows: dict, g) -> None:
     torch.cuda.empty_cache()
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bytes as integers, for byte-identity checks."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def flash_case(q, k, v, q_offset: int) -> dict:
+    """B9 at one shape: held against its plain version (FLASH_F32_ATOL,
+    or one bf16 ulp), then timed, the kernel and
+    `scaled_dot_product_attention` (on [B, H, S, D] copies, over the
+    visible keys) over 10 CUDA-event-timed calls, the plain version over
+    3. Bound: the operations and bytes of the keys each query row sees,
+    at the peak rate of q's type."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+
+    def kern():
+        return flash_attention(q, k, v, q_offset=q_offset)
+
+    def plain():
+        return flash_attention_plain(q, k, v, q_offset=q_offset)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    if q.dtype == torch.float32:
+        ok = max_err <= FLASH_F32_ATOL
+        rule = f"max abs err <= {FLASH_F32_ATOL}"
+    else:
+        beyond = int((err > 2.0 ** -7 * want.float().abs() + 1e-6).sum())
+        ok, rule = beyond == 0, f"{beyond} elements beyond one bf16 ulp"
+    if not ok:
+        raise AssertionError(f"flash_attention {tuple(q.shape)} {q.dtype}: "
+                             f"kernel vs plain outside tolerance ({rule}, "
+                             f"max abs err {max_err:.3e})")
+    del got, want, err
+    kmax = min(sk, q_offset + sq)
+    pairs = sum(min(sk, q_offset + i + 1) for i in range(sq))
+    ops = 4.0 * d * b * h * pairs
+    nbytes = (2 * b * sq * h * d + 2 * b * kmax * hk * d) * q.element_size()
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    qt, kt, vt = (x.transpose(1, 2).contiguous()
+                  for x in (q, k[:, :kmax], v[:, :kmax]))
+    causal = sq > 1
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    out = {"max_abs_err": max_err, "ms": cuda_ms(kern, 10),
+           "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": cuda_ms(library, 10), "rule": rule}
+    log(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
+        f"{str(q.dtype)[6:]}, q_offset {q_offset}: {rule}, max abs err "
+        f"{max_err:.3e}; {out['ms']:.3f} ms (bound {out['bound_ms']:.3f} ms "
+        f"by {out['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
+        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
+        f"{out['plain_ms']:.2f} ms; library (sdpa) {out['library_ms']:.3f} "
+        "ms")
+    return out
+
+
+def phase_flash_kernel(rows: dict, cfg, g) -> None:
+    """B9 against its plain version at the serving path's shapes: the
+    prefill's q, k, v [4, 4064, 32, 96] (causal; bf16, and fp32), and a
+    decode step's q [4, 1, 32, 96] against a [4, 4096, 32, 96] cache at
+    q_offset 4063."""
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    max_len = SERVE_PROMPT + SERVE_GEN
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cases = {}
+    for label, dtype in (("prefill", torch.bfloat16),
+                         ("fp32", torch.float32)):
+        qkv = [randn(SERVE_BATCH, SERVE_PROMPT, n, d, dtype=dtype)
+               for n in (h, hk, hk)]
+        cases[label] = flash_case(*qkv, 0)
+        del qkv
+    q = randn(SERVE_BATCH, 1, h, d, dtype=torch.bfloat16)
+    kv = [randn(SERVE_BATCH, max_len, hk, d, dtype=torch.bfloat16)
+          for _ in range(2)]
+    cases["decode"] = flash_case(q, *kv, SERVE_PROMPT - 1)
+    del q, kv
+    torch.cuda.empty_cache()
+    main = cases.pop("prefill")
+    rows["flash_attention"] = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": f"prefill: q, k, v [{SERVE_BATCH}, {SERVE_PROMPT}, {h}, "
+                 f"{d}] bf16, causal; tolerance: {main['rule']}",
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        **cases}
+
+
 def make_models(cfg, device):
     """A bf16 base and K contributions of the form base + small delta,
     from seeded generators on the device."""
@@ -434,7 +567,8 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "dare": ("dare_block",),
                 "perleaf": ("slerp_reduce", "slerp_combine", "ties_leaf",
                             "nary_accum"),
-                "int8": ("quant_nary",)}
+                "int8": ("quant_nary",),
+                "serve": ("flash_attention",)}
 
 
 def check_output(name: str, out, base) -> None:
@@ -851,6 +985,247 @@ def phase_exact_vs_kernels(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def serve_batch(cfg) -> dict:
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.synthetic import make_batch
+    shape = ShapeSpec("serve", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    return {k: torch.as_tensor(v, device=DEVICE)
+            for k, v in make_batch(cfg, shape, step=SEED).items()}
+
+
+def check_served(label: str, tokens, logits, cfg) -> None:
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) \
+            or tuple(logits.shape) != (SERVE_BATCH, cfg.vocab_size):
+        raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, "
+                             f"logits {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: non-finite logits or tokens out of "
+                             "the vocabulary")
+
+
+def trace_device(label: str, fn) -> None:
+    """One warm call of `fn` under `torch.profiler`: its wall time (host
+    clock to a synchronize, profiler on), the device time of its kernels
+    by group (B9, matrix products, the rest) and its three costliest
+    kernels, the share of the wall time the device was idle, and the
+    host's three costliest CUDA runtime calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = {"B9": 0.0, "matmul": 0.0, "other": 0.0}
+    runtime: dict = {}
+    kernels: dict = {}
+    n = 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            if ev.name.startswith("cuda"):     # CUDA runtime calls
+                runtime[ev.name] = runtime.get(ev.name, 0.0) \
+                    + ev.time_range.elapsed_us() / 1e3
+            continue
+        name = ev.name.lower()
+        # cuBLAS's Hopper kernels are named nvjet_*, its older ones *gemm*
+        key = "B9" if "flash_kernel" in name else (
+            "matmul" if any(w in name for w in ("nvjet", "gemm", "gemv",
+                                                "cutlass", "xmma")) else
+            "other")
+        ms = ev.time_range.elapsed_us() / 1e3
+        groups[key] += ms
+        kernels[ev.name[:40]] = kernels.get(ev.name[:40], 0.0) + ms
+        n += 1
+    if not n:
+        log(f"[serve] {label}, traced: the profiler recorded no device "
+            "time (device split not measured)")
+        return
+    busy = sum(groups.values())
+    def top(d):
+        return ", ".join(f"{k} {v:.2f} ms" for k, v in
+                         sorted(d.items(), key=lambda kv: -kv[1])[:3])
+
+    log(f"[serve] {label}, traced: wall {wall:.2f} ms; {n} kernels, device "
+        f"busy {busy:.2f} ms (B9 {groups['B9']:.2f}, matmuls "
+        f"{groups['matmul']:.2f}, other {groups['other']:.2f}); device idle "
+        f"{max(0.0, 1 - busy / wall):.3f} of the wall time; costliest "
+        f"kernels {top(kernels)}; host runtime calls {top(runtime)}")
+
+
+def phase_serve(cfg) -> dict:
+    """Merge, then serve: two replicas fed the same K contributions in
+    opposite orders resolve TIES to byte-identical trees; A's tree is
+    served through `greedy_decode` (the main path: every attention call
+    on B9, exactly n_layers * (SERVE_GEN + 1) launches) and B's must give
+    the same tokens and last logits, byte for byte. A's call is the
+    process's first at these shapes; B's, timed too, is warm, and the
+    prefill alone after it splits its time; one decode step and one
+    prefill are then traced."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.train.serve import greedy_decode
+    base, contribs = make_models(cfg, DEVICE)
+    t0 = time.perf_counter()
+    rep_a = Replica("chip-smoke-serve-a", device=DEVICE)
+    eids = [rep_a.contribute(c) for c in contribs]
+    ref_a = rep_a.register_base(base)
+    t_a = time.perf_counter() - t0
+    # B receives the same contributions in the opposite order, named by
+    # their content hashes as a sync delivers them (not hashed again)
+    t0 = time.perf_counter()
+    rep_b = Replica("chip-smoke-serve-b", device=DEVICE)
+    for c, eid in zip(contribs[::-1], eids[::-1]):
+        rep_b.contribute(c, eid)
+    ref_b = rep_b.register_base(base)
+    t_b = time.perf_counter() - t0
+    if rep_a.merkle_root() != rep_b.merkle_root() or ref_a != ref_b:
+        raise AssertionError("the two replicas disagree on Layer 1")
+    log(f"[serve] replica A: contribute x{K} + register_base in {t_a:.1f} "
+        f"s; replica B (reverse order, eids given): {t_b:.1f} s; equal "
+        f"merkle roots {rep_a.merkle_root().hex()[:16]}…")
+    del contribs, base
+    merged = {}
+    for label, rep, ref in (("A", rep_a, ref_a), ("B", rep_b, ref_b)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tree = rep.resolve(MergeSpec("ties", base_ref=ref))
+        torch.cuda.synchronize()
+        log(f"[serve] replica {label}: resolve ties in "
+            f"{time.perf_counter() - t0:.1f} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+            f"({live / 1e9:.2f} GB live before the call)")
+        # A's tree waits in host memory while B resolves: the exact TIES
+        # path of an FFN leaf takes ~20 GB beside the five models
+        merged[label] = pytree.tree_map(lambda t: t.cpu(), tree) \
+            if label == "A" else tree
+        del tree
+    # the replicas hold the five models (38.2 GB)
+    del rep_a, rep_b, rep
+    torch.cuda.empty_cache()
+    merged["A"] = pytree.tree_map(lambda t: t.to(DEVICE), merged["A"])
+    check_output("ties (replica A)", merged["A"], merged["B"])
+    differ = sum(not torch.equal(bits(a), bits(b)) for a, b in zip(
+        pytree.leaves(merged["A"]), pytree.leaves(merged["B"])))
+    if differ:
+        raise AssertionError(f"merged trees differ in {differ} leaves")
+    log(f"[serve] merged trees byte-identical "
+        f"({len(pytree.leaves(merged['A']))} leaves)")
+
+    model = Model(cfg)
+    batch = serve_batch(cfg)
+    launches = cfg.n_layers * (SERVE_GEN + 1)
+    out = {}
+
+    def serve(label):
+        def thunk():
+            out[label] = greedy_decode(model, merged[label], batch,
+                                       SERVE_GEN, return_logits=True)
+        return thunk
+
+    path = run_path("serve", [("greedy_decode A", serve("A"))],
+                    expect={"greedy_decode A": {"flash_attention":
+                                                launches}})
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve("B")()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    if launch_counts()["flash_attention"] != launches:
+        raise AssertionError("serving B's tree did not launch B9 "
+                             f"{launches} times")
+    (tok_a, lg_a), (tok_b, lg_b) = ((t, lg[-1]) for t, lg in
+                                    (out["A"], out["B"]))
+    check_served("serve A", tok_a, lg_a, cfg)
+    if not (torch.equal(tok_a, tok_b) and torch.equal(bits(lg_a),
+                                                      bits(lg_b))):
+        raise AssertionError("the two replicas' trees served different "
+                             "tokens or logits")
+    log(f"[serve] replica B's tree: {launches} B9 launches; tokens and last "
+        f"logits byte-identical to A's; tokens[0] {tok_a[0].tolist()}")
+    # the prefill alone, for the split of the served time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(merged["A"], batch,
+                                   max_len=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
+    log(f"[serve] Phi-3-mini, {cfg.n_layers} layers, batch {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_GEN} tokens: greedy_decode "
+        f"{path['ms']['greedy_decode A'] / 1e3:.3f} s (A, first call); "
+        f"{total:.3f} s (B, warm) = prefill {t_prefill:.3f} s (timed alone) "
+        f"+ {decode_ms:.2f} ms per decode step; "
+        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s "
+        f"({SERVE_BATCH * SERVE_GEN / (total - t_prefill):.1f} after the "
+        "prefill)")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        merged["A"], caches, tok, SERVE_PROMPT))
+    del caches
+    trace_device("prefill", lambda: model.prefill(
+        merged["A"], batch, max_len=SERVE_PROMPT + SERVE_GEN))
+    del merged, out
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_serve_vs_plain(cfg) -> None:
+    """The served forward at full width, depth 2, with B9 against the
+    same forward with B9's plain version on the card, in bf16 and fp32
+    compute: logits compared while both runs' tokens agree, tokens at
+    every step whose top-2 margin exceeds SERVE_LOGIT_LIMIT."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    cfg = cfg.replace(n_layers=2)
+    params = init_from_schema(Model(cfg).schema(), seed=SEED,
+                              device=DEVICE, dtype=torch.bfloat16)
+    batch = serve_batch(cfg)
+    steps = 8
+    for cd in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=cd)
+        kt, kl = greedy_decode(Model(c), params, batch, steps,
+                               return_logits=True)
+        pt, pl = greedy_decode(Model(c, attention=flash_attention_plain),
+                               params, batch, steps, return_logits=True)
+        limit = SERVE_LOGIT_LIMIT[cd]
+        worst, compared, bad = 0.0, 0, []
+        for r in range(SERVE_BATCH):
+            for i in range(steps + 1):
+                worst = max(worst, float((kl[i][r] - pl[i][r]).abs().max()))
+                if i == steps:
+                    break
+                top2 = kl[i][r].topk(2).values
+                if float(top2[0] - top2[1]) <= limit:
+                    break
+                compared += 1
+                if int(kt[r, i]) != int(pt[r, i]):
+                    bad.append((r, i))
+                    break
+        share = float((kt == pt).float().mean())
+        ok = worst <= limit and not bad
+        log(f"[serve-vs-plain] {cd} compute, {cfg.n_layers} layers, batch "
+            f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {steps} tokens: logits "
+            f"max abs diff {worst:.3e} while the tokens agree (limit "
+            f"{limit}); {compared} tokens past the margin rule, "
+            f"{len(bad)} differ; {share:.4f} of all tokens agree: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"served forward with B9 vs plain ({cd}) "
+                                 "outside its limit")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -860,11 +1235,16 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(cfg)
     main = phase_main_path(cfg)
     phase_exact_vs_kernels(cfg)
+    serve = phase_serve(cfg)
+    phase_serve_vs_plain(cfg)
     for name, row in rows.items():
-        row["launches"] = main["launches"][name]
+        row["launches"] = main["launches"][name] \
+            + serve["launches"][name]
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -1,6 +1,6 @@
 from repro_torch.configs.base import (  # noqa: F401
     get_config, list_archs, MambaConfig, MLAConfig, ModelConfig, MoEConfig,
-    register, smoke_config)
+    register, SHAPES, ShapeSpec, smoke_config)
 
 # detcheck tier manifest (docs/ANALYSIS.md):
 # static model shapes; registration side effects only

@@ -1,8 +1,10 @@
-"""Model configuration (`repro.configs.base`, the part the port needs).
+"""Model and shape configuration (`repro.configs.base`, the part the
+port needs).
 
-Every architecture is a `ModelConfig`, a plain frozen dataclass, copied
-field for field from the reference so the two describe the same model.
-The port registers the configurations it can lay out (the dense family:
+Every architecture is a `ModelConfig` and every workload cell a
+`ShapeSpec`, plain frozen dataclasses copied field for field from the
+reference so the two describe the same model and the same batch. The
+port registers the configurations it can run (the dense family:
 Phi-3-mini); the rest arrive with ROADMAP A7.
 """
 from __future__ import annotations
@@ -10,6 +12,26 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned workload cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 # ---------------------------------------------------------------------------
 # Model configuration

@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels for the merge engine's flat-batch routes,
-each with its plain PyTorch version beside it (the CPU path and the
-oracle), and a launch count on each wrapper.
+"""Hand-written CUDA kernels for the merge engine's flat-batch routes
+and the model's attention, each with its plain PyTorch version beside
+it (the CPU path and the oracle), and a launch count on each wrapper.
 
   B1 `nary_accum.nary_accum`   linear family        csrc/nary_accum.cu
   B3 `histogram.block_amax`    histogram-trim TIES  csrc/histogram.cu
@@ -11,19 +11,24 @@ oracle), and a launch count on each wrapper.
   B7 `ties.ties_leaf`          quantile-trim TIES   csrc/ties.cu
   B8 `slerp.slerp_reduce`      two-pass SLERP       csrc/slerp.cu
      `slerp.slerp_combine`
+  B9 `flash_attention.flash_attention`  attention of the model's prefill
+                               and decode           csrc/flash_attention.cu
 
 The per-leaf entry points over contribution pytrees, as the reference's
 `repro.kernels` exports them: `weighted_merge`, `weight_average_merge`,
-`task_arithmetic_merge`, `ties_merge`, `slerp_merge`, `dare_merge`.
+`task_arithmetic_merge`, `ties_merge`, `slerp_merge`, `dare_merge`; and
+`flash_attention`, which the dense model's serving path calls.
 """
 from typing import Dict
 
 from repro_torch.kernels import dare as _dare
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import histogram as _histogram
 from repro_torch.kernels import nary_accum as _nary_accum
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import slerp as _slerp
 from repro_torch.kernels import ties as _ties
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.ops import (  # noqa: F401
     dare_merge, slerp_merge, task_arithmetic_merge, ties_merge,
     weight_average_merge, weighted_merge)
@@ -36,7 +41,8 @@ WRAPPERS = {"nary_accum": _nary_accum.nary_accum,
             "dare_block": _dare.dare_block,
             "ties_leaf": _ties.ties_leaf,
             "slerp_reduce": _slerp.slerp_reduce,
-            "slerp_combine": _slerp.slerp_combine}
+            "slerp_combine": _slerp.slerp_combine,
+            "flash_attention": _flash.flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -24,7 +24,8 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("nary_accum", "histogram", "quant", "dare", "ties", "slerp")
+SOURCES = ("nary_accum", "histogram", "quant", "dare", "ties", "slerp",
+           "flash_attention")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -52,6 +53,14 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "slerp_reduce_bf16": ("slerp", [_P, _P, _P, _L, _I, _P]),
     "slerp_combine_f32": ("slerp", [_P, _P, _P, _P, _L, _P]),
     "slerp_combine_bf16": ("slerp", [_P, _P, _P, _P, _L, _P]),
+    # q, k, v, out, B, Sq, Sk, H, HK, D, 9 strides, scale, causal,
+    # q_offset, stream
+    "flash_attention_f32": ("flash_attention",
+                            [_P] * 4 + [_I] * 6 + [_L] * 9
+                            + [_F, _I, _I, _P]),
+    "flash_attention_bf16": ("flash_attention",
+                             [_P] * 4 + [_I] * 6 + [_L] * 9
+                             + [_F, _I, _I, _P]),
 }
 
 
@@ -119,11 +128,13 @@ def function(symbol: str):
     return fn
 
 
-def on_host(*tensors) -> bool:
+def on_host(*tensors, contiguous: bool = True) -> bool:
     """True when the operands lie on the CPU (the wrapper then runs its
-    plain version); False when they all lie on one CUDA device and are
-    contiguous (the wrapper launches its kernel). Anything else raises:
-    a kernel input is never moved or copied behind the caller's back."""
+    plain version); False when they all lie on one CUDA device and, if
+    `contiguous`, are contiguous (the wrapper launches its kernel; a
+    kernel that reads through strides checks its own layout). Anything
+    else raises: a kernel input is never moved or copied behind the
+    caller's back."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError("operands on several devices: "
@@ -133,7 +144,7 @@ def on_host(*tensors) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
+    if contiguous and not all(t.is_contiguous() for t in tensors):
         raise ValueError("kernel operands must be contiguous")
     return False
 

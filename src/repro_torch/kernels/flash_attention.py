@@ -1,0 +1,154 @@
+"""B9 flash attention (`repro/kernels/flash_attention.py:flash_attention`,
+in CUDA: `csrc/flash_attention.cu`).
+
+    flash_attention(q, k, v, causal=True, scale=0.0, q_offset=0)
+
+q [B, Sq, H, D]; k, v [B, Sk, HK, D] with H a multiple of HK (query head
+h reads KV head h // (H / HK)); all fp32 or all bf16. Returns
+[B, Sq, H, D] in q's dtype: softmax((q . k) * scale) . v, with scale 0
+meaning D^-0.5, logits, softmax and the p . v accumulator in fp32.
+Query row i sits at position q_offset + i; with `causal` it sees keys
+0 .. q_offset + i. So one function serves prefill (q_offset 0) and a
+decode step (Sq = 1, q_offset = its position, k and v the whole cache:
+the keys past the position are never read). Two departures from the
+reference, both needed by the serving path: `q_offset` (the reference
+has none; at 0 the function is the reference's), and keys past Sk are
+masked with or without `causal` (the reference pads them with zeros and
+leaves those in its non-causal softmax, ROADMAP C).
+
+The wrapper launches the CUDA kernel for CUDA tensors, reading q, k and
+v in place through their strides (the reference transposes to
+[B*H, S, D]; a layer's slice of the KV cache is read the same way), and
+runs `flash_attention_plain` for CPU tensors. The two sum in different
+orders and exponentiate with different code, so they agree within a
+tolerance, not bitwise (`chip_smoke.py` states it). A row that sees no
+key gives 0 in both.
+
+Sliding windows and logit softcapping (gemma2's local layers) raise
+`NotImplementedError`; they come with that family (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 96, 128)     # instantiated in the CUDA source
+# queries per chunk of the plain version: [B, H, chunk, Sk] fp32 logits
+# stay under 2^28 elements (1 GiB)
+_PLAIN_ELEMS = 1 << 28
+
+
+def _unsupported(window: int, softcap: float) -> None:
+    if window:
+        raise NotImplementedError(
+            "sliding-window attention (gemma2's local layers) waits for "
+            "ROADMAP A7")
+    if softcap:
+        raise NotImplementedError(
+            "attention logit softcapping (gemma2) waits for ROADMAP A7")
+
+
+def _check(q, k, v, q_offset: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("expected q [B, Sq, H, D] and k, v [B, Sk, HK, D]")
+    b, _, h, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch or head dim")
+    hk = k.shape[2]
+    if hk == 0 or h % hk:
+        raise ValueError(f"H={h} is not a multiple of HK={hk}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must be all fp32 or all bf16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset={q_offset} < 0")
+
+
+def _check_strided(*tensors) -> None:
+    """The kernel reads 8 elements (16 bytes of bf16, 32 of fp32) at a
+    time from rows with a contiguous last dimension."""
+    for t in tensors:
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                "kernel operands need a contiguous last dimension, strides "
+                "that are multiples of 8 elements and 16-byte alignment; got "
+                f"strides {t.stride()}")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: float = 0.0, q_offset: int = 0,
+                          window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """The same function in fp32 torch ops, chunked over queries:
+    logits, mask, a max-subtracted softmax, p @ v, cast to q's dtype."""
+    _unsupported(window, softcap)
+    _check(q, k, v, q_offset)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    if scale <= 0.0:
+        scale = d ** -0.5
+    out = torch.zeros((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if sk == 0:
+        return out
+    kt = k.to(torch.float32).permute(0, 2, 3, 1).unsqueeze(2)  # B,HK,1,D,Sk
+    vf = v.to(torch.float32).permute(0, 2, 1, 3).unsqueeze(2)  # B,HK,1,Sk,D
+    kpos = torch.arange(sk, device=q.device)
+    chunk = max(1, _PLAIN_ELEMS // max(1, b * h * sk))
+    for s0 in range(0, sq, chunk):
+        c = min(chunk, sq - s0)
+        qc = q[:, s0:s0 + c].to(torch.float32).reshape(b, c, hk, g, d) \
+            .permute(0, 2, 3, 1, 4)                           # B,HK,G,c,D
+        logits = torch.matmul(qc, kt) * scale                 # B,HK,G,c,Sk
+        if causal:
+            qpos = q_offset + s0 + torch.arange(c, device=q.device)
+            logits.masked_fill_(kpos[None, :] > qpos[:, None],
+                                float("-inf"))
+        m = logits.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(logits - m)
+        del logits
+        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.matmul(p, vf) / denom                       # B,HK,G,c,D
+        out[:, s0:s0 + c] = o.permute(0, 3, 1, 2, 4).reshape(b, c, h, d) \
+            .to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
+                    q_offset: int = 0, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """q [B, Sq, H, D], k, v [B, Sk, HK, D] -> [B, Sq, H, D]."""
+    if build.on_host(q, k, v, contiguous=False):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, window=window,
+                                     softcap=softcap)
+    _unsupported(window, softcap)
+    _check(q, k, v, q_offset)
+    d = q.shape[3]
+    if scale <= 0.0:
+        scale = d ** -0.5
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no kernel instance; have "
+                         f"{HEAD_DIMS}")
+    _check_strided(q, k, v)
+    b, sq, h, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    symbol = ("flash_attention_bf16" if q.dtype == torch.bfloat16
+              else "flash_attention_f32")
+    code = build.function(symbol)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), int(bool(causal)), int(q_offset),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention.launches += 1
+    build.check(code, symbol)
+    return out
+
+
+flash_attention.launches = 0

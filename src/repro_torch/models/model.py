@@ -1,44 +1,37 @@
-"""Parameter layout of the dense model family (`repro.models.model`,
-`Model.schema()` for `family == "dense"`).
+"""The dense model family (`repro.models.model`, `family == "dense"`):
+its parameter layout and its serving path, prefill and decode.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
-does: one `blocks/sub0` subtree whose leaves carry [n_layers, ...].
-The forward pass and the other families (MoE, MLA, SSM, hybrid,
-enc-dec, VLM) wait for ROADMAP A7.
+does: one `blocks/sub0` subtree whose leaves carry [n_layers, ...]. The
+stack runs as a Python loop over layer views of those leaves, where the
+reference scans. `Model` stays a class over the parameter pytree, as
+`Replica.resolve` returns it; it runs under `torch.inference_mode()` on
+the device the parameters lie on.
+
+The KV cache has the reference's structure, `{"blocks": {"sub0": (k,
+v)}}` with k, v of [n_layers, B, max_len, HK, D] in the compute dtype.
+Prefill allocates it zeroed at `max_len` and writes the prompt's keys
+and values into it (the reference zero-pads a copy: `_pad_seq`);
+`decode_step` writes its slot in place (the reference returns an
+updated copy) and returns the same tensors. Every attention call goes
+to `self.attention`, B9 (`kernels.flash_attention`) unless the caller
+passes a function of its signature.
+
+`loss` (training), and the MoE, MLA, SSM, hybrid, enc-dec and VLM
+families wait for ROADMAP A7.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
+import torch
+
+from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dtypes import BY_NAME
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import layers as L
 from repro_torch.models.schema import PDef
-
-
-def rmsnorm_def(d: int) -> PDef:
-    return PDef((d,), (None,), init="ones")
-
-
-def attn_def(d: int, n_heads: int, n_kv: int, head_dim: int,
-             scale: float) -> dict:
-    return {
-        "wq": PDef((d, n_heads * head_dim), ("fsdp", "tp"), scale=scale),
-        "wk": PDef((d, n_kv * head_dim), ("fsdp", "tp"), scale=scale),
-        "wv": PDef((d, n_kv * head_dim), ("fsdp", "tp"), scale=scale),
-        "wo": PDef((n_heads * head_dim, d), ("tp", "fsdp"), scale=scale),
-    }
-
-
-def mlp_def(d: int, f: int, variant: str, scale: float) -> dict:
-    if variant in ("swiglu", "geglu"):
-        return {
-            "w_gate": PDef((d, f), ("fsdp", "tp"), scale=scale),
-            "w_up": PDef((d, f), ("fsdp", "tp"), scale=scale),
-            "w_down": PDef((f, d), ("tp", "fsdp"), scale=scale),
-        }
-    return {
-        "w_up": PDef((d, f), ("fsdp", "tp"), scale=scale),
-        "w_down": PDef((f, d), ("tp", "fsdp"), scale=scale),
-    }
 
 
 def _stack(schema: Any, n: int) -> Any:
@@ -49,29 +42,189 @@ def _stack(schema: Any, n: int) -> Any:
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig,
+                 attention: Optional[Callable] = None):
         if cfg.family != "dense" or cfg.local_global_pattern \
                 or cfg.sandwich_norms:
             raise NotImplementedError(
                 f"{cfg.name}: only the plain dense layout is ported; the "
                 "other families wait for ROADMAP A7")
         self.cfg = cfg
+        self.compute_dtype = BY_NAME[cfg.compute_dtype]
+        self.attention = attention or flash_attention
+
+    # ------------------------------------------------------------- schema
 
     def schema(self) -> dict:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         sub: Dict[str, Any] = {
-            "pre_norm": rmsnorm_def(d),
-            "attn": attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02),
-            "ffn_norm": rmsnorm_def(d),
-            "ffn": mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02),
+            "pre_norm": L.rmsnorm_def(d),
+            "attn": L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02),
+            "ffn_norm": L.rmsnorm_def(d),
+            "ffn": L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02),
         }
         sc: Dict[str, Any] = {
             "embed": PDef((cfg.vocab_size, d), ("tp", None), scale=0.02),
-            "final_norm": rmsnorm_def(d),
+            "final_norm": L.rmsnorm_def(d),
             "blocks": _stack({"sub0": sub}, cfg.n_layers),
         }
         if not cfg.tie_embeddings:
             sc["lm_head"] = PDef((d, cfg.vocab_size), (None, "tp"),
                                  scale=0.02)
         return sc
+
+    def loss(self, params, batch):
+        raise NotImplementedError(
+            "training (loss, train step, AdamW, BTM) waits for ROADMAP A7")
+
+    # --------------------------------------------------------- sub-layers
+
+    def _apply_mixer(self, p, x, *, mode, cache, pos):
+        """Plain attention; `mode` is "prefill" or "decode". `cache`:
+        this layer's (k, v) views of [B, max_len, HK, D], written in
+        place. Returns the mixer's output."""
+        cfg = self.cfg
+        cd = self.compute_dtype
+        hd = cfg.resolved_head_dim
+        if mode == "decode":
+            k_cache, v_cache = cache
+            k_new, v_new = self._project_kv(p["attn"], x, rope=True,
+                                            pos=pos)
+            s = x.shape[1]
+            k_cache[:, pos:pos + s] = k_new.to(k_cache.dtype)
+            v_cache[:, pos:pos + s] = v_new.to(v_cache.dtype)
+            return self._attn_with_cache(p["attn"], x, k_cache, v_cache, pos)
+        out = L.gqa_attention(
+            p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=hd, rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap,
+            q_scale=cfg.query_scale, compute_dtype=cd,
+            attention=self.attention)
+        k, v = self._project_kv(p["attn"], x, rope=True)
+        cache[0][:, :k.shape[1]] = k
+        cache[1][:, :k.shape[1]] = v
+        return out
+
+    def _project_kv(self, p, x, *, rope, pos=None):
+        cfg = self.cfg
+        cd = self.compute_dtype
+        hd = cfg.resolved_head_dim
+        b, s, _ = x.shape
+        xc = x.to(cd)
+        k = (xc @ p["wk"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (xc @ p["wv"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
+        if rope and cfg.rope_theta > 0:
+            positions = torch.arange(s, device=x.device)
+            if pos is not None:
+                positions = pos + positions
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+        return k, v
+
+    def _attn_with_cache(self, p, x, k_cache, v_cache, pos):
+        """Decode attention over the whole cache: B9 at q_offset = pos
+        sees keys 0 .. pos + i, the reference's `kv_valid` mask."""
+        cfg = self.cfg
+        cd = self.compute_dtype
+        hd = cfg.resolved_head_dim
+        b, s, _ = x.shape
+        q = (x.to(cd) @ p["wq"].to(cd)).reshape(b, s, cfg.n_heads, hd)
+        if cfg.rope_theta > 0:
+            q = L.apply_rope(q, pos + torch.arange(s, device=x.device),
+                             cfg.rope_theta)
+        out = self.attention(q, k_cache.to(cd), v_cache.to(cd), causal=True,
+                             scale=cfg.query_scale, q_offset=pos,
+                             softcap=cfg.attn_softcap)
+        return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
+
+    def _apply_sublayer(self, p, x, *, mode, cache, pos):
+        cfg = self.cfg
+        h = L.rmsnorm(p["pre_norm"], x, cfg.rms_eps)
+        mix = self._apply_mixer(p, h, mode=mode, cache=cache, pos=pos)
+        x = x + cfg.residual_scale * mix
+        h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
+        y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
+        return x + cfg.residual_scale * y
+
+    # ------------------------------------------------------------ drivers
+
+    def _run_stack(self, params, x, *, mode, caches=None, pos=None):
+        """The layer stack, one layer's views of the stacked leaves at a
+        time. `caches`: the (k, v) pair of [n_layers, ...] tensors."""
+        blocks = params["blocks"]["sub0"]
+        for i in range(self.cfg.n_layers):
+            bp = pytree.tree_map(lambda t: t[i], blocks)
+            cache = None if caches is None else (caches[0][i], caches[1][i])
+            x = self._apply_sublayer(bp, x, mode=mode, cache=cache, pos=pos)
+        return x
+
+    # -------------------------------------------------------- embeddings
+
+    def _embed(self, params, tokens):
+        """Token embeddings in the compute dtype. (The reference's
+        `activation_constraint` is the identity on one device; sharding
+        waits for ROADMAP A8.)"""
+        cd = self.compute_dtype
+        x = params["embed"][tokens.long()]
+        # the scale rounded to the compute dtype on the host, as
+        # `jnp.asarray(emb_scale, cd)`; a device tensor made here would
+        # be a blocking copy, stalling the host on every decode step
+        return x.to(cd) * torch.tensor(self.cfg.emb_scale, dtype=cd).item()
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        cd = self.compute_dtype
+        x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        logits = x.to(cd) @ head.to(cd)
+        logits = logits.to(torch.float32) * cfg.logit_mult
+        if cfg.final_softcap > 0:
+            logits = cfg.final_softcap * torch.tanh(
+                logits / cfg.final_softcap)
+        return logits
+
+    @staticmethod
+    def _tokens(params, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=params["embed"].device)
+
+    # ----------------------------------------------------------- serving
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, max_len: Optional[int] = None):
+        """Full-sequence forward building a decode cache.
+
+        `max_len` (>= prompt length) pre-sizes the KV caches for decode.
+        Returns (last-token logits [B, V] fp32, caches).
+        """
+        tokens = self._tokens(params, batch["tokens"])
+        b, s = tokens.shape
+        caches = self.init_cache(b, max_len or s,
+                                 device=params["embed"].device)
+        x = self._embed(params, tokens)
+        x = self._run_stack(params, x, mode="prefill",
+                            caches=caches["blocks"]["sub0"])
+        logits = self._logits(params, x[:, -1:])
+        return logits[:, 0], caches
+
+    @torch.inference_mode()
+    def decode_step(self, params, caches, token, pos: int):
+        """One decode step. token: [B, 1]; pos: its position.
+
+        Returns (logits [B, V] fp32, caches), the caches written in place.
+        """
+        x = self._embed(params, self._tokens(params, token))
+        x = self._run_stack(params, x, mode="decode",
+                            caches=caches["blocks"]["sub0"], pos=int(pos))
+        return self._logits(params, x)[:, 0], caches
+
+    # ------------------------------------------------------------- cache
+
+    def init_cache(self, batch_size: int, max_len: int, *,
+                   device: Any = "cuda"):
+        """Zeroed cache pytree for decode."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        kw = dict(dtype=self.compute_dtype, device=device)
+        return {"blocks": {"sub0": (torch.zeros(shape, **kw),
+                                    torch.zeros(shape, **kw))}}

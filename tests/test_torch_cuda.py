@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (all eight kernel functions, B1-B8) on a
-GPU, against their plain PyTorch versions, bitwise; skipped without
-CUDA (the kernels have no CPU mode).
+"""The port's CUDA kernels on a GPU, against their plain PyTorch
+versions: B1-B8 bitwise, B9 within a tolerance; skipped without CUDA
+(the kernels have no CPU mode).
 
 This file imports neither JAX nor `repro`, so it runs on a GPU machine
 without them: `python -m pytest --noconftest -q -m cuda
@@ -23,6 +23,13 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                arccos and sin: those within 4 fp32 ulps, and each leaf
                bitwise equal to the CPU's combine with the card's
                scalars
+  B9           flash_attention against its plain version within a
+               tolerance (the two sum and exponentiate differently):
+               GQA, MQA, ragged Sq and Sk, D in {64, 96, 128}, decode
+               (Sq = 1 at a q_offset), non-causal with ragged Sk, cache
+               slices read through their strides, fp32 and bf16; two
+               launches give equal bits; the smoke model's greedy
+               decode on the card gives the CPU's tokens in fp32
 """
 import numpy as np
 import pytest
@@ -36,6 +43,8 @@ from repro_torch.kernels import nary_accum as nary  # noqa: E402
 from repro_torch.kernels import ties  # noqa: E402
 from repro_torch.kernels.common import padded_len  # noqa: E402
 from repro_torch.kernels.config import kernel_env  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.histogram import batch_layout  # noqa: E402
 
 BLOCK = 2048
@@ -313,3 +322,112 @@ def _check_slerp_leaf(got, u, v, t):
     want = slerp.slerp_combine_plain(uv[0], uv[1], c_card, BLOCK)
     assert torch.equal(got.cpu(), want[:u.numel()].reshape(u.shape).to(
         u.dtype))
+
+
+# B9 on the card against its plain version on the card. fp32: within
+# 1e-5 absolute (outputs of order 1; the two differ in the order of the
+# D-long dot products and the key sums, and in exp). bf16: within one
+# bf16 ulp of |plain| + 1e-6 (equal fp32 values up to that difference,
+# each rounded once to bf16).
+FLASH_SPECS = {
+    "gqa": (2, 128, 128, 8, 2, 64, True, 0),
+    "mqa": (1, 200, 200, 4, 1, 128, True, 0),
+    "ragged": (2, 77, 93, 4, 2, 96, True, 0),
+    "noncausal_ragged": (2, 37, 100, 4, 2, 96, False, 0),
+    "decode": (2, 1, 300, 8, 2, 96, True, 250),
+    "decode_short_tile": (3, 5, 70, 4, 4, 64, True, 60),
+}
+
+
+def _flash_inputs(spec, dtype, seed=0):
+    b, sq, sk, h, hk, d, _, _ = spec
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(getattr(torch, dtype))
+            for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d))]
+
+
+def _flash_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        assert float((g - w).abs().max()) <= 1e-5
+    else:
+        assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-6).all())
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_SPECS))
+def test_cuda_flash_attention_equals_plain(case, dtype):
+    spec = FLASH_SPECS[case]
+    causal, q_offset = spec[6], spec[7]
+    q, k, v = (t.cuda() for t in _flash_inputs(spec, dtype))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal,
+                                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    _flash_close(got, want)
+    again = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert torch.equal(_bits(got), _bits(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_reads_cache_slices(dtype):
+    """Strided reads: q a head slice of a wider projection, k and v one
+    layer's slice of a [2, L, B, max_len, HK, D] cache, past the last
+    written position; a decode step and a short prefill chunk."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    cache = torch.randn((2, 3, 2, 160, 2, 96), generator=g).to(dt).cuda()
+    kc, vc = cache[0, 1], cache[1, 1]          # [B=2, 160, 2, 96] views
+    wide = torch.randn((2, 9, 16, 96), generator=g).to(dt).cuda()
+    assert not wide[:, :, :8].is_contiguous()
+    for q, pos in ((wide[:, :1, :8], 120), (wide[:, :, 8:], 40)):
+        got = flash_attention(q, kc, vc, q_offset=pos)
+        want = flash_attention_plain(q.contiguous(), kc.contiguous(),
+                                        vc.contiguous(), q_offset=pos)
+        torch.cuda.synchronize()
+        _flash_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses():
+    q = torch.zeros((1, 4, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 4, 2, 68), device="cuda")[..., :64]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="several devices"):
+        flash_attention(q.cpu(), q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_model_greedy_decode_equals_cpu():
+    """Phi-3-mini's smoke config (4 layers, head dim 16) with fp32
+    compute: greedy_decode on the card launches B9 once per layer per
+    step (and once per layer for the prompt) and gives the CPU's
+    tokens."""
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("phi3-mini-3.8b").replace(compute_dtype="float32")
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    batch = make_batch(cfg, ShapeSpec("s", 24, 3, "prefill"))
+    want = greedy_decode(model, params, batch, 8)
+    before = flash_attention.launches
+    got = greedy_decode(model, pytree.tree_map(lambda t: t.cuda(), params),
+                        batch, 8)
+    assert flash_attention.launches - before == cfg.n_layers * 9
+    assert got.is_cuda and torch.equal(got.cpu(), want)
