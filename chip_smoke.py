@@ -120,14 +120,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, sleep: bool = True) -> float:
     """Median milliseconds of `fn()` over `reps` CUDA-event-timed runs,
-    after one warm-up."""
+    after one warm-up. With `sleep` the card sleeps ~1 ms ahead of each
+    start event, so the host's enqueue time (a wrapper's Python, ~0.05
+    ms for B9) falls inside the sleep and the interval is the card's;
+    without it (the method up to PR 15) a call shorter than its host
+    time reads as that host time."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if sleep:
+            torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -172,6 +178,66 @@ def phase_build() -> None:
         log(f"[build] {src}.cu: {len(regs)} kernels; "
             + " | ".join(r.split("ptxas info    : ")[-1] for r in regs))
     log(f"[build] nvcc for {sorted(logs)} in parallel: {dt:.1f} s")
+    flash_instances(logs.get("flash_attention", ""))
+
+
+def _instance(mangled: str) -> str:
+    """`flash_kernel_decode<bf16, 96, 1>` from a mangled kernel name."""
+    import re
+    m = re.search(r"(flash_kernel(?:_mma|_decode)?)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled[:60]
+    args = [{"t": "bf16", "f": "fp32"}.get(a, n) for a, n in
+            re.findall(r"(t|f)|Li(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def flash_instances(log_text: str) -> None:
+    """B9's instances: ptxas registers, spills and static shared memory,
+    the dynamic shared memory each launch asks for, and the tensor-core
+    (HMMA) instructions in the SASS of the bf16 prefill instances."""
+    import re
+    from repro_torch.kernels import build
+    smem = build.function("flash_attention_smem")
+    cur, info = None, {}
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = _instance(ln.split("'")[1])
+        elif cur and "spill" in ln:
+            info.setdefault(cur, {})["spill"] = ln.split(":")[-1].strip()
+        elif cur and "registers" in ln:
+            info.setdefault(cur, {})["regs"] = ln.split(":")[-1].strip()
+    if not info:
+        log("[build] flash_attention.cu was built earlier: no ptxas report")
+    for name in sorted(info):
+        kind, args = name.split("<")[0], name[:-1].split("<")[1].split(", ")
+        if kind in ("flash_kernel_mma", "flash_kernel"):   # bf16, fp32
+            dyn = smem(0, kind == "flash_kernel_mma", int(args[0]), 0)
+        else:
+            dyn = smem(1, args[0] == "bf16", int(args[1]), int(args[2]))
+        log(f"[build] B9 {name}: {info[name].get('regs', '?')}; "
+            f"{info[name].get('spill', '?')}; {dyn} bytes dynamic smem")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._lib_path("flash_attention"))],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = _instance(ln.split("Function :")[1].strip())
+        elif cur and re.search(r"\bHMMA\.16816\.F32\.BF16\b", ln):
+            counts[cur] = counts.get(cur, 0) + 1
+    for d in (16, 32, 64, 96, 128):
+        name = f"flash_kernel_mma<{d}>"
+        # per 64-key tile: Q K^T D/16 k-steps x 8 key tiles, P . V 4
+        # k-steps x D/8 dim tiles x 3 terms of P
+        qk, pv = d // 16 * 8, 4 * (d // 8) * 3
+        log(f"[build] B9 {name} SASS: {counts.get(name, 0)} "
+            f"HMMA.16816.F32.BF16 (a fully unrolled tile: Q.K^T {qk} + "
+            f"P.V {pv})")
+        if not counts.get(name):
+            raise AssertionError(f"{name} has no tensor-core instruction")
 
 
 def main_path_lengths(cfg, itemsize: int = 2) -> list:
@@ -432,7 +498,7 @@ def flash_case(q, k, v, q_offset: int) -> dict:
     at the peak rate of q's type."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        DECODE_ROWS, flash_attention, flash_attention_plain)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
 
@@ -475,8 +541,12 @@ def flash_case(q, k, v, q_offset: int) -> dict:
            "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": cuda_ms(library, 10), "rule": rule}
-    log(f"[kernels] flash_attention q {list(q.shape)} k/v {list(k.shape)} "
-        f"{str(q.dtype)[6:]}, q_offset {q_offset}: {rule}, max abs err "
+    design = ("decode design" if sq <= DECODE_ROWS else
+              "prefill on the tensor cores" if q.dtype == torch.bfloat16
+              else "prefill, scalar fp32 instance")
+    log(f"[kernels] flash_attention ({design}) q {list(q.shape)} k/v "
+        f"{list(k.shape)} {str(q.dtype)[6:]}, q_offset {q_offset}: {rule}, "
+        "max abs err "
         f"{max_err:.3e}; {out['ms']:.3f} ms (bound {out['bound_ms']:.3f} ms "
         f"by {out['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
         f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
@@ -487,9 +557,11 @@ def flash_case(q, k, v, q_offset: int) -> dict:
 
 def phase_flash_kernel(rows: dict, cfg, g) -> None:
     """B9 against its plain version at the serving path's shapes: the
-    prefill's q, k, v [4, 4064, 32, 96] (causal; bf16, and fp32), and a
-    decode step's q [4, 1, 32, 96] against a [4, 4096, 32, 96] cache at
-    q_offset 4063."""
+    prefill's q, k, v [4, 4064, 32, 96] (causal; bf16 on the tensor
+    cores, and fp32 on the scalar instance), and a decode step's q
+    [4, 1, 32, 96] against a [4, 4096, 32, 96] cache at q_offset 4063
+    (the decode design, its key chunks printed)."""
+    from repro_torch.kernels.flash_attention import decode_splits
     dev = torch.device(DEVICE)
     h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     max_len = SERVE_PROMPT + SERVE_GEN
@@ -507,7 +579,12 @@ def phase_flash_kernel(rows: dict, cfg, g) -> None:
     q = randn(SERVE_BATCH, 1, h, d, dtype=torch.bfloat16)
     kv = [randn(SERVE_BATCH, max_len, hk, d, dtype=torch.bfloat16)
           for _ in range(2)]
+    splits, chunk = decode_splits(SERVE_BATCH, hk, SERVE_PROMPT, d)
+    log(f"[kernels] flash_attention decode design at the serving shape: "
+        f"{splits} key chunks of {chunk} over {SERVE_PROMPT} visible keys, "
+        f"{splits * SERVE_BATCH * hk} blocks")
     cases["decode"] = flash_case(q, *kv, SERVE_PROMPT - 1)
+    cases["decode"]["splits"] = [splits, chunk]
     del q, kv
     torch.cuda.empty_cache()
     main = cases.pop("prefill")

@@ -15,25 +15,61 @@
 //
 // Bound on the H100: operations for prefill (4 D flops per visible
 // (query, key) pair against 2 bytes per element read), bytes for decode
-// (one query row streams its whole K and V prefix). This first kernel
-// runs on the scalar fp32 pipes with explicit fmaf (the build's
-// --fmad=false only stops implicit contraction), and stays far from the
-// tensor-core bound; `wgmma` and TMA are a later change.
+// (one query row streams its whole K and V prefix). Three designs, by
+// dtype and query count:
 //
-// Design: one CUDA block of 256 threads per (query tile, head, batch);
-// the query tile is 64 rows (16 row groups x 4 rows), or 16 rows (x 1)
-// when Sq <= 16, so a decode step does not waste 63 of 64 rows. The
-// tile's queries stay in shared memory as fp32 for the whole key loop.
-// Per tile of 64 keys, K (transposed) and V are staged in shared memory
-// widened to fp32 with 16-byte loads; thread (ty, tx) computes the
-// logits of its 4 (or 1) rows and keys tx, tx+16, tx+32, tx+48, reduces
-// max and sum across its 16 lanes with shuffles (no atomics: keys are
-// consumed in index order, so every launch gives the same bits), writes
-// p to shared memory, then accumulates p * v into head dims tx + 16 j
-// of its rows in registers. A causal block stops at the last key tile
-// any of its rows can see. Shared memory exceeds the default 48 KB for
-// D = 96 (93 KB at 64 rows), so the launch raises the limit.
+// bf16 prefill (Sq > 16), `flash_kernel_mma`: FlashAttention-2 shaped, on
+// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate). One
+// block of 4 warps per (64-query tile, head, batch), 16 rows a warp. Q is
+// staged once in shared memory and held in registers as A fragments
+// (ldmatrix) for the whole key loop; K and V tiles of 64 keys stay bf16
+// in shared memory, double-buffered with 16-byte cp.async copies, rows
+// padded by 16 bytes so ldmatrix hits no bank twice. S = Q K^T in fp32;
+// scale (times log2 e), the causal and Sk masks (on the diagonal tile
+// only) and the online softmax per row in fp32, with quad shuffles and
+// 2^x on the special-function unit: its error on p is ~2^-22 relative
+// plus |x| 2^-24 from the folded scale, far inside the bf16 rule (the
+// card's tests hold it; expf cost 10 % more time). P . V keeps fp32
+// accuracy: P is split into three bf16 terms (hi, mid, lo) that carry
+// its 24 bits exactly, all repacked from S's accumulator layout into A
+// fragments in registers, and acc += P_lo V + P_mid V + P_hi V (V by
+// ldmatrix.trans). Rounding P to one bf16 value would leave a 2^-9
+// relative error per term, and two terms 2^-18: enough to put outputs
+// near zero beyond one bf16 ulp + 1e-6 of the plain version in rows that
+// see few keys (H100: 5 of 50M elements at the serving shape). Three
+// terms cost 2x a plain kernel's tensor-core work. Products of bf16
+// values are exact in the fp32 accumulator, so Q K^T needs no split.
+//
+// fp32 prefill (Sq > 16), `flash_kernel`: the scalar fp32 pipes with
+// explicit fmaf (the build's --fmad=false only stops implicit
+// contraction). One block of 256 threads per (64-query tile, head,
+// batch); per tile of 64 keys, K (transposed) and V are staged in shared
+// memory widened to fp32; thread (ty, tx) computes the logits of its 4
+// rows and keys tx + 16 j, reduces max and sum across its 16 lanes with
+// shuffles, writes p to shared memory, then accumulates p * v into head
+// dims tx + 16 j of its rows in registers.
+//
+// Decode (Sq <= 16, both dtypes), `flash_kernel_decode`: the keys are
+// split across blocks. One block of 4 warps per (key chunk, KV head and
+// row group, batch) holds every query row that reads that KV head (Sq x
+// H / HK rows, in groups of R = 1 or 16), so K and V are read once per KV
+// head. K and V tiles of 32 keys stream through a 3-stage cp.async ring
+// (two tiles in flight); in a tile each warp takes 8 keys, four lanes a
+// key (a quarter of D each), so no lane idles. Each warp keeps its own
+// online softmax; at the chunk's end the warps combine in index order.
+// With one chunk the block writes the output; otherwise it writes fp32
+// (m, l, acc[D]) per row to scratch, and the last block of its group
+// (an integer ticket, atomicAdd after __threadfence: it decides who
+// combines, never what is summed) combines the chunks in chunk order,
+// divides and rounds, and resets the ticket for the next call.
+//
+// Every design consumes keys in a fixed order and sums no float with
+// atomics, so every launch gives the same bits. A causal block stops at
+// the last key tile any of its rows can see; prefill launches the
+// longest query tiles first, so the short ones fill the tail.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -43,6 +79,7 @@ constexpr int kThreads = 256;
 constexpr int kTX = 16;                 // lanes across keys and head dims
 constexpr int kTY = kThreads / kTX;     // row groups
 constexpr int kBK = 64;                 // keys per tile
+constexpr int kRQ = 4;                  // query rows per thread
 
 // fp32 -> bf16 bits, round to nearest even (as torch's .to(bfloat16))
 __device__ __forceinline__ uint16_t to_bf16(float f) {
@@ -57,23 +94,117 @@ __device__ __forceinline__ void store(uint16_t* p, float v) {
   *p = to_bf16(v);
 }
 
-template <int D, int RQ>
-constexpr int smem_floats() {
-  return D * (kTY * RQ + 4)      // Qs [D][BQ + 4]
-         + D * (kBK + 1)         // Ks [D][BK + 1]
-         + kBK * D               // Vs [BK][D]
-         + kTY * RQ * (kBK + 4); // Ps [BQ][BK + 4]
+// ---- PTX wrappers: cp.async, ldmatrix, mma.sync (sm_80 and later)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int D, int RQ>
+// 16 bytes from global to shared memory; zero-filled when !pred (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 -> packed bf16x2 (x0 in the low half), round to nearest even
+// in one instruction (NaN is not kept as torch keeps it: for P only)
+__device__ __forceinline__ uint32_t pack_rn(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
+}
+
+// two outputs -> packed bf16x2, rounded as torch's .to(bfloat16)
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return static_cast<uint32_t>(to_bf16(x0))
+         | (static_cast<uint32_t>(to_bf16(x1)) << 16);
+}
+
+// p = hi + mid + lo, each a bf16 pair: hi = bf16(p), mid = bf16(p - hi),
+// lo = bf16(p - hi - mid). Each difference is exact in fp32 and holds 8
+// fewer significant bits than the last, so the three carry p's 24 bits
+// exactly (two would leave 2^-18 of p: one to a few 1e-6 on outputs
+// near zero of rows that see few keys, beyond the bf16 rule's 1e-6)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  hi = pack_rn(x0, x1);
+  x0 = __fsub_rn(x0, __uint_as_float(hi << 16));
+  x1 = __fsub_rn(x1, __uint_as_float(hi & 0xFFFF0000u));
+  mid = pack_rn(x0, x1);
+  lo = pack_rn(__fsub_rn(x0, __uint_as_float(mid << 16)),
+               __fsub_rn(x1, __uint_as_float(mid & 0xFFFF0000u)));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: a relative error of
+// ~2^-22, results below 2^-126 flushed to 0; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// -inf where no key was seen, so exp(s - m) stays 0 and never NaN
+__device__ __forceinline__ float finite_or_zero(float m) {
+  return m == -INFINITY ? 0.f : m;
+}
+
+template <int D>
+constexpr int smem_floats() {
+  return D * (kTY * kRQ + 4)        // Qs [D][BQ + 4]
+         + D * (kBK + 1)            // Ks [D][BK + 1]
+         + kBK * D                  // Vs [BK][D]
+         + kTY * kRQ * (kBK + 4);   // Ps [BQ][BK + 4]
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-             int h, int hk, long long qsb, long long qss, long long qsh,
-             long long ksb, long long kss, long long ksh, long long vsb,
-             long long vss, long long vsh, float scale, int causal,
-             int q_offset) {
-  constexpr int BQ = kTY * RQ;
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int sq,
+             int sk, int h, int hk, long long qsb, long long qss,
+             long long qsh, long long ksb, long long kss, long long ksh,
+             long long vsb, long long vss, long long vsh, float scale,
+             int causal, int q_offset) {
+  constexpr int BQ = kTY * kRQ;
   constexpr int DC = D / kTX;           // head dims per thread
   constexpr int U = D / 8;              // 8-element units per row
   constexpr int QLD = BQ + 4, KLD = kBK + 1, PLD = kBK + 4;
@@ -89,9 +220,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hh = blockIdx.y, b = blockIdx.z;
   const int kh = hh / (h / hk);
   const int rows = min(BQ, sq - q0);
-  const T* qb = q + b * qsb + hh * qsh;
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
+  const float* qb = q + b * qsb + hh * qsh;
+  const float* kb = k + b * ksb + kh * ksh;
+  const float* vb = v + b * vsb + kh * vsh;
 
   for (int u = tid; u < BQ * U; u += kThreads) {
     const int r = u / U, d8 = (u % U) * 8;
@@ -110,9 +241,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // position q_offset + q0 + rows - 1
   const int kend = causal ? max(0, min(sk, q_offset + q0 + rows)) : sk;
 
-  float m[RQ], l[RQ], acc[RQ][DC];
+  float m[kRQ], l[kRQ], acc[kRQ][DC];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
+  for (int i = 0; i < kRQ; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -140,34 +271,28 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    float s[RQ][4];
+    float s[kRQ][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int i = 0; i < kRQ; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[RQ];
-      if constexpr (RQ == 4) {
-        const float4 a4 =
-            *reinterpret_cast<const float4*>(Qs + d * QLD + ty * RQ);
-        a[0] = a4.x; a[1] = a4.y; a[2] = a4.z; a[3] = a4.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) a[i] = Qs[d * QLD + ty * RQ + i];
-      }
+      const float4 a4 =
+          *reinterpret_cast<const float4*>(Qs + d * QLD + ty * kRQ);
+      const float a[kRQ] = {a4.x, a4.y, a4.z, a4.w};
       float kk[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) kk[j] = Ks[d * KLD + tx + kTX * j];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+      for (int i = 0; i < kRQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qpos = q_offset + q0 + ty * RQ + i;
+    for (int i = 0; i < kRQ; ++i) {
+      const int qpos = q_offset + q0 + ty * kRQ + i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -198,18 +323,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < DC; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Ps[(ty * RQ + i) * PLD + tx + kTX * j] = s[i][j];
+        Ps[(ty * kRQ + i) * PLD + tx + kTX * j] = s[i][j];
     }
     __syncthreads();
 
     // keys past kend carry p = 0 and zero V rows: the full tile is safe
 #pragma unroll 2
     for (int c = 0; c < kBK; c += 4) {
-      float p[RQ][4];
+      float p[kRQ][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) {
+      for (int i = 0; i < kRQ; ++i) {
         const float4 p4 =
-            *reinterpret_cast<const float4*>(Ps + (ty * RQ + i) * PLD + c);
+            *reinterpret_cast<const float4*>(Ps + (ty * kRQ + i) * PLD + c);
         p[i][0] = p4.x; p[i][1] = p4.y; p[i][2] = p4.z; p[i][3] = p4.w;
       }
 #pragma unroll
@@ -218,7 +343,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < DC; ++j) {
           const float vv = Vs[(c + cc) * D + tx + kTX * j];
 #pragma unroll
-          for (int i = 0; i < RQ; ++i)
+          for (int i = 0; i < kRQ; ++i)
             acc[i][j] = fmaf(p[i][cc], vv, acc[i][j]);
         }
       }
@@ -226,11 +351,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = ty * RQ + i;
+  for (int i = 0; i < kRQ; ++i) {
+    const int r = ty * kRQ + i;
     if (r < rows) {
       const float denom = fmaxf(l[i], 1e-30f);
-      T* orow = o + ((static_cast<long long>(b) * sq + q0 + r) * h + hh) * D;
+      float* orow =
+          o + ((static_cast<long long>(b) * sq + q0 + r) * h + hh) * D;
 #pragma unroll
       for (int j = 0; j < DC; ++j)
         store(orow + tx + kTX * j, __fdiv_rn(acc[i][j], denom));
@@ -238,58 +364,657 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int RQ>
-int launch_one(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int h, int hk, const long long* st,
-               float scale, int causal, int q_offset, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D, RQ>() * static_cast<int>(sizeof(float));
-  auto kern = flash_kernel<T, D, RQ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// ---- bf16 prefill on the tensor cores
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaBK = 64;              // keys per tile
+
+// bf16 elements per shared-memory row: D plus 16 bytes, so the 8 rows an
+// ldmatrix reads start in 8 distinct 16-byte bank groups (D / 8 is even)
+template <int D>
+__host__ __device__ constexpr int mma_ld() { return D + 8; }
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (kMmaBQ + 4 * kMmaBK) * mma_ld<D>() * 2;  // Q, 2 x (K, V)
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_kernel_mma(const uint16_t* __restrict__ q,
+                 const uint16_t* __restrict__ k,
+                 const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                 int sq, int sk, int h, int hk, long long qsb, long long qss,
+                 long long qsh, long long ksb, long long kss, long long ksh,
+                 long long vsb, long long vss, long long vsh, float scale,
+                 int causal, int q_offset) {
+  constexpr int LD = mma_ld<D>();
+  constexpr int U = D / 8;       // 16-byte units per row
+  constexpr int KS = D / 16;     // k-steps of Q . K^T
+  constexpr int NT = kMmaBK / 8; // 8-key tiles of S
+  constexpr int DT = D / 8;      // 8-dim tiles of the output
+  extern __shared__ __align__(16) uint16_t sm[];
+  uint16_t* Qs = sm;
+  uint16_t* Ks = Qs + kMmaBQ * LD;      // [2][BK][LD]
+  uint16_t* Vs = Ks + 2 * kMmaBK * LD;  // [2][BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMmaBQ;
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const int kh = hh / (h / hk);
+  const int rows = min(kMmaBQ, sq - q0);
+  const uint16_t* qb = q + b * qsb + hh * qsh;
+  const uint16_t* kb = k + b * ksb + kh * ksh;
+  const uint16_t* vb = v + b * vsb + kh * vsh;
+  const int kend = causal ? max(0, min(sk, q_offset + q0 + rows)) : sk;
+  const int ntiles = (kend + kMmaBK - 1) / kMmaBK;
+  // logits in base-2 units: exp(x scale) = 2^(x scale log2 e)
+  const float scale2 = __fmul_rn(scale, 1.4426950408889634f);
+
+  for (int u = tid; u < kMmaBQ * U; u += kMmaThreads) {
+    const int r = u / U, d8 = (u % U) * 8;
+    const bool in = r < rows;
+    cp_async16(Qs + r * LD + d8,
+               in ? qb + static_cast<long long>(q0 + r) * qss + d8 : qb, in);
+  }
+  auto load_tile = [&](int tile, int buf) {
+    const int k0 = tile * kMmaBK;
+    uint16_t* kd = Ks + buf * kMmaBK * LD;
+    uint16_t* vd = Vs + buf * kMmaBK * LD;
+    for (int u = tid; u < kMmaBK * U; u += kMmaThreads) {
+      const int c = u / U, d8 = (u % U) * 8;
+      const long long key = k0 + c;
+      const bool in = key < kend;
+      cp_async16(kd + c * LD + d8, in ? kb + key * kss + d8 : kb, in);
+      cp_async16(vd + c * LD + d8, in ? vb + key * vss + d8 : vb, in);
+    }
+  };
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16
+  const int r_lo = warp * 16 + g;
+  const int pos_lo = q_offset + q0 + r_lo, pos_hi = pos_lo + 8;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[KS][4];
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (tile == 0) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        ldmatrix_x4(qf[s], Qs + (warp * 16 + (lane & 15)) * LD + s * 16
+                               + (lane >> 4) * 8);
+    }
+    const uint16_t* kt = Ks + buf * kMmaBK * LD;
+    const uint16_t* vt = Vs + buf * kMmaBK * LD;
+
+    // S = Q K^T, 16 rows x 64 keys per warp
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
+                            + s * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], qf[s], kf[0], kf[1]);
+        mma_bf16(sc[2 * np + 1], qf[s], kf[2], kf[3]);
+      }
+    }
+
+    const int k0 = tile * kMmaBK;
+    const bool edge = k0 + kMmaBK > kend
+                      || (causal && k0 + kMmaBK - 1 > q_offset + q0);
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(sc[n][e], scale2);
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          const int pos = e < 2 ? pos_lo : pos_hi;
+          if (key >= kend || (causal && key > pos)) x = -INFINITY;
+        }
+        sc[n][e] = x;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[n][0], sc[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    const float mu_lo = finite_or_zero(mn_lo), mu_hi = finite_or_zero(mn_hi);
+    const float al_lo = exp2_approx(__fsub_rn(m_lo, mu_lo));
+    const float al_hi = exp2_approx(__fsub_rn(m_hi, mu_hi));
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    // this thread's share of l; the quad's four shares are summed once,
+    // after the key loop
+    float rs_lo = 0.f, rs_hi = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sc[n][0] = exp2_approx(__fsub_rn(sc[n][0], mu_lo));
+      sc[n][1] = exp2_approx(__fsub_rn(sc[n][1], mu_lo));
+      sc[n][2] = exp2_approx(__fsub_rn(sc[n][2], mu_hi));
+      sc[n][3] = exp2_approx(__fsub_rn(sc[n][3], mu_hi));
+      rs_lo = __fadd_rn(rs_lo, __fadd_rn(sc[n][0], sc[n][1]));
+      rs_hi = __fadd_rn(rs_hi, __fadd_rn(sc[n][2], sc[n][3]));
+    }
+    l_lo = __fadd_rn(__fmul_rn(l_lo, al_lo), rs_lo);
+    l_hi = __fadd_rn(__fmul_rn(l_hi, al_hi), rs_hi);
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] = __fmul_rn(acc[j][0], al_lo);
+      acc[j][1] = __fmul_rn(acc[j][1], al_lo);
+      acc[j][2] = __fmul_rn(acc[j][2], al_hi);
+      acc[j][3] = __fmul_rn(acc[j][3], al_hi);
+    }
+
+    // acc += P_lo V + P_mid V + P_hi V, 16 keys a step; S's accumulator
+    // layout of key tiles 2 ks and 2 ks + 1 is the A fragment of step ks
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
+      uint32_t ph[4], pm[4], pl[4];
+      split_bf16(sc[2 * ks][0], sc[2 * ks][1], ph[0], pm[0], pl[0]);
+      split_bf16(sc[2 * ks][2], sc[2 * ks][3], ph[1], pm[1], pl[1]);
+      split_bf16(sc[2 * ks + 1][0], sc[2 * ks + 1][1], ph[2], pm[2], pl[2]);
+      split_bf16(sc[2 * ks + 1][2], sc[2 * ks + 1][3], ph[3], pm[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vt + (ks * 16 + (lane & 7)
+                                    + ((lane >> 3) & 1) * 8) * LD
+                                  + dp * 16 + (lane >> 4) * 8);
+        // the small terms first, so they are not lost beside the large
+        mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp], pm, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
+        mma_bf16(acc[2 * dp + 1], pm, vf[2], vf[3]);
+        mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo = __fadd_rn(l_lo, __shfl_xor_sync(0xffffffffu, l_lo, off));
+    l_hi = __fadd_rn(l_hi, __shfl_xor_sync(0xffffffffu, l_hi, off));
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (r >= rows) continue;
+    const float den = half ? den_hi : den_lo;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        o + ((static_cast<long long>(b) * sq + q0 + r) * h + hh) * D);
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      orow[j * 4 + t] = pack_bf16(__fdiv_rn(acc[j][2 * half], den),
+                                  __fdiv_rn(acc[j][2 * half + 1], den));
+  }
+}
+
+// ---- decode: the keys split across blocks
+
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecBK = 32;       // keys per tile, 8 a warp
+constexpr int kDecStages = 3;    // two tiles in flight while one is read
+constexpr int kDecRowsMax = 16;  // query rows per block
+
+template <typename T, int D>
+struct DecLayout {
+  static constexpr int VEC = 16 / sizeof(T);  // elements per 16 bytes
+  // K / V rows padded by 16 bytes: D / VEC is even, so the row stride is
+  // an odd number of 16-byte units and 8 lanes reading 8 keys' rows hit
+  // 8 distinct bank groups
+  static constexpr int LD = D + VEC;
+  static constexpr int NQ = D / 4;            // dims per lane (a quarter)
+  static constexpr int QQ = NQ + 4;           // a padded quarter of Q
+  static constexpr int NL = D < 32 ? D : 32;  // lanes across head dims
+  static constexpr int KG = 32 / NL;          // key groups in p . v
+  static constexpr int DPL = D / NL;          // head dims per lane
+};
+
+template <typename T, int D, int R>
+constexpr int dec_smem_bytes() {
+  using Ly = DecLayout<T, D>;
+  constexpr int ring = kDecStages * 2 * kDecBK * Ly::LD * sizeof(T);
+  constexpr int comb = kDecWarps * R * (D + 2) * 4;
+  return R * 4 * Ly::QQ * 4 + (ring > comb ? ring : comb);
+}
+
+// N consecutive elements from shared memory, widened to fp32
+template <int N>
+__device__ __forceinline__ void load_smem(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + j);
+    x[j] = w.x; x[j + 1] = w.y; x[j + 2] = w.z; x[j + 3] = w.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_smem(const uint16_t* p,
+                                          float (&x)[N]) {
+  if constexpr (N % 8 == 0) {
+    merge::load_row<N>(p, x);
+  } else {
+    static_assert(N == 4, "bf16 quarter rows are 4 or 8k elements");
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xFFFF0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xFFFF0000u);
+  }
+}
+
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(kDecThreads)
+flash_kernel_decode(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o, int sq,
+                    int sk, int h, int hk, long long qsb, long long qss,
+                    long long qsh, long long ksb, long long kss,
+                    long long ksh, long long vsb, long long vss,
+                    long long vsh, float scale, int causal, int q_offset,
+                    int chunk, float* __restrict__ part,
+                    int* __restrict__ tickets) {
+  using Ly = DecLayout<T, D>;
+  constexpr int LD = Ly::LD, VEC = Ly::VEC, NQ = Ly::NQ, QQ = Ly::QQ;
+  constexpr int NL = Ly::NL, KG = Ly::KG, DPL = Ly::DPL;
+  constexpr int U = D / VEC;
+  constexpr int PS = D + 2;      // (m, l, acc[D]) per row
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;                                      // [R][4][QQ]
+  T* Ks = reinterpret_cast<T*>(Qs + R * 4 * QQ);        // [3][BK][LD]
+  T* Vs = Ks + kDecStages * kDecBK * LD;                // [3][BK][LD]
+  float* comb = Qs + R * 4 * QQ;   // [warps][R][PS], after the key loop
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = h / hk, nrows = sq * g;
+  const int rgroups = (nrows + R - 1) / R;
+  const int kh = blockIdx.y / rgroups, rg = blockIdx.y % rgroups;
+  const int b = blockIdx.z, splits = gridDim.x;
+  const int grp = b * gridDim.y + blockIdx.y;
+  const int kend = causal ? max(0, min(sk, q_offset + sq)) : sk;
+  const int c0 = blockIdx.x * chunk, c1 = min(c0 + chunk, kend);
+  const int ntiles = c1 > c0 ? (c1 - c0 + kDecBK - 1) / kDecBK : 0;
+  const T* kb = k + b * ksb + kh * ksh;
+  const T* vb = v + b * vsb + kh * vsh;
+
+  auto load_tile = [&](int tile) {
+    const int k0 = c0 + tile * kDecBK, st = tile % kDecStages;
+    T* kd = Ks + st * kDecBK * LD;
+    T* vd = Vs + st * kDecBK * LD;
+    for (int u = tid; u < kDecBK * U; u += kDecThreads) {
+      const int c = u / U, e = (u % U) * VEC;
+      const long long key = k0 + c;
+      const bool in = key < c1;
+      cp_async16(kd + c * LD + e, in ? kb + key * kss + e : kb, in);
+      cp_async16(vd + c * LD + e, in ? vb + key * vss + e : vb, in);
+    }
+  };
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();
+  if (ntiles > 1) load_tile(1);
+  cp_async_commit();
+
+  // row r of the group: query i = row / g of head kh * g + row % g
+  int pos[R];
+  bool valid[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = rg * R + r;
+    valid[r] = row < nrows;
+    pos[r] = q_offset + (valid[r] ? row / g : 0);
+  }
+  for (int u = tid; u < R * D; u += kDecThreads) {
+    const int r = u / D, d = u % D, row = rg * R + r;
+    float x = 0.f;
+    if (row < nrows)
+      x = merge::widen(q[b * qsb + static_cast<long long>(row / g) * qss
+                         + (kh * g + row % g) * qsh + d]);
+    Qs[r * 4 * QQ + (d / NQ) * QQ + d % NQ] = x;
+  }
+
+  const int kl = lane & 7, qt = lane >> 3;   // key of 8, quarter of D
+  const int dl = lane % NL, kg = lane / NL;  // p . v: head dim, key group
+  float m[R], l[R], acc[R][DPL];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[r][j] = 0.f;
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 2 < ntiles) load_tile(tile + 2);
+    cp_async_commit();
+    cp_async_wait<2>();
+    __syncthreads();
+    const int st = tile % kDecStages;
+    const T* kt = Ks + (st * kDecBK + warp * 8) * LD;
+    const T* vt = Vs + (st * kDecBK + warp * 8) * LD;
+    const int key = c0 + tile * kDecBK + warp * 8 + kl;
+
+    float kx[NQ];
+    load_smem<NQ>(kt + kl * LD + qt * NQ, kx);
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float qx[NQ];
+      load_smem<NQ>(Qs + r * 4 * QQ + qt * QQ, qx);
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < NQ; ++e) a = fmaf(qx[e], kx[e], a);
+      // the four quarters' sums, alike in the four lanes of a key
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 8));
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 16));
+      const bool seen = valid[r] && key < c1 && (!causal || key <= pos[r]);
+      s[r] = seen ? __fmul_rn(a, scale) : -INFINITY;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = s[r];
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float mu = finite_or_zero(m_new);
+      const float alpha = expf(__fsub_rn(m[r], mu));
+      s[r] = expf(__fsub_rn(s[r], mu));
+      l[r] = __fadd_rn(__fmul_rn(l[r], alpha), s[r]);   // this lane's key
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) acc[r][j] = __fmul_rn(acc[r][j], alpha);
+    }
+#pragma unroll
+    for (int mm = 0; mm < 8 / KG; ++mm) {
+      const int kk = kg + KG * mm;
+      float p[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) p[r] = __shfl_sync(0xffffffffu, s[r], kk);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        const float vv = merge::widen(vt[kk * LD + dl + NL * j]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r][j] = fmaf(p[r], vv, acc[r][j]);
+      }
+    }
+    __syncthreads();   // this stage is refilled three tiles on
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // the ring becomes the combine area
+
+  // the warp's l over its 8 key lanes; acc over its key groups
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1)
+      l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], off));
+    if constexpr (KG == 2) {
+#pragma unroll
+      for (int j = 0; j < DPL; ++j)
+        acc[r][j] = __fadd_rn(acc[r][j],
+                              __shfl_xor_sync(0xffffffffu, acc[r][j], 16));
+    }
+    float* cw = comb + (warp * R + r) * PS;
+    if (lane == 0) {
+      cw[0] = m[r];
+      cw[1] = l[r];
+    }
+    if (lane < NL) {
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) cw[2 + dl + NL * j] = acc[r][j];
+    }
+  }
+  __syncthreads();
+
+  // the four warps in index order; then the output, or this chunk's
+  // partial
+  float* mine = splits == 1 ? nullptr
+                : part + (static_cast<long long>(grp) * splits + blockIdx.x)
+                             * R * PS;
+  for (int u = tid; u < R * D; u += kDecThreads) {
+    const int r = u / D, d = u % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      mx = fmaxf(mx, comb[(w * R + r) * PS]);
+    const float mu = finite_or_zero(mx);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float* cw = comb + (w * R + r) * PS;
+      const float wt = expf(__fsub_rn(cw[0], mu));
+      lsum = __fadd_rn(lsum, __fmul_rn(wt, cw[1]));
+      a = __fadd_rn(a, __fmul_rn(wt, cw[2 + d]));
+    }
+    const int row = rg * R + r;
+    if (splits == 1) {
+      if (row < nrows)
+        store(o + ((static_cast<long long>(b) * sq + row / g) * h + kh * g
+                   + row % g) * D + d,
+              __fdiv_rn(a, fmaxf(lsum, 1e-30f)));
+    } else {
+      mine[r * PS + 2 + d] = a;
+      if (d == 0) {
+        mine[r * PS] = mx;
+        mine[r * PS + 1] = lsum;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last block of the group to finish combines every chunk
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(tickets + grp, 1) == splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* all = part + static_cast<long long>(grp) * splits * R * PS;
+  for (int u = tid; u < R * D; u += kDecThreads) {
+    const int r = u / D, d = u % D, row = rg * R + r;
+    if (row >= nrows) continue;
+    float mx = -INFINITY;
+    for (int c = 0; c < splits; ++c)
+      mx = fmaxf(mx, __ldcg(all + (c * R + r) * PS));
+    const float mu = finite_or_zero(mx);
+    float lsum = 0.f, a = 0.f;
+    for (int c = 0; c < splits; ++c) {
+      const float* pc = all + (c * R + r) * PS;
+      const float wt = expf(__fsub_rn(__ldcg(pc), mu));
+      lsum = __fadd_rn(lsum, __fmul_rn(wt, __ldcg(pc + 1)));
+      a = __fadd_rn(a, __fmul_rn(wt, __ldcg(pc + 2 + d)));
+    }
+    store(o + ((static_cast<long long>(b) * sq + row / g) * h + kh * g
+               + row % g) * D + d,
+          __fdiv_rn(a, fmaxf(lsum, 1e-30f)));
+  }
+  if (tid == 0) tickets[grp] = 0;
+}
+
+// raise the dynamic shared-memory limit of `kern` to `bytes`, once per
+// device for each instance (the decode step launches it every layer)
+template <typename K>
+cudaError_t allow_smem(K kern, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int b, sq, sk, h, hk;
+  const long long* st;
+  float scale;
+  int causal, q_offset;
+  cudaStream_t stream;
+};
+
+template <int D>
+int launch_scalar(const Args& a) {
+  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  static bool done[64];
+  auto kern = flash_kernel<D>;
+  cudaError_t err = allow_smem(kern, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int BQ = kTY * RQ;
-  const dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, hk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal,
-      q_offset);
+  constexpr int BQ = kTY * kRQ;
+  const long long* st = a.st;
+  const dim3 grid((a.sq + BQ - 1) / BQ, a.h, a.b);
+  kern<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.sk,
+      a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], a.scale, a.causal, a.q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int RQ>
-int by_head_dim(int d, const void* q, const void* k, const void* v, void* o,
-                int b, int sq, int sk, int h, int hk, const long long* st,
-                float scale, int causal, int q_offset, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_one<T, 16, RQ>(q, k, v, o, b, sq, sk, h, hk, st,
-                                          scale, causal, q_offset, stream);
-    case 32: return launch_one<T, 32, RQ>(q, k, v, o, b, sq, sk, h, hk, st,
-                                          scale, causal, q_offset, stream);
-    case 64: return launch_one<T, 64, RQ>(q, k, v, o, b, sq, sk, h, hk, st,
-                                          scale, causal, q_offset, stream);
-    case 96: return launch_one<T, 96, RQ>(q, k, v, o, b, sq, sk, h, hk, st,
-                                          scale, causal, q_offset, stream);
-    case 128: return launch_one<T, 128, RQ>(q, k, v, o, b, sq, sk, h, hk, st,
-                                            scale, causal, q_offset, stream);
+template <int D>
+int launch_mma(const Args& a) {
+  constexpr int bytes = mma_smem_bytes<D>();
+  static bool done[64];
+  auto kern = flash_kernel_mma<D>;
+  cudaError_t err = allow_smem(kern, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* st = a.st;
+  const dim3 grid((a.sq + kMmaBQ - 1) / kMmaBQ, a.h, a.b);
+  kern<<<grid, kMmaThreads, bytes, a.stream>>>(
+      static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
+      static_cast<const uint16_t*>(a.v), static_cast<uint16_t*>(a.o), a.sq,
+      a.sk, a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], a.scale, a.causal, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, int R>
+int launch_decode_r(const Args& a, int splits, int chunk, float* part,
+                    int* tickets) {
+  constexpr int bytes = dec_smem_bytes<T, D, R>();
+  static bool done[64];
+  auto kern = flash_kernel_decode<T, D, R>;
+  cudaError_t err = allow_smem(kern, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long* st = a.st;
+  const int rgroups = (a.sq * (a.h / a.hk) + R - 1) / R;
+  const dim3 grid(splits, a.hk * rgroups, a.b);
+  kern<<<grid, kDecThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.sq, a.sk, a.h,
+      a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      a.scale, a.causal, a.q_offset, chunk, part, tickets);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows: query rows per block, 1 (a decode step of a model with as many
+// KV heads as query heads) or 16 (any other group of up to 16 rows)
+template <typename T, int D>
+int launch_decode(const Args& a, int rows, int splits, int chunk,
+                  float* part, int* tickets) {
+  switch (rows) {
+    case 1: return launch_decode_r<T, D, 1>(a, splits, chunk, part, tickets);
+    case kDecRowsMax:
+      return launch_decode_r<T, D, kDecRowsMax>(a, splits, chunk, part,
+                                                tickets);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// rows == 0: the prefill design (bf16 on the tensor cores, fp32 scalar);
+// else the decode design with that many query rows per block
+template <typename T, int D>
+int launch_d(const Args& a, int rows, int splits, int chunk, float* part,
+             int* tickets) {
+  if (rows) return launch_decode<T, D>(a, rows, splits, chunk, part, tickets);
+  if constexpr (sizeof(T) == 2) return launch_mma<D>(a);
+  else return launch_scalar<D>(a);
+}
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int hk, int d, long long qsb,
-           long long qss, long long qsh, long long ksb, long long kss,
-           long long ksh, long long vsb, long long vss, long long vsh,
-           float scale, int causal, int q_offset, void* stream) {
-  if (b == 0 || sq == 0 || h == 0) return 0;
-  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq <= kTY)
-    return by_head_dim<T, 1>(d, q, k, v, o, b, sq, sk, h, hk, st, scale,
-                             causal, q_offset, s);
-  return by_head_dim<T, 4>(d, q, k, v, o, b, sq, sk, h, hk, st, scale,
-                           causal, q_offset, s);
+int launch(const Args& a, int d, int rows, int splits, int chunk,
+           float* part, int* tickets) {
+  if (a.b == 0 || a.sq == 0 || a.h == 0) return 0;
+  switch (d) {
+    case 16: return launch_d<T, 16>(a, rows, splits, chunk, part, tickets);
+    case 32: return launch_d<T, 32>(a, rows, splits, chunk, part, tickets);
+    case 64: return launch_d<T, 64>(a, rows, splits, chunk, part, tickets);
+    case 96: return launch_d<T, 96>(a, rows, splits, chunk, part, tickets);
+    case 128:
+      return launch_d<T, 128>(a, rows, splits, chunk, part, tickets);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// keys [0, kend) that some query row of a decode call sees
+int visible_keys(int sq, int sk, int causal, int q_offset) {
+  if (!causal) return sk;
+  const int last = q_offset + sq;
+  return last < 0 ? 0 : (last < sk ? last : sk);
+}
+
+template <typename T>
+int prefill_or_decode(const void* q, const void* k, const void* v, void* o,
+                      int b, int sq, int sk, int h, int hk, int d,
+                      const long long* st, float scale, int causal,
+                      int q_offset, void* stream) {
+  const Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, q_offset,
+               static_cast<cudaStream_t>(stream)};
+  if (sq > kDecRowsMax) return launch<T>(a, d, 0, 1, 0, nullptr, nullptr);
+  // a single chunk of 16-row groups needs no scratch
+  const int kend = visible_keys(sq, sk, causal, q_offset);
+  return launch<T>(a, d, kDecRowsMax, 1, kend > 1 ? kend : 1, nullptr,
+                   nullptr);
+}
+
+template <typename T>
+int decode_split(const void* q, const void* k, const void* v, void* o,
+                 int b, int sq, int sk, int h, int hk, int d,
+                 const long long* st, float scale, int causal, int q_offset,
+                 int rows, int splits, int chunk, void* part, void* tickets,
+                 void* stream) {
+  const int kend = visible_keys(sq, sk, causal, q_offset);
+  if (sq > kDecRowsMax || rows < 1 || splits < 1 || chunk < 1
+      || static_cast<long long>(splits) * chunk < kend
+      || (splits > 1 && (part == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, q_offset,
+               static_cast<cudaStream_t>(stream)};
+  return launch<T>(a, d, rows, splits, chunk, static_cast<float*>(part),
+                   static_cast<int*>(tickets));
 }
 
 }  // namespace
@@ -298,25 +1023,71 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 // head) and a contiguous last dimension, 16-byte aligned rows; d in
 // {16, 32, 64, 96, 128}; h a multiple of hk; q_offset >= 0. out:
 // contiguous [b, sq, h, d] of the same dtype. The Python wrapper checks
-// all of this.
-extern "C" int flash_attention_f32(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int sk, int h, int hk, int d, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, float scale, int causal,
-    int q_offset, void* stream) {
-  return launch<float>(q, k, v, o, b, sq, sk, h, hk, d, qsb, qss, qsh, ksb,
-                       kss, ksh, vsb, vss, vsh, scale, causal, q_offset,
-                       stream);
+// all of this. sq > 16 takes the prefill design (bf16 on the tensor
+// cores, fp32 scalar), sq <= 16 the decode design in one key chunk.
+#define B9_ARGS                                                          \
+  const void *q, const void *k, const void *v, void *o, int b, int sq,   \
+      int sk, int h, int hk, int d, long long qsb, long long qss,        \
+      long long qsh, long long ksb, long long kss, long long ksh,        \
+      long long vsb, long long vss, long long vsh, float scale,          \
+      int causal, int q_offset
+
+extern "C" int flash_attention_f32(B9_ARGS, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  return prefill_or_decode<float>(q, k, v, o, b, sq, sk, h, hk, d, st,
+                                  scale, causal, q_offset, stream);
 }
 
-extern "C" int flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int sk, int h, int hk, int d, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, float scale, int causal,
-    int q_offset, void* stream) {
-  return launch<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, qsb, qss, qsh,
-                          ksb, kss, ksh, vsb, vss, vsh, scale, causal,
-                          q_offset, stream);
+extern "C" int flash_attention_bf16(B9_ARGS, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  return prefill_or_decode<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st,
+                                     scale, causal, q_offset, stream);
+}
+
+// The decode design (sq <= 16) with `rows` query rows per block (1 or
+// 16; the sq x h / hk rows of a KV head make ceil(sq h / hk / rows)
+// groups) over `splits` key chunks of `chunk` keys (chunk c reads keys
+// [c chunk, min((c + 1) chunk, kend))). With splits > 1: part, fp32
+// scratch of b * hk * groups * splits * rows * (d + 2) floats; tickets,
+// b * hk * groups ints, zero before the call and zero after it.
+extern "C" int flash_decode_f32(B9_ARGS, int rows, int splits, int chunk,
+                                void* part, void* tickets, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  return decode_split<float>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
+                             causal, q_offset, rows, splits, chunk, part,
+                             tickets, stream);
+}
+
+extern "C" int flash_decode_bf16(B9_ARGS, int rows, int splits, int chunk,
+                                 void* part, void* tickets, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  return decode_split<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
+                                causal, q_offset, rows, splits, chunk, part,
+                                tickets, stream);
+}
+
+// Dynamic shared memory of one instance, for reports: design 0 prefill
+// (bf16 on the tensor cores, fp32 scalar), 1 decode with `rows` query
+// rows per block (1 or 16). -1 for an instance that does not exist.
+extern "C" int flash_attention_smem(int design, int bf16, int d, int rows) {
+  auto pick = [&](auto dc) -> int {
+    constexpr int D = decltype(dc)::value;
+    if (design == 0)
+      return bf16 ? mma_smem_bytes<D>()
+                  : smem_floats<D>() * static_cast<int>(sizeof(float));
+    if (rows != 1 && rows != kDecRowsMax) return -1;
+    if (bf16)
+      return rows == 1 ? dec_smem_bytes<uint16_t, D, 1>()
+                       : dec_smem_bytes<uint16_t, D, kDecRowsMax>();
+    return rows == 1 ? dec_smem_bytes<float, D, 1>()
+                     : dec_smem_bytes<float, D, kDecRowsMax>();
+  };
+  switch (d) {
+    case 16: return pick(std::integral_constant<int, 16>{});
+    case 32: return pick(std::integral_constant<int, 32>{});
+    case 64: return pick(std::integral_constant<int, 64>{});
+    case 96: return pick(std::integral_constant<int, 96>{});
+    case 128: return pick(std::integral_constant<int, 128>{});
+    default: return -1;
+  }
 }

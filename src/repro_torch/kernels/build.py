@@ -30,6 +30,7 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[str, ctypes._CFuncPtr] = {}
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures: every function returns a cudaError_t as int
@@ -61,6 +62,16 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention_bf16": ("flash_attention",
                              [_P] * 4 + [_I] * 6 + [_L] * 9
                              + [_F, _I, _I, _P]),
+    # design, bf16, D, rows -> dynamic shared-memory bytes (reports)
+    "flash_attention_smem": ("flash_attention", [_I] * 4),
+    # ... then rows per block, splits, chunk, fp32 scratch, int32
+    # tickets, stream
+    "flash_decode_f32": ("flash_attention",
+                         [_P] * 4 + [_I] * 6 + [_L] * 9
+                         + [_F] + [_I] * 5 + [_P] * 3),
+    "flash_decode_bf16": ("flash_attention",
+                          [_P] * 4 + [_I] * 6 + [_L] * 9
+                          + [_F] + [_I] * 5 + [_P] * 3),
 }
 
 
@@ -115,7 +126,11 @@ def build_all() -> Dict[str, str]:
 
 def function(symbol: str):
     """The C entry point `symbol`, loading (and if need be building) its
-    library on first use."""
+    library on first use. Cached: a decode step calls B9 once a layer,
+    and the host sets that step's pace."""
+    fn = _FUNCS.get(symbol)
+    if fn is not None:
+        return fn
     lib_name, argtypes = SIGNATURES[symbol]
     if lib_name not in _LIBS:
         path = _lib_path(lib_name)
@@ -125,6 +140,7 @@ def function(symbol: str):
     fn = getattr(_LIBS[lib_name], symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _FUNCS[symbol] = fn
     return fn
 
 

@@ -16,24 +16,39 @@ has none; at 0 the function is the reference's), and keys past Sk are
 masked with or without `causal` (the reference pads them with zeros and
 leaves those in its non-causal softmax, ROADMAP C).
 
-The wrapper launches the CUDA kernel for CUDA tensors, reading q, k and
+The wrapper launches a CUDA kernel for CUDA tensors, reading q, k and
 v in place through their strides (the reference transposes to
 [B*H, S, D]; a layer's slice of the KV cache is read the same way), and
-runs `flash_attention_plain` for CPU tensors. The two sum in different
-orders and exponentiate with different code, so they agree within a
-tolerance, not bitwise (`chip_smoke.py` states it). A row that sees no
-key gives 0 in both.
+runs `flash_attention_plain` for CPU tensors. Above DECODE_ROWS queries
+it launches the prefill design (bf16 on the tensor cores; fp32 on the
+scalar pipes); at DECODE_ROWS or fewer, the decode design, whose keys
+are split over `decode_splits(...)` chunks, chosen from the shapes
+alone, so two devices make the same partials and the same bits. Kernel
+and plain version sum in different orders and exponentiate with
+different code, so they agree within a tolerance, not bitwise
+(`chip_smoke.py` states it). A row that sees no key gives 0 in both.
 
 Sliding windows and logit softcapping (gemma2's local layers) raise
 `NotImplementedError`; they come with that family (ROADMAP A7).
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 96, 128)     # instantiated in the CUDA source
+DECODE_ROWS = 16      # queries up to which a call takes the decode design
+DECODE_TILE = 32      # keys per tile of the decode kernel
+# blocks a decode call aims at, and the fewest elements of K a chunk
+# reads (128 keys at D = 96). On an H100 the fastest key split at 32 KV
+# heads of 96 was 256 blocks at batch 1, 2 and 4 over 4064 keys, and
+# chunks of 128 keys at batch 1 over 1024 (`tools/b9_time.py --sweep`).
+# Constants: the split never depends on the device it runs on.
+DECODE_TARGET_BLOCKS = 256
+DECODE_MIN_CHUNK_ELEMS = 128 * 96
 # queries per chunk of the plain version: [B, H, chunk, Sk] fp32 logits
 # stay under 2^28 elements (1 GiB)
 _PLAIN_ELEMS = 1 << 28
@@ -71,12 +86,55 @@ def _check_strided(*tensors) -> None:
     """The kernel reads 8 elements (16 bytes of bf16, 32 of fp32) at a
     time from rows with a contiguous last dimension."""
     for t in tensors:
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
+        st = t.stride()
+        if st[3] != 1 or st[0] % 8 or st[1] % 8 or st[2] % 8 \
                 or t.data_ptr() % 16:
             raise ValueError(
                 "kernel operands need a contiguous last dimension, strides "
                 "that are multiples of 8 elements and 16-byte alignment; got "
                 f"strides {t.stride()}")
+
+
+def decode_splits(b: int, hk: int, kend: int, d: int) -> Tuple[int, int]:
+    """(splits, chunk) of a decode call over keys [0, kend): chunk c
+    covers [c * chunk, min((c + 1) * chunk, kend)). About
+    DECODE_TARGET_BLOCKS blocks over the b * hk (batch, KV head) pairs,
+    chunks of whole tiles and at least DECODE_MIN_CHUNK_ELEMS elements;
+    one chunk (no scratch, no combine) when the prefix is short."""
+    min_keys = -(-DECODE_MIN_CHUNK_ELEMS // d)
+    if kend < 2 * min_keys:
+        return 1, max(kend, 1)
+    want = -(-DECODE_TARGET_BLOCKS // max(1, b * hk))
+    n = max(1, min(want, kend // min_keys))
+    chunk = -(-kend // n)
+    chunk = -(-chunk // DECODE_TILE) * DECODE_TILE
+    return -(-kend // chunk), chunk
+
+
+def _decode_rows(nrows: int) -> int:
+    """Query rows per decode block, for the `nrows` = Sq x H / HK query
+    rows of one KV head: an instance of 1 or 16 rows."""
+    return 1 if nrows <= 1 else DECODE_ROWS
+
+
+# per (device, stream): the decode design's fp32 scratch and int32
+# tickets, grown on demand and reused (calls on one stream run in order);
+# the tickets are zeroed once, and each call's last block of a group puts
+# its ticket back to 0
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, floats: int,
+             groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    part, tickets = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < groups:
+        tickets = torch.zeros(max(groups, 1024), dtype=torch.int32,
+                              device=device)
+    _SCRATCH[key] = part, tickets
+    return part, tickets
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -139,13 +197,28 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
     b, sq, h, _ = q.shape
     sk, hk = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    symbol = ("flash_attention_bf16" if q.dtype == torch.bfloat16
-              else "flash_attention_f32")
-    code = build.function(symbol)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-        h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(bool(causal)), int(q_offset),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    bf16 = q.dtype == torch.bfloat16
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(bool(causal)), int(q_offset))
+    if sq > DECODE_ROWS:
+        symbol = "flash_attention_bf16" if bf16 else "flash_attention_f32"
+        code = build.function(symbol)(*args, stream)
+    else:
+        symbol = "flash_decode_bf16" if bf16 else "flash_decode_f32"
+        kend = min(sk, q_offset + sq) if causal else sk
+        splits, chunk = decode_splits(b, hk, kend, d)
+        rows = _decode_rows(sq * (h // hk))
+        part = tickets = None
+        if splits > 1:
+            groups = b * hk * -(-sq * (h // hk) // rows)
+            part, tickets = _scratch(q.device, stream,
+                                     groups * splits * rows * (d + 2),
+                                     groups)
+            part, tickets = part.data_ptr(), tickets.data_ptr()
+        code = build.function(symbol)(*args, rows, splits, chunk, part,
+                                      tickets, stream)
     flash_attention.launches += 1
     build.check(code, symbol)
     return out

@@ -10,12 +10,15 @@ the device the parameters lie on.
 
 The KV cache has the reference's structure, `{"blocks": {"sub0": (k,
 v)}}` with k, v of [n_layers, B, max_len, HK, D] in the compute dtype.
-Prefill allocates it zeroed at `max_len` and writes the prompt's keys
-and values into it (the reference zero-pads a copy: `_pad_seq`);
-`decode_step` writes its slot in place (the reference returns an
-updated copy) and returns the same tensors. Every attention call goes
-to `self.attention`, B9 (`kernels.flash_attention`) unless the caller
-passes a function of its signature.
+Prefill allocates it zeroed at `max(max_len, s)` slots for an s-token
+prompt and writes the prompt's keys and values into it (the reference
+zero-pads a copy, `_pad_seq`, which leaves a longer sequence as it
+is); `decode_step` writes its slot in place (the reference returns an
+updated copy) and returns the same tensors. A step whose tokens would
+not fit in the cache raises `ValueError`, where the reference clamps
+the slot and overwrites the last key (ROADMAP C, departures). Every
+attention call goes to `self.attention`, B9 (`kernels.flash_attention`)
+unless the caller passes a function of its signature.
 
 `loss` (training), and the MoE, MLA, SSM, hybrid, enc-dec and VLM
 families wait for ROADMAP A7.
@@ -193,12 +196,14 @@ class Model:
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """Full-sequence forward building a decode cache.
 
-        `max_len` (>= prompt length) pre-sizes the KV caches for decode.
-        Returns (last-token logits [B, V] fp32, caches).
+        `max_len` pre-sizes the KV caches for decode; a cache is never
+        shorter than the prompt, so without it (or below the prompt
+        length) the cache holds the prompt alone and a decode step on it
+        raises. Returns (last-token logits [B, V] fp32, caches).
         """
         tokens = self._tokens(params, batch["tokens"])
         b, s = tokens.shape
-        caches = self.init_cache(b, max_len or s,
+        caches = self.init_cache(b, max(max_len or s, s),
                                  device=params["embed"].device)
         x = self._embed(params, tokens)
         x = self._run_stack(params, x, mode="prefill",
@@ -211,8 +216,17 @@ class Model:
         """One decode step. token: [B, 1]; pos: its position.
 
         Returns (logits [B, V] fp32, caches), the caches written in place.
+        Raises `ValueError` when the step's slots pos .. pos + s - 1 run
+        past the cache (the reference clamps the slot to the last one).
         """
-        x = self._embed(params, self._tokens(params, token))
+        tokens = self._tokens(params, token)
+        cache_len = caches["blocks"]["sub0"][0].shape[2]
+        if int(pos) < 0 or int(pos) + tokens.shape[1] > cache_len:
+            raise ValueError(
+                f"decode at position {int(pos)} of {tokens.shape[1]} "
+                f"token(s) does not fit a {cache_len}-slot KV cache; "
+                "pre-size it with prefill(..., max_len=...)")
+        x = self._embed(params, tokens)
         x = self._run_stack(params, x, mode="decode",
                             caches=caches["blocks"]["sub0"], pos=int(pos))
         return self._logits(params, x)[:, 0], caches

@@ -8,6 +8,10 @@ from repro_torch.models.model import Model
 
 
 def make_prefill(model: Model):
+    """Prefill without `max_len`, as the reference's: the KV cache holds
+    the prompt alone, so a decode step on it raises `ValueError`. A
+    caller that decodes calls `model.prefill(params, batch, max_len=...)`
+    with room for the tokens to come, as `greedy_decode` does."""
     def prefill(params, batch):
         return model.prefill(params, batch)
     return prefill

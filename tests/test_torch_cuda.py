@@ -25,11 +25,15 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                scalars
   B9           flash_attention against its plain version within a
                tolerance (the two sum and exponentiate differently):
-               GQA, MQA, ragged Sq and Sk, D in {64, 96, 128}, decode
-               (Sq = 1 at a q_offset), non-causal with ragged Sk, cache
-               slices read through their strides, fp32 and bf16; two
-               launches give equal bits; the smoke model's greedy
-               decode on the card gives the CPU's tokens in fp32
+               GQA, MQA, ragged Sq and Sk, every D in HEAD_DIMS, a
+               multi-tile and a chunked prefill, decode (Sq = 1 at a
+               q_offset, at position 0, on either side of a key-chunk
+               boundary, over a full 4096-slot cache, GQA 4:1),
+               non-causal with ragged Sk, cache slices read through
+               their strides, fp32 and bf16; two launches give equal
+               bits, also with calls of another shape between them (the
+               decode tickets reset); the smoke model's greedy decode on
+               the card gives the CPU's tokens in fp32
 """
 import numpy as np
 import pytest
@@ -336,6 +340,23 @@ FLASH_SPECS = {
     "noncausal_ragged": (2, 37, 100, 4, 2, 96, False, 0),
     "decode": (2, 1, 300, 8, 2, 96, True, 250),
     "decode_short_tile": (3, 5, 70, 4, 4, 64, True, 60),
+    # the prefill design: a multi-tile causal prefill whose Sq is not a
+    # multiple of 64; a chunked prefill at q_offset > 0; head dims 16, 32
+    # (64, 96 and 128 above)
+    "prefill_multitile": (2, 200, 200, 4, 2, 96, True, 0),
+    "chunked_prefill": (2, 80, 180, 4, 2, 96, True, 100),
+    "d16": (2, 70, 70, 4, 2, 16, True, 0),
+    "d32": (2, 70, 70, 4, 2, 32, True, 0),
+    # the decode design: 640 visible keys make five chunks of 128, so
+    # 639 / 640 / 641 sit at a chunk boundary (641: a last chunk of one
+    # key); position 0; a full 4096-slot cache; GQA with H / HK = 4 over
+    # 24 chunks
+    "decode_chunk_minus": (2, 1, 800, 8, 2, 96, True, 638),
+    "decode_chunk_at": (2, 1, 800, 8, 2, 96, True, 639),
+    "decode_chunk_plus": (2, 1, 800, 8, 2, 96, True, 640),
+    "decode_pos0": (2, 1, 64, 8, 2, 96, True, 0),
+    "decode_full_cache": (2, 1, 4096, 8, 2, 96, True, 4095),
+    "decode_gqa4": (2, 1, 4096, 8, 2, 128, True, 3000),
 }
 
 
@@ -375,6 +396,30 @@ def test_cuda_flash_attention_equals_plain(case, dtype):
     _flash_close(got, want)
     again = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     assert torch.equal(_bits(got), _bits(again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_decode_tickets_reset_between_calls(dtype):
+    """Two split decode calls interleaved with calls of another shape
+    (another split and group count) give the same bits each time: every
+    call's last block of a group puts its ticket back to 0."""
+    from repro_torch.kernels.flash_attention import decode_splits
+    a = (2, 1, 4096, 8, 2, 96, True, 4000)
+    b = (3, 1, 2000, 4, 4, 64, True, 1500)
+    assert decode_splits(2, 2, 4001, 96)[0] > 1
+    assert decode_splits(3, 4, 1501, 64)[0] > 1
+    ins = {spec: [t.cuda() for t in _flash_inputs(spec, dtype, seed=5)]
+           for spec in (a, b)}
+    first = {}
+    for spec in (a, b, a, b, a):
+        got = flash_attention(*ins[spec], q_offset=spec[7])
+        torch.cuda.synchronize()
+        if spec not in first:
+            first[spec] = got
+            _flash_close(got, flash_attention_plain(*ins[spec],
+                                                    q_offset=spec[7]))
+        assert torch.equal(_bits(got), _bits(first[spec]))
 
 
 @pytest.mark.cuda
