@@ -393,6 +393,18 @@ def phase_kernels(cfg) -> dict:
     if not (bool(torch.isnan(got[1, 2])) and int(torch.isnan(got).sum()) == 1):
         raise AssertionError("block_amax dropped or spread a NaN")
     log("[kernels] block_amax propagates a NaN to its tile only")
+    # B4's launch plan at this shape: the CUDA source's and `hist_plan`'s
+    import ctypes
+    from repro_torch.kernels import build
+    plan = (ctypes.c_int * 3)()
+    build.check(build.function("block_hist_plan")(
+        K, bins, ctypes.addressof(plan)), "block_hist_plan")
+    if tuple(plan) != H.hist_plan(K, bins):
+        raise AssertionError(f"block_hist plan {tuple(plan)} != hist_plan "
+                             f"{H.hist_plan(K, bins)}")
+    log(f"[kernels] block_hist plan at k = {K}, {bins} bins: {plan[0]} "
+        f"warps (one tile each) a block, {plan[1]} contributions a pass, "
+        f"{plan[2]} bytes of shared memory")
     # B6 keeps each element with probability 1 - p: with every tau = 1
     # and base 0, out = (kept rows) * rescale / K exactly, so the kept
     # share is sum(out) / (npad * rescale)

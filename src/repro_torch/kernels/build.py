@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
                                      _P]),
     "block_hist_bf16": ("histogram", [_P, _P, _P, _P, _P, _I, _L, _I, _I,
                                       _P]),
+    # k, bins -> plan[3]: B4's warps per block, group, shared bytes
+    "block_hist_plan": ("histogram", [_I, _I, _P]),
     "ties_block_f32": ("histogram", [_P, _P, _P, _P, _I, _L, _I, _P]),
     "ties_block_bf16": ("histogram", [_P, _P, _P, _P, _I, _L, _I, _P]),
     "quant_nary": ("quant", [_P, _P, _P, _P, _P, _I, _L, _I, _P]),

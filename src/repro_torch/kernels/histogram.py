@@ -27,6 +27,11 @@ Counts: the reference sums fp32 counts, exact only below 2^24 per
 bucket and cdf entry; the port sums exact integers and rounds the
 cumulative count to fp32 once, before the division by n. Below 2^24
 the two agree bitwise.
+
+B3 and B4 run one warp per tile over all k contributions, reading the
+tile's base once and x in 16-byte loads: on CUDA tensors `block` must
+be a multiple of 8 and `stacked`, `base` and the output 16-byte
+aligned, else the wrapper raises. `hist_plan` sizes B4's launch.
 """
 from __future__ import annotations
 
@@ -40,6 +45,12 @@ from repro_torch.kernels.ties import ties_tile
 
 # columns per chunk of the plain versions (bounds their temporaries)
 _PLAIN_CHUNK = 1 << 24
+# B4's launch plan (`csrc/histogram.cu` `hist_plan` is the same rule):
+# the shared memory one block can use on an H100, a warp's share of
+# histogram counters, and the most warps (tiles) a block
+SMEM_PER_BLOCK = 232_448
+_WARP_SMEM = 16 * 1024
+_HIST_WARPS = 4
 
 
 def _tiles(stacked: torch.Tensor, block: int) -> int:
@@ -57,6 +68,15 @@ def _check_inputs(stacked, base) -> None:
         raise TypeError(f"stacked must be fp32 or bf16, got {stacked.dtype}")
     if base.dtype != torch.float32:
         raise TypeError("base must be fp32")
+
+
+def _check_vectors(block: int, *tensors) -> None:
+    """B3 and B4 on CUDA read 8 adjacent columns in 16-byte loads."""
+    if block % 8:
+        raise ValueError(f"block must be a multiple of 8, got {block}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("stacked, base and the output must be 16-byte "
+                         "aligned")
 
 
 def _launch(symbol: str, *args) -> None:
@@ -96,6 +116,7 @@ def block_amax(stacked, base, block: int) -> torch.Tensor:
         return block_amax_plain(stacked, base, block)
     k = stacked.shape[0]
     out = torch.empty((nb, k), dtype=torch.float32, device=stacked.device)
+    _check_vectors(block, stacked, base, out)
     _launch(f"block_amax_{_suffix(stacked)}", stacked.data_ptr(),
             base.data_ptr(), out.data_ptr(), k, stacked.shape[1], block,
             _stream(stacked))
@@ -113,6 +134,22 @@ def _bin_index(a, amax, bins: int):
     """clip(int(a / amax * bins), 0, bins - 1): divide, then multiply,
     as the reference bins (no reciprocal)."""
     return (a / amax * float(bins)).to(torch.int32).clamp_(0, bins - 1)
+
+
+def hist_plan(k: int, bins: int) -> Tuple[int, int, int]:
+    """(warps per block, contributions per pass, dynamic shared bytes)
+    of B4's launch, from the shapes alone. Each warp owns one tile and a
+    private [group, bins] int32 histogram: as many contributions as fit
+    its 16 KB share (at least one, at most k), then as many warps (at
+    most 4) as fit a block."""
+    row = 4 * bins
+    if k < 1 or bins < 1 or row > SMEM_PER_BLOCK:
+        raise ValueError(f"no B4 launch for k={k}, bins={bins}: one "
+                         f"bins-wide histogram takes {row} bytes, a block "
+                         f"has {SMEM_PER_BLOCK}")
+    group = max(1, min(k, _WARP_SMEM // row))
+    warps = min(_HIST_WARPS, SMEM_PER_BLOCK // (group * row))
+    return warps, group, warps * group * row
 
 
 def block_hist_plain(stacked, base, amax_meta, valid, bins: int,
@@ -157,8 +194,10 @@ def block_hist(stacked, base, amax_meta, valid, bins: int,
     if build.on_host(stacked, base, amax_meta, valid):
         return block_hist_plain(stacked, base, amax_meta, valid, bins,
                                 block)
+    hist_plan(k, bins)
     out = torch.empty((nb, k * bins), dtype=torch.int32,
                       device=stacked.device)
+    _check_vectors(block, stacked, base, out)
     _launch(f"block_hist_{_suffix(stacked)}", stacked.data_ptr(),
             base.data_ptr(), amax_meta.data_ptr(), valid.data_ptr(),
             out.data_ptr(), k, stacked.shape[1], block, bins,

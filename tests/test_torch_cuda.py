@@ -9,6 +9,12 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
   B1, B3-B5    nary_accum, block_amax, block_hist, ties_block: fp32 and
                bf16, k in {1, 4, 16}, leaves around the tile edge; a NaN
                stays in its tile
+  B3, B4       k in {1, 4, 5, 16, 17}, bins in {512, 100, 4096, 30}, a
+               Gaussian and a concentrated input (nearly every count in
+               the first bins), tiles of 1 valid column and an all-zero
+               tile, blocks of 1000 and 4104 columns, k = 40; B4's plan in
+               the CUDA source equals `hist_plan`; a stack 2 bytes into
+               its buffer, or a block not a multiple of 8, raises
   quant_nary   B2, k in {1, 3, 4, 16}, leaves around the tile edge
   dare_block   B6, fp32 and bf16, seeds near the uint32 wrap
   ties_leaf    B7, k in {1, 2, 4} (and 16), fp32 and bf16, a ragged leaf
@@ -192,6 +198,123 @@ def test_cuda_block_amax_keeps_a_nan_in_its_tile():
     got = histogram.block_amax(x, torch.zeros(x.shape[1], device="cuda"),
                                BLOCK).cpu()
     assert torch.isnan(got[2, 2]) and int(torch.isnan(got).sum()) == 1
+
+
+def _hist_batch(k, dtype, block, concentrated, seed=0):
+    """(leaf_id, valid, stacked, base) on the card over LENGTHS at
+    `block`: Gaussian rows, the tile from column `block` zeroed in x and
+    base (an all-zero tile), and with `concentrated` one element per leaf
+    and contribution set to 1000 x the typical |x - base|, so nearly
+    every count falls in the first few bins."""
+    leaf_id, valid, npad = batch_layout(LENGTHS, block)
+    starts = np.cumsum([0] + [padded_len(n, block) for n in LENGTHS])
+    rng = np.random.default_rng(seed)
+    x = np.zeros((k, npad), np.float32)
+    base = np.zeros(npad, np.float32)
+    for n, off in zip(LENGTHS, starts):
+        x[:, off:off + n] = rng.standard_normal((k, n))
+        base[off:off + n] = rng.standard_normal(n) * 0.5
+    if concentrated:
+        real = np.concatenate([np.arange(n) + off
+                               for n, off in zip(LENGTHS, starts)])
+        typical = float(np.median(np.abs(x[:, real] - base[real])))
+        for n, off in zip(LENGTHS, starts):
+            for i in range(k):
+                c = off + int(rng.integers(n))
+                x[i, c] = base[c] + 1000.0 * typical * rng.choice([-1, 1])
+    x[:, block:2 * block] = 0.0
+    base[block:2 * block] = 0.0
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+    return leaf_id, valid, tx, torch.from_numpy(base).cuda()
+
+
+def _hist_equal_plain(k, dtype, block, bins, concentrated):
+    leaf_id, valid, tx, tb = _hist_batch(k, dtype, block, concentrated)
+    before = (histogram.block_amax.launches, histogram.block_hist.launches)
+    bmax = histogram.block_amax(tx, tb, block)
+    assert torch.equal(bmax, histogram.block_amax_plain(tx, tb, block))
+    amax = _amax_meta(bmax, leaf_id, len(LENGTHS))
+    vld = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    got = histogram.block_hist(tx, tb, amax, vld, bins, block)
+    assert torch.equal(
+        got, histogram.block_hist_plain(tx, tb, amax, vld, bins, block))
+    assert (histogram.block_amax.launches, histogram.block_hist.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert int(got.sum()) == k * sum(LENGTHS)
+    tiles = got.reshape(len(leaf_id), k, bins)
+    # the zero tile: every valid column in bin 0
+    assert int(tiles[1, :, 0].sum()) == int(tiles[1].sum()) == k * valid[1]
+    return tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("concentrated", [False, True])
+@pytest.mark.parametrize("bins", [512, 100, 4096, 30])
+@pytest.mark.parametrize("k", [1, 4, 5, 16, 17])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_block_amax_hist_equal_plain(dtype, k, bins, concentrated):
+    """B3 bitwise and B4's exact counts against the plain versions over
+    the tile edge (tiles of 1 valid column, an all-zero tile), with the
+    contributions taken in groups where their histograms outgrow a
+    warp's share (16 x 4096 bins: one a pass), with 16-byte and 4-byte
+    count moves (bins 30), and on the concentrated input."""
+    counts = _hist_equal_plain(k, dtype, BLOCK, bins, concentrated)
+    if concentrated and bins <= 512:
+        per = counts.sum(dim=(0, 1))
+        assert int(per[:4].sum()) >= 0.99 * int(per.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", [512, 4096])
+@pytest.mark.parametrize("k", [4, 17, 40])
+@pytest.mark.parametrize("block", [1000, 4104])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_block_amax_hist_other_blocks(dtype, block, k, bins):
+    """Tiles narrower than a warp's 1024-column segment (1000: lanes past
+    the edge idle) and wider (4104: five segments, the last one vector
+    wide; at 4096 bins the base is read again for each contribution);
+    k = 40 takes B3's rows in two groups of 32 and B4's in five of 8."""
+    _hist_equal_plain(k, dtype, block, bins, concentrated=False)
+
+
+@pytest.mark.cuda
+def test_cuda_hist_plan_matches_the_kernels():
+    """The launch plan the CUDA source computes is `hist_plan`'s."""
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.function("block_hist_plan")
+    plan = (ctypes.c_int * 3)()
+    for k in (1, 2, 4, 5, 8, 9, 16, 17, 64):
+        for bins in (1, 30, 100, 512, 4096, 8192, 58112):
+            assert fn(k, bins, ctypes.addressof(plan)) == 0
+            assert tuple(plan) == histogram.hist_plan(k, bins)
+    assert fn(4, 58113, ctypes.addressof(plan)) != 0
+    assert fn(0, 512, ctypes.addressof(plan)) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_block_amax_hist_refuse_unaligned(dtype):
+    """16-byte loads: a stack 2 bytes into its buffer and a block that
+    is not a multiple of 8 raise, and nothing launches."""
+    k, np_ = 4, 6000
+    buf = torch.zeros(k * np_ + 1, dtype=getattr(torch, dtype),
+                      device="cuda")
+    off = buf[1:].view(k, np_)
+    ok = torch.zeros((k, np_), dtype=getattr(torch, dtype), device="cuda")
+    base = torch.zeros(np_, device="cuda")
+    before = (histogram.block_amax.launches, histogram.block_hist.launches)
+    for x, block in ((off, 2000), (ok, 1500)):
+        nb = np_ // block
+        with pytest.raises(ValueError, match="16-byte|multiple of 8"):
+            histogram.block_amax(x, base, block)
+        with pytest.raises(ValueError, match="16-byte|multiple of 8"):
+            histogram.block_hist(
+                x, base, torch.ones((nb, k), device="cuda"),
+                torch.full((nb,), block, dtype=torch.int32, device="cuda"),
+                BINS, block)
+    assert (histogram.block_amax.launches,
+            histogram.block_hist.launches) == before
 
 
 # ------------------------------------------------------------ B7, B8
