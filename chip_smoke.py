@@ -27,6 +27,24 @@ before it and read just after:
          flash attention kernel), and B's tree must give the same tokens
          and last logits, byte for byte.
 
+  search  genetic_merge and evolutionary_merge through `engine.merge(...,
+          contrib_ids=...)` on the same bf16 contributions at full
+          depth: whole-model strategies, no kernel (0 launches).
+
+The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 16 of
+its 32 layers, fp32 (five fp32 models at 32 layers would take 76.4 GB;
+bf16 SVD raises in both packages): replica A contributes K models in
+order, replica B the same models in reverse order under A's eids; each
+resolves star, svd_knot_tying, adarank, evolutionary_merge and
+genetic_merge (`MergeSpec(name, base_ref=...)`) and the two trees must
+be byte-identical; a second resolve on A must be a whole-model cache
+hit. It times each cuSOLVER SVD driver at the embedding's shape. The
+audits (`[audit]`) run the paper's Tables 3 and 4 on the card: the raw
+pattern of every strategy on `controlled_tensors()` against
+`TABLE3_EXPECTED`, the wrapped audit 104/104, the tier-2 slices at 128^2
+and 512^2, and the five whole-model strategies on the card against the
+CPU at 512^2.
+
 At depth 2 it holds the kernel routes against the exact routes
 (`Replica.resolve`, and the exact path over the same int8 payloads),
 the per-leaf slerp and quantile-TIES kernels against `Replica.resolve`
@@ -109,6 +127,16 @@ FLASH_F32_ATOL = 1e-5
 # one attention output a bf16 ulp apart moves the logits by a few bf16
 # ulps; fp32: summation order only
 SERVE_LOGIT_LIMIT = {"bfloat16": 0.35, "float32": 1.2e-4}
+# the whole-model slice: 16 of Phi-3-mini's 32 layers in fp32 (five
+# models, 40.2 GB)
+WHOLE_LAYERS = 16
+WHOLE = ("star", "svd_knot_tying", "adarank", "evolutionary_merge",
+         "genetic_merge")
+SEARCH = ("genetic_merge", "evolutionary_merge")
+# the five on the card against the CPU at 512^2, relative to the
+# output's magnitude (the card tests' limit): cuSOLVER's gesvd against
+# LAPACK, and fitness sums in another order
+WHOLE_CARD_TOL = 1e-4
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -613,19 +641,18 @@ def phase_flash_kernel(rows: dict, cfg, g) -> None:
         **cases}
 
 
-def make_models(cfg, device):
-    """A bf16 base and K contributions of the form base + small delta,
-    from seeded generators on the device."""
+def make_models(cfg, device, dtype=torch.bfloat16):
+    """A base and K contributions of the form base + small delta, from
+    seeded generators on the device (bf16 unless `dtype` says)."""
     from repro_torch import pytree
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     schema = Model(cfg).schema()
-    base = init_from_schema(schema, seed=SEED, device=device,
-                            dtype=torch.bfloat16)
+    base = init_from_schema(schema, seed=SEED, device=device, dtype=dtype)
     contribs = []
     for j in range(K):
         delta = init_from_schema(schema, seed=SEED + 1 + j, device=device,
-                                 dtype=torch.bfloat16)
+                                 dtype=dtype)
         contribs.append(pytree.tree_map(
             lambda b, d: b + d * 0.1, base, delta))
         del delta
@@ -657,15 +684,21 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "perleaf": ("slerp_reduce", "slerp_combine", "ties_leaf",
                             "nary_accum"),
                 "int8": ("quant_nary",),
+                "search": (),
                 "serve": ("flash_attention",)}
 
 
 def check_output(name: str, out, base) -> None:
+    """Shapes of the base, finite values, and the reference's dtype:
+    the base's, but fp32 for genetic_merge over half-precision leaves
+    (its linspace grid is fp32)."""
     from repro_torch import pytree
     for o, b in zip(pytree.leaves(out), pytree.leaves(base)):
-        if o.shape != b.shape or o.dtype != b.dtype:
+        want = torch.float32 if name == "genetic_merge" and \
+            b.dtype in (torch.bfloat16, torch.float16) else b.dtype
+        if o.shape != b.shape or o.dtype != want:
             raise AssertionError(f"{name}: output leaf {o.shape} "
-                                 f"{o.dtype} != {b.shape} {b.dtype}")
+                                 f"{o.dtype} != {b.shape} {want}")
         if not bool(torch.isfinite(o).all()):
             raise AssertionError(f"{name}: non-finite output")
 
@@ -830,6 +863,8 @@ def phase_main_path(cfg) -> dict:
         raise AssertionError("kernel_dispatch_total{kernel=dare} did not "
                              "grow")
     paths["perleaf"] = perleaf_path(ordered, base, nleaves)
+    paths["search"] = search_path(ordered, order, base, ref, seed,
+                                  rep.cache)
 
     # int8 merge-on-arrival: compress on the card, drop the bf16 copies
     torch.cuda.synchronize()
@@ -1315,6 +1350,190 @@ def phase_serve_vs_plain(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def search_path(ordered, order, base, ref, seed, cache) -> dict:
+    """genetic_merge and evolutionary_merge through `engine.merge` on
+    the main path's bf16 contributions at full depth: whole-model
+    dispatches that launch no kernel (the counts must not move)."""
+    from repro_torch.api import MergeSpec
+    from repro_torch.core import engine
+
+    def merge(name):
+        def thunk():
+            out = engine.merge(ordered, spec=MergeSpec(name, base_ref=ref),
+                               contrib_ids=order, base=base, seed=seed,
+                               use_cache=False, cache=cache)
+            check_output(name, out, base)
+        return name, thunk
+    before = cache.stats["whole_model_dispatches"]
+    out = run_path("search", [merge(n) for n in SEARCH],
+                   expect={n: {} for n in SEARCH})
+    if cache.stats["whole_model_dispatches"] != before + len(SEARCH):
+        raise AssertionError("the search merges did not take the "
+                             "whole-model route")
+    return out
+
+
+def svd_drivers(x: torch.Tensor) -> None:
+    """Seconds of each cuSOLVER SVD driver on x, two runs each, the runs'
+    byte identity and the reconstruction error; the pinned one (gesvd)
+    must repeat its bytes."""
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    for drv in ("gesvd", "gesvdj", "gesvda"):
+        ts, res = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res.append(torch.linalg.svd(x, full_matrices=False, driver=drv))
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        same = all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(res[0], res[1]))
+        u, sv, vt = res[0]
+        err = float(((u * sv) @ vt - x).norm() / x.norm())
+        log(f"[whole] svd {tuple(x.shape)} fp32, driver {drv}: "
+            f"{ts[0]:.3f} / {ts[1]:.3f} s; two runs byte-identical {same}; "
+            f"reconstruction error {err:.2e} (relative)")
+        if drv == "gesvd" and not same:
+            raise AssertionError("gesvd, the pinned driver, is not "
+                                 "deterministic on this card")
+        del res, u, sv, vt
+    torch.cuda.empty_cache()
+
+
+def phase_whole(cfg) -> None:
+    """The five whole-model strategies at Phi-3-mini's full width, 16 of
+    its 32 layers, fp32, through two replicas: A contributes in order,
+    B in reverse order under A's eids; each replica resolves each
+    strategy and the trees must be byte-identical. A's tree waits in
+    host memory while B resolves. A second resolve on A must hit A's
+    whole-model cache entry without a dispatch."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    cfg = cfg.replace(n_layers=WHOLE_LAYERS)
+    t0 = time.perf_counter()
+    base, contribs = make_models(cfg, DEVICE, torch.float32)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(base))
+    log(f"[whole] {cfg.name}, {WHOLE_LAYERS} layers, fp32: {n} parameters "
+        f"per model, {K} contributions + base ({(K + 1) * n * 4 / 1e9:.2f} "
+        f"GB) made in {time.perf_counter() - t0:.1f} s")
+    svd_drivers(contribs[0]["embed"] - base["embed"])
+    t0 = time.perf_counter()
+    rep_a = Replica("chip-smoke-whole-a", device=DEVICE)
+    eids = [rep_a.contribute(c) for c in contribs]
+    ref = rep_a.register_base(base)
+    t_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_b = Replica("chip-smoke-whole-b", device=DEVICE)
+    for c, eid in zip(contribs[::-1], eids[::-1]):
+        rep_b.contribute(c, eid)
+    if rep_b.register_base(base) != ref or \
+            rep_a.merkle_root() != rep_b.merkle_root():
+        raise AssertionError("the two replicas disagree on Layer 1")
+    t_b = time.perf_counter() - t0
+    log(f"[whole] replica A: contribute x{K} + register_base in {t_a:.1f} s "
+        f"({(K + 1) * n * 4 / t_a / 1e9:.2f} GB/s hashed); replica B "
+        f"(reverse order, eids given) + register_base: {t_b:.1f} s")
+    del contribs
+    # room for one model's entry in A's cache, for the hit check
+    rep_a.set_cache_limit(bytes=2 * n * 4)
+    for name in WHOLE:
+        spec = MergeSpec(name, base_ref=ref)
+        trees = {}
+        for label, rep in (("A", rep_a), ("B", rep_b)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tree = rep.resolve(spec)
+            torch.cuda.synchronize()
+            log(f"[whole] {name}, replica {label}: resolve "
+                f"{time.perf_counter() - t0:.1f} s; peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                f"({live / 1e9:.2f} GB live before the call)")
+            check_output(name, tree, base)
+            if label == "A":
+                stats = dict(rep_a.cache.stats)
+                t0 = time.perf_counter()
+                again = rep_a.resolve(spec)
+                hit_s = time.perf_counter() - t0
+                if again is not tree or rep_a.cache.stats["hits"] != \
+                        stats.get("hits", 0) + 1 or \
+                        rep_a.cache.stats["whole_model_dispatches"] != \
+                        stats["whole_model_dispatches"]:
+                    raise AssertionError(f"{name}: A's second resolve was "
+                                         "not a whole-model cache hit")
+                log(f"[whole] {name}, replica A again: cache hit in "
+                    f"{hit_s * 1e3:.1f} ms, whole_model_dispatches "
+                    f"{stats['whole_model_dispatches']} unchanged")
+                del again
+                rep_a.clear_cache()
+                trees[label] = pytree.tree_map(lambda t: t.cpu(), tree)
+            else:
+                trees[label] = tree
+            del tree
+        differ = sum(not torch.equal(bits(a.to(DEVICE)), bits(b))
+                     for a, b in zip(pytree.leaves(trees["A"]),
+                                     pytree.leaves(trees["B"])))
+        if differ:
+            raise AssertionError(f"{name}: the replicas' trees differ in "
+                                 f"{differ} leaves")
+        log(f"[whole] {name}: the two replicas' trees byte-identical "
+            f"({len(pytree.leaves(trees['B']))} leaves)")
+        del trees
+        torch.cuda.empty_cache()
+    del rep_a, rep_b, base
+    torch.cuda.empty_cache()
+
+
+def phase_audits() -> None:
+    """The paper's Tables 3 and 4 on the card, and the five whole-model
+    strategies on the card against the CPU on the 512^2 slices."""
+    from repro_torch.core import properties as props
+    from repro_torch.core.resolve import reference_apply
+    t0 = time.perf_counter()
+    tensors = props.controlled_tensors(device=DEVICE)
+    raw = props.audit_all_raw(tensors)
+    bad = [n for n, r in raw.items() if (r.commutative, r.associative,
+                                         r.idempotent)
+           != props.TABLE3_EXPECTED[n]]
+    log(f"[audit] Table 3, raw (C, A, I) on the card, float64 4x4 seed 42: "
+        f"{len(raw) - len(bad)} of {len(raw)} equal TABLE3_EXPECTED"
+        + (f"; differ: {bad}" if bad else ""))
+    if bad or len(raw) != 26:
+        raise AssertionError(f"Table 3 pattern differs for {bad}")
+    wrapped = props.audit_all_wrapped(tensors)
+    held = sum(r.commutative + r.associative + r.idempotent + r.convergent
+               for r in wrapped.values())
+    log(f"[audit] Table 4, wrapped (C, A, I, 3-replica convergence), "
+        f"bitwise: {held} of {4 * len(wrapped)}")
+    if held != 104:
+        raise AssertionError(f"wrapped audit {held} of 104")
+    for dim in (128, 512):
+        base, outs = props.production_slices(None, slice_dim=dim,
+                                             device=DEVICE)
+        res = props.audit_all_wrapped(outs, base)
+        failed = [n for n, r in res.items() if not r.crdt]
+        log(f"[audit] tier-2 slices {dim}x{dim} fp32, wrapped: "
+            f"{len(res) - len(failed)} of {len(res)} CRDT")
+        if failed:
+            raise AssertionError(f"tier-2 {dim}: {failed} not CRDT")
+    errs = {}
+    for name in WHOLE:
+        card = reference_apply(name, outs[:K], base=base, seed=7)
+        cpu = reference_apply(name, [o.cpu() for o in outs[:K]],
+                              base=base.cpu(), seed=7)
+        scale = max(1.0, float(cpu.abs().max()))
+        errs[name] = float((card.cpu() - cpu).abs().max()) / scale
+    log(f"[audit] the five on the card vs the CPU at 512x512 (max abs diff "
+        f"over max(1, |cpu|); limit {WHOLE_CARD_TOL}): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    if max(errs.values()) > WHOLE_CARD_TOL:
+        raise AssertionError("a whole-model strategy on the card is off "
+                             "the CPU's result")
+    log(f"[audit] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1331,6 +1550,8 @@ def main() -> int:
     phase_exact_vs_kernels(cfg)
     serve = phase_serve(cfg)
     phase_serve_vs_plain(cfg)
+    phase_whole(cfg)
+    phase_audits()
     for name, row in rows.items():
         row["launches"] = main["launches"][name] \
             + serve["launches"][name]

@@ -3,17 +3,20 @@
 
     rep = Replica("inst-a")                # tensors live on "cuda"
     eid = rep.contribute(fine_tune)
-    rep.merge(other_rep)                   # CRDT join
-    merged = rep.resolve(MergeSpec("ties", {"trim": 0.3}))
+    rep.merge(other_rep)                   # CRDT join (evidence too)
+    rep.report(bad_eid, "statistical_outlier")
+    merged = rep.resolve(MergeSpec("ties", {"trim": 0.3},
+                                   trust_threshold=0.5))
 
 A replica owns its Layer-1 state with the payload store, a per-replica
-`EngineCache` and its registered bases. Contributions and bases are
+`EngineCache`, its trust evidence (`core.trust.TrustState`, a grow-only
+CRDT joined by `merge`) and its registered bases. Contributions and bases are
 moved to the replica's device. The device is CUDA unless the caller
 asks for the CPU: without CUDA, `Replica()` raises rather than run on
 the host.
 
-Durability (`path=`), `attach` to a sync node, trust evidence and
-fetch-on-resolve wait for ROADMAP A6.
+Durability (`path=`), `attach` to a sync node and fetch-on-resolve
+wait for ROADMAP A6.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.api.spec import MergeSpec
 from repro_torch.core.engine import CacheInfo, EngineCache
 from repro_torch.core.hashing import pytree_digest
 from repro_torch.core.state import CRDTMergeState
+from repro_torch.core.trust import TrustState
 from repro_torch.obs import MetricsRegistry
 
 __all__ = ["Replica"]
@@ -42,15 +46,17 @@ def resolve_device(device: Any = None) -> torch.device:
 
 
 class Replica:
-    """Facade over state + store + per-replica cache."""
+    """Facade over state + store + per-replica cache + trust."""
 
     def __init__(self, node_id: str = "local", *, device: Any = None,
                  state: Optional[CRDTMergeState] = None,
+                 trust: Optional[TrustState] = None,
                  cache: Optional[EngineCache] = None,
                  obs: Optional[MetricsRegistry] = None):
         self.node_id = node_id
         self.device = resolve_device(device)
         self.state = state if state is not None else CRDTMergeState()
+        self.trust = trust
         self.obs = obs if obs is not None else MetricsRegistry()
         self.cache = cache if cache is not None else EngineCache(
             obs=self.obs)
@@ -85,12 +91,18 @@ class Replica:
         self.state = self.state.remove(element_id, self.node_id)
 
     def merge(self, other: Any) -> "Replica":
-        """CRDT join with another Replica or a raw CRDTMergeState."""
+        """CRDT join with another Replica or a raw CRDTMergeState. Trust
+        evidence joins too (it is itself a grow-only CRDT)."""
         if isinstance(other, Replica):
-            other = other.state
-        if not isinstance(other, CRDTMergeState):
+            state, trust = other.state, other.trust
+        elif isinstance(other, CRDTMergeState):
+            state, trust = other, None
+        else:
             raise TypeError(f"cannot merge {type(other).__name__}")
-        self.state = self.state.merge(other)
+        self.state = self.state.merge(state)
+        if trust is not None:
+            self.trust = trust if self.trust is None \
+                else self.trust.merge(trust)
         return self
 
     def visible(self):
@@ -98,6 +110,18 @@ class Replica:
 
     def merkle_root(self) -> bytes:
         return self.state.merkle_root()
+
+    # ----------------------------------------------------------- trust
+
+    def report(self, element_id: str, kind: str,
+               reporter: Optional[str] = None,
+               severity: float = 1.0) -> "Replica":
+        """File trust evidence against a contribution (grow-only CRDT;
+        evidence merges with merge())."""
+        base = self.trust if self.trust is not None else TrustState()
+        self.trust = base.report(element_id, kind,
+                                 reporter or self.node_id, severity)
+        return self
 
     # ------------------------------------------------------------ base
 
@@ -114,7 +138,8 @@ class Replica:
     def resolve(self, spec: MergeSpec, *, base: Any = None,
                 use_cache: bool = True) -> Any:
         """Layer-2 resolve of `spec` over this replica's visible set,
-        through the engine's exact path with this replica's cache."""
+        through the engine's exact path with this replica's cache, gated
+        by this replica's trust evidence when the spec asks."""
         if not isinstance(spec, MergeSpec):
             raise TypeError(
                 "Replica.resolve() takes a MergeSpec — e.g. "
@@ -133,8 +158,9 @@ class Replica:
             verify_base = False
         elif base is not None:
             base = self._to_device(base)
-        return resolve_spec(self.state, spec, base=base, cache=self.cache,
-                            use_cache=use_cache, verify_base=verify_base)
+        return resolve_spec(self.state, spec, base=base, trust=self.trust,
+                            cache=self.cache, use_cache=use_cache,
+                            verify_base=verify_base)
 
     # ----------------------------------------------------------- cache
 

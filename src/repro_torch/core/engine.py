@@ -36,6 +36,13 @@ densifies a slice where it reads it (`engine_events_total{event=
 dequant_leaves}`); with `kernels=True` a linear-family group whose
 every slice is int8 merges through `quant_nary` without densifying.
 
+Whole-model strategies (population search, SVD) are not planned per
+leaf: `merge` runs them as one whole-model dispatch with one cache entry
+keyed by `model_key` (the reference's key, byte for byte), and stacks
+one leaf at a time through the strategy's leaf function, freeing each
+stack before the next (the reference stacks the whole model at once:
+the same bytes, k models' memory less).
+
 Not ported yet, and refused rather than approximated: sparse
 contributions (ROADMAP A4).
 """
@@ -55,13 +62,14 @@ from repro_torch.api.spec import coerce_spec, MergeSpec
 from repro_torch.core.compression import (
     compressed_tree_to_structure, CompressedLeaf, CompressedTree,
     dequantize_leaf)
-from repro_torch.core.hashing import tensor_digest
+from repro_torch.core.hashing import pytree_digest, tensor_digest
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
 from repro_torch.strategies.base import pairwise_fold, run_fold, \
     Strategy
 
 _DOMAIN_LEAF = b"repro/engine/leaf-subroot/v2"
+_DOMAIN_MODEL = b"repro/engine/model-subroot/v2"
 _NO_BASE = b"\x00" * 32          # base=None marker (zeros_like base)
 
 
@@ -233,6 +241,9 @@ def plan_merge(metas: Sequence[ContribMeta],
             "sparse contributions are not ported yet (ROADMAP A4)")
     spec = _as_spec(spec, strategy_name, reduction, cfg)
     strat = get_strategy(spec.strategy)
+    if strat.whole_model:
+        raise ValueError(
+            f"strategy {spec.strategy!r} is whole-model; use merge()")
     k = len(metas)
     first = metas[0]
     with span("engine.plan", strategy=spec.strategy, k=k,
@@ -402,6 +413,18 @@ _DEFAULT_CACHE = EngineCache()
 
 def _cache_or_default(cache: Optional[EngineCache]) -> EngineCache:
     return cache if cache is not None else _DEFAULT_CACHE
+
+
+def cache_lookup(key: bytes,
+                 cache: Optional[EngineCache] = None) -> Optional[Any]:
+    """Fetch-free probe of a whole-model key: the cached value (counting
+    a hit) or None (counting nothing; the merge that follows counts its
+    miss)."""
+    c = _cache_or_default(cache)
+    val = c.get(key)
+    if val is not None:
+        c.stats["hits"] += 1
+    return val
 
 
 def clear_cache() -> None:
@@ -790,23 +813,118 @@ def _execute_batch(strat: Strategy, plan: MergePlan, group: List[LeafTask],
     return outs, auxs, False
 
 
+# ---------------------------------------------------------------------------
+# Whole-model route
+# ---------------------------------------------------------------------------
+
+
+def model_key(strategy_name: Optional[str],
+              contrib_digests: Sequence[bytes], *,
+              base: Any = None, seed: int = 0,
+              reduction: Optional[str] = None,
+              spec: Optional[MergeSpec] = None,
+              base_digest: Optional[bytes] = None, **cfg) -> bytes:
+    """The whole-model cache key, byte-equal to the reference's:
+    SHA-256(domain || spec fragment || base digest || k || digests [||
+    seed]). `base_digest` is the base's `pytree_digest` where the caller
+    already holds it (a registered base's ref), saving a hash of the
+    whole base."""
+    spec = _as_spec(spec, strategy_name, reduction, cfg)
+    strat = get_strategy(spec.strategy)
+    h = hashlib.sha256(_DOMAIN_MODEL)
+    k = len(contrib_digests)
+    h.update(spec.cache_fragment(
+        with_reduction=(strat.binary_only and k > 2)))
+    if base_digest is None:
+        base_digest = pytree_digest(base) if base is not None else _NO_BASE
+    h.update(base_digest)
+    h.update(k.to_bytes(4, "big"))
+    for d in contrib_digests:
+        h.update(d)
+    if strat.needs_key:
+        h.update(str(seed).encode())
+    return h.digest()
+
+
+def _is_hex(s: str) -> bool:
+    try:
+        bytes.fromhex(s)
+        return len(s) % 2 == 0 and len(s) > 0
+    except ValueError:
+        return False
+
+
+def _eid_digests(contribs: Sequence[Any],
+                 contrib_ids: Optional[Sequence[str]]) -> List[bytes]:
+    if contrib_ids is not None:
+        return [bytes.fromhex(e) if _is_hex(e) else e.encode()
+                for e in contrib_ids]
+    return [pytree_digest(c) for c in contribs]
+
+
+def _whole_model(strat: Strategy, contribs: Sequence[Any], spec: MergeSpec,
+                 *, base: Any, seed: int) -> Any:
+    """`reference_apply`'s whole-tree result, one leaf at a time: each
+    leaf's [k, ...] stack through `apply_leaf` at its global flatten
+    index (the key `leafwise` derives), freed before the next."""
+    flat = [pytree.flatten(c) for c in contribs]
+    treedef = flat[0][1]
+    for _, td in flat[1:]:
+        if td != treedef:
+            raise ValueError("contributions disagree on tree structure")
+    base_leaves = treedef.flatten_up_to(base) if base is not None else None
+    cfg = spec.cfg_dict()
+    outs = []
+    for i in range(len(flat[0][0])):
+        stacked = torch.stack([leaves[i] for leaves, _ in flat])
+        b = _base_leaf(base_leaves, i, stacked[0])
+        outs.append(strat.apply_leaf(stacked, b, leaf_index=i, seed=seed,
+                                     **cfg))
+        del stacked
+    return treedef.unflatten(outs)
+
+
 def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
           contrib_ids: Optional[Sequence[str]] = None, base: Any = None,
           seed: int = 0, reduction: Optional[str] = None,
           use_cache: bool = True,
           max_batch_bytes: Optional[int] = None, kernels: bool = False,
           spec: Optional[MergeSpec] = None,
-          cache: Optional[EngineCache] = None, **cfg) -> Any:
+          cache: Optional[EngineCache] = None,
+          key: Optional[bytes] = None, **cfg) -> Any:
     """Merge an ORDERED contribution list through the engine.
 
     Byte-identical to `core.resolve.reference_apply` on the same inputs.
     `kernels=True` is the reference's `pallas=True` (see execute_plan).
-    Takes a MergeSpec (`spec=`) or a strategy name + kwargs.
+    Takes a MergeSpec (`spec=`) or a strategy name + kwargs. A
+    whole-model strategy is one dispatch (`whole_model_dispatches`) with
+    one cache entry under `model_key`; `key` passes a key the caller has
+    already made (resolve's cache probe), and without the cache no key
+    is made.
     """
     if not contribs:
         raise ValueError("merge() requires at least one contribution")
     spec = _as_spec(spec, strategy_name, reduction, cfg)
     cache = _cache_or_default(cache)
+    strat = get_strategy(spec.strategy)
+    if strat.whole_model:
+        cache.stats["whole_model_dispatches"] += 1
+        if use_cache:
+            if key is None:
+                key = model_key(None, _eid_digests(contribs, contrib_ids),
+                                base=base, seed=seed, spec=spec)
+            hit = cache.get(key)
+            if hit is not None:
+                cache.stats["hits"] += 1
+                return hit
+            cache.stats["misses"] += 1
+        with span("engine.whole_model", strategy=spec.strategy,
+                  k=len(contribs)):
+            out = _whole_model(strat, contribs, spec, base=base, seed=seed)
+        if use_cache:
+            cache.put(key, out, sum(int(x.nbytes)
+                                    for x in pytree.leaves(out)))
+        return out
     cache.stats["planned_merges"] += 1
     plan = plan_for(contribs, contrib_ids=contrib_ids,
                     base=base, seed=seed, spec=spec)

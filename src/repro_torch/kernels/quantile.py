@@ -143,16 +143,15 @@ def _zero_at(chunks: Chunks, rank: int) -> float:
     raise ValueError("fewer zeros than the rank")
 
 
-def select_quantile(chunks: Chunks, n: int, q: float,
-                    dtype: torch.dtype = torch.float32) -> float:
-    """`jnp.quantile` of the n fp32 values that `chunks()` yields, whose
-    data type was `dtype` (fp32, bf16 or fp16): NaN if one is NaN. The
-    upper order statistic is the lower one's group, or else the least
-    value above it (one pass)."""
-    lo, hi, lw, hw = quantile_weights(n, q, dtype)
+def _order_pair(chunks: Chunks, lo: int, hi: int):
+    """(v_lo, v_hi): the lo-th and hi-th smallest (0-based, lo <= hi) of
+    the fp32 values that `chunks()` yields, zeros with the sign JAX's
+    stable sort leaves at that rank; None if one of them is NaN. The
+    upper one is in the lower one's group of equal values, or else the
+    least value above it (one pass)."""
     sel = _select(chunks, lo)
     if sel is None:
-        return float("nan")
+        return None
     key, r_lo, group = sel
     v_lo = v_hi = _value(key)
     r_hi = r_lo + (hi - lo)
@@ -164,7 +163,18 @@ def select_quantile(chunks: Chunks, n: int, q: float,
         v_lo = _zero_at(chunks, r_lo)
     if v_hi == 0.0:
         v_hi = _zero_at(chunks, r_hi)
-    return quantile_interp(v_lo, v_hi, lw, hw)
+    return v_lo, v_hi
+
+
+def select_quantile(chunks: Chunks, n: int, q: float,
+                    dtype: torch.dtype = torch.float32) -> float:
+    """`jnp.quantile` of the n fp32 values that `chunks()` yields, whose
+    data type was `dtype` (fp32, bf16 or fp16): NaN if one is NaN."""
+    lo, hi, lw, hw = quantile_weights(n, q, dtype)
+    pair = _order_pair(chunks, lo, hi)
+    if pair is None:
+        return float("nan")
+    return quantile_interp(pair[0], pair[1], lw, hw)
 
 
 def quantile_rows(a: torch.Tensor, q: float) -> torch.Tensor:
@@ -203,3 +213,76 @@ def quantile_threshold(row: torch.Tensor, base: torch.Tensor,
                    - base[c:c + CHUNK].to(torch.float32)).abs_()
     return torch.tensor(select_quantile(chunks, n, q), dtype=torch.float32,
                         device=row.device)
+
+
+# ---------------------------------------------------------------- median ---
+# `jnp.median` is `jnp.quantile(..., method="midpoint")`: the same two
+# order statistics as the linear method, lo = floor(q * (n - 1)) and hi =
+# ceil(...), then (v_lo + v_hi) * 0.5 in the data's dtype. XLA's CPU code
+# widens bf16 / fp16 to fp32 for the add and the multiply and rounds once,
+# and runs with subnormals flushed to zero, inputs and results alike
+# (probed bitwise, subnormals included). A NaN anywhere along the axis
+# makes the median NaN.
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to zero of the same sign (the CPU's FTZ / DAZ modes)."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, x * 0.0, x)
+
+
+def _midpoint(v_lo: torch.Tensor, v_hi: torch.Tensor) -> torch.Tensor:
+    dt = v_lo.dtype
+    wide = torch.float32 if dt in (torch.bfloat16, torch.float16) else dt
+    a, b = _flush(v_lo.to(wide)), _flush(v_hi.to(wide))
+    half = torch.tensor(0.5, dtype=wide, device=v_lo.device)
+    return _flush(_flush(a + b) * half).to(dt)
+
+
+def median_axis0(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.median(x, axis=0)` of a [k, n] stack, k small, bitwise: each
+    column's order statistics by stable rank (rank_j = #{i: x_i < x_j} +
+    #{i < j: x_i == x_j}, which orders -0 and +0 by index as JAX's sort
+    does), one column chunk at a time; k^2 compares, no sort and no
+    int64 index."""
+    k, n = x.shape
+    lo, hi, _, _ = quantile_weights(k, 0.5, x.dtype)
+    out = torch.empty(n, dtype=x.dtype, device=x.device)
+    for c in range(0, n, CHUNK):
+        v = x[:, c:c + CHUNK]
+        key = _flush(v)             # the sort's compares see no subnormal
+        rank = []
+        for j in range(k):
+            r = torch.zeros(v.shape[1], dtype=torch.int32, device=x.device)
+            for i in range(k):
+                if i != j:
+                    r += (key[i] <= key[j]) if i < j else (key[i] < key[j])
+            rank.append(r)
+        v_lo, v_hi = v[0], v[0]
+        for j in range(k):
+            v_lo = torch.where(rank[j] == lo, v[j], v_lo)
+            v_hi = torch.where(rank[j] == hi, v[j], v_hi)
+        m = _midpoint(v_lo, v_hi)
+        out[c:c + CHUNK] = torch.where(torch.isnan(v).any(dim=0),
+                                       torch.full_like(m, float("nan")), m)
+    return out
+
+
+def median_flat(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.median(x)` over every element, as a 0-dim tensor of x's dtype
+    and device, bitwise: the radix select's two order statistics (a
+    stable sort for float64)."""
+    row = _flush(x.reshape(-1))     # compares see no subnormal (DAZ)
+    n = row.shape[0]
+    lo, hi, _, _ = quantile_weights(n, 0.5, x.dtype)
+    if x.dtype == torch.float64:
+        if bool(torch.isnan(row).any()):
+            return torch.tensor(float("nan"), dtype=x.dtype, device=x.device)
+        srt = torch.sort(row, stable=True).values
+        return _midpoint(srt[lo], srt[hi])
+    pair = _order_pair(lambda: (row[c:c + CHUNK].to(torch.float32)
+                                for c in range(0, n, CHUNK)), lo, hi)
+    if pair is None:
+        return torch.tensor(float("nan"), dtype=x.dtype, device=x.device)
+    v = torch.tensor(pair, dtype=torch.float32,
+                     device=x.device).to(x.dtype)
+    return _midpoint(v[0], v[1])

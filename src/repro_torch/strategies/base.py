@@ -26,8 +26,10 @@ the whole-tree path bitwise, and both equal the reference's draws.
 `binary_only` strategies (slerp) merge exactly two contributions; for
 k > 2 the engine and `reference_apply` fold them pairwise with
 `pairwise_fold`, in sequence or as a balanced tree
-(`MergeSpec.reduction`), with per-step seeds. The
-five whole-model strategies are ROADMAP A3.6.
+(`MergeSpec.reduction`), with per-step seeds. `whole_model`
+strategies (population search, SVD) are planned as one whole-model
+merge with one cache entry (`core.engine.merge`); their leaf functions
+still run one leaf at a time there.
 """
 from __future__ import annotations
 
@@ -108,6 +110,7 @@ class Strategy:
     leaf_fn: Optional[Callable] = None  # leaf_fn(stacked[k,...], base, [key])
     needs_key: bool = False           # leaf_fn consumes a PRNG key
     elementwise: bool = False         # reduces only over the k axis
+    whole_model: bool = False         # one whole-model merge and cache entry
     cfg_schema: Optional[Dict[str, Tuple[type, Any]]] = None
     fold: Optional[LeafFold] = None
 
@@ -153,16 +156,7 @@ def register(strategy: Strategy) -> Strategy:
     return strategy
 
 
-# the reference's whole-model strategies (population search, SVD), not
-# ported yet
-WHOLE_MODEL = ("adarank", "evolutionary_merge", "genetic_merge", "star",
-               "svd_knot_tying")
-
-
 def get_strategy(name: str) -> Strategy:
-    if name in WHOLE_MODEL:
-        raise KeyError(f"strategy {name!r} is a whole-model strategy, not "
-                       "ported yet (ROADMAP A3.6)")
     if name not in REGISTRY:
         raise KeyError(f"unknown strategy {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]

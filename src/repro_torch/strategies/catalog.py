@@ -1,6 +1,6 @@
-"""The ported strategies of `repro.strategies.catalog`, in PyTorch.
+"""The 26 strategies of `repro.strategies.catalog`, in PyTorch.
 
-The 21 per-leaf strategies of the reference's 26: the linear family
+The linear family
 (weight_average, linear, task_arithmetic, negative_merge) with their
 LeafFolds; fisher_merge, dam, ada_merging, regression_mean; ties with
 both trims (the exact quantile and the 512-bucket histogram); the DARE
@@ -9,8 +9,8 @@ family (dare, dare_ties, della), whose masks come from
 model_breadcrumbs, emr, safe_merge, split_unlearn_merge; and the
 geometry strategies slerp (binary-only: the engine folds k > 2),
 dual_projection, representation_surgery, weight_scope_alignment and
-led_merge. The five whole-model strategies wait for ROADMAP A3.6;
-`get_strategy` names it.
+led_merge; and the five whole-model strategies: star, svd_knot_tying
+and adarank (SVD), evolutionary_merge and genetic_merge (search).
 
 Conventions: `s` is the stacked contributions [k, ...]; `b` the base
 parameters (zeros for raw tensor audits); tau = s - b.
@@ -38,7 +38,15 @@ be held bitwise against the reference where the op order is pinned:
   * random masks are drawn one contribution (row) at a time, in slices
     of the flat index, so a [k, 805M] leaf never holds its 64-bit
     counters at once; element i of a draw depends only on the key and
-    i, so the slices equal the whole draw.
+    i, so the slices equal the whole draw;
+  * `jnp.median` is `kernels.quantile.median_axis0` / `median_flat`
+    (bitwise); `jnp.linalg.svd` is `torch.linalg.svd`, used only in
+    sign-invariant products, so the SVD strategies are held to a
+    tolerance; on CUDA the driver is pinned (`_svd`);
+  * the search strategies' weights and grids are in JAX's default float
+    type (fp32, float64 for float64 data), so bf16 leaves merge to fp32
+    as in the reference; their fitness sums run over column chunks in
+    torch's order, so a near-tie may pick another candidate than JAX.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ import numpy as np
 import torch
 
 from repro_torch import random as prng
-from repro_torch.kernels.quantile import quantile_rows, weak_float
+from repro_torch.kernels.quantile import median_axis0, median_flat, \
+    quantile_rows, weak_float
 from repro_torch.strategies.base import LeafFold, leafwise, register, \
     run_fold, Strategy
 
@@ -499,16 +508,200 @@ def _led_merge(s, b, beta=5.0, gamma=0.7, **kw):
         + _const(1.0 - gamma, dom) * _kmean(tau)
 
 
+def _svd(m: torch.Tensor):
+    """`jnp.linalg.svd(m, full_matrices=False)`. On CUDA the driver is
+    pinned to cuSOLVER's gesvd: torch's default there (gesvdj) was off
+    by ~9e-4 relative in fp32 and refused a 16 x 25M matrix on the H100,
+    where gesvd is byte-identical run to run (PERF.md §7). Half
+    precision raises, as `jnp.linalg.svd` does."""
+    if m.dtype in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(f"SVD of {m.dtype} is not implemented "
+                                  "(the reference's raises too)")
+    if m.is_cuda:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        return torch.linalg.svd(m, full_matrices=False, driver="gesvd")
+    return torch.linalg.svd(m, full_matrices=False)
+
+
+def _rank_cut(keep_frac: float, n: int, dtype: torch.dtype) -> int:
+    """`max(1, int(jnp.floor(keep_frac * n)))`: the product rounded to
+    JAX's default float type first."""
+    return max(1, int(np.floor(weak_float(dtype)(keep_frac * n))))
+
+
+def _star(s, b, keep_frac=0.75, **kw):
+    tau = _kmean(s - b)
+    if tau.dim() < 2:
+        return b + tau
+    u, sv, vt = _svd(tau.reshape(tau.shape[0], -1))
+    r = _rank_cut(keep_frac, sv.shape[0], sv.dtype)
+    kept = sv * (torch.arange(sv.shape[0], device=sv.device) < r).to(
+        sv.dtype)
+    scale = _sum(sv) / (_sum(kept) + _const(EPS, sv))  # nuclear norm
+    recon = (u * (kept * scale)) @ vt
+    return b + recon.reshape(tau.shape)
+
+
+def _adarank(s, b, keep_frac=0.5, **kw):
+    tau = _kmean(s - b)
+    if tau.dim() < 2:
+        return b + tau
+    u, sv, vt = _svd(tau.reshape(tau.shape[0], -1))
+    r = _rank_cut(keep_frac, sv.shape[0], sv.dtype)
+    kept = sv * (torch.arange(sv.shape[0], device=sv.device) < r).to(
+        sv.dtype)
+    return b + ((u * kept) @ vt).reshape(tau.shape)
+
+
+def _project(ur: torch.Tensor, x: torch.Tensor, vtr: torch.Tensor
+             ) -> torch.Tensor:
+    """ur.T @ x @ vtr.T, the smaller [r, .] intermediate first, so no
+    [rows, cols]-sized temporary is made beside x."""
+    if x.shape[1] <= x.shape[0]:
+        return (ur.T @ x) @ vtr.T
+    return ur.T @ (x @ vtr.T)
+
+
+def _svd_knot_tying(s, b, keep_frac=0.5, **kw):
+    """Tie later contributions into the FIRST contribution's dominant
+    singular subspace; its out-of-subspace residual is kept."""
+    tau = s - b
+    k = tau.shape[0]
+    if tau.dim() >= 3:                       # [k, rows, cols]
+        flat = tau.reshape(k, tau.shape[1], -1)
+        u, sv, vt = _svd(flat[0])
+        r = _rank_cut(keep_frac, sv.shape[0], sv.dtype)
+        ur, vtr = u[:, :r], vt[:r, :]
+        # jnp.einsum("ir,krc,jc->kij", ur.T, flat, vtr), one
+        # contribution at a time
+        coeff = torch.stack([_project(ur, flat[j], vtr) for j in range(k)])
+        # recon + resid, one [rows, cols] temporary at a time
+        out = flat[0] - (ur @ coeff[0]) @ vtr
+        out += (ur @ _kmean(coeff)) @ vtr
+        return b + out.reshape(tau.shape[1:])
+    # 1-D: dominant-coordinate mask from the first contribution
+    flat = tau.reshape(k, -1)
+    a0 = flat[0].abs()
+    mask = (a0 >= median_flat(a0)).to(flat.dtype)
+    merged = _kmean(flat) * mask + flat[0] * (_const(1.0, mask) - mask)
+    return b + merged.reshape(tau.shape[1:])
+
+
+# ---------------------------------------------------------------- search ---
+
+
+def _default_float(dtype: torch.dtype) -> torch.dtype:
+    """JAX's default float type (`jnp.full(..., 1.0 / k)`, `linspace` of
+    Python floats): fp32, or float64 under x64, for which float64 data
+    stands here."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+# columns per chunk of a fitness pass (bounds its [pop, chunk] temporary)
+_FIT_CHUNK = 1 << 22
+
+
+def _row_chunks(tau: torch.Tensor, dtype: torch.dtype):
+    for c in range(0, tau.shape[1], _FIT_CHUNK):
+        yield c, tau[:, c:c + _FIT_CHUNK].to(dtype)
+
+
+def _weighted(w: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """`w @ tau` of [k] weights and a [k, n] stack in w's dtype, one
+    column chunk at a time."""
+    out = torch.empty(tau.shape[1], dtype=w.dtype, device=tau.device)
+    for c, t in _row_chunks(tau, w.dtype):
+        out[c:c + t.shape[1]] = (w[None, :] @ t)[0]
+    return out
+
+
+def _evolutionary_merge(s, b, key, pop=16, gens=3, sigma=0.3, **kw):
+    """Population search over (unnormalised) mixing weights, in tau's
+    dtype (`jnp.full`'s 1/k is weakly typed, so it takes tau's dtype).
+    The reference's vmap over the pop candidates is one [pop, k] x [k,
+    chunk] product per column chunk, the squares summed in `jnp.sum`'s
+    accumulation type; argmax takes the first maximum."""
+    tau = _fl(s - b)
+    k = tau.shape[0]
+    med = median_axis0(tau)
+    wdt = tau.dtype
+    best_w = torch.full((k,), 1.0 / k, dtype=_default_float(wdt),
+                        device=tau.device).to(wdt)
+    for g in range(gens):
+        key, sub = prng.split(key)
+        noise = prng.normal(sub, (pop, k), wdt, device=tau.device)
+        cands = best_w[None, :] + _const(sigma * (0.5 ** g), noise) * noise
+        sq = torch.zeros(pop, dtype=_acc_dtype(wdt), device=tau.device)
+        for c, t in _row_chunks(tau, wdt):
+            d = cands @ t - med[c:c + t.shape[1]]
+            sq += (d * d).sum(dim=1, dtype=sq.dtype)
+        best_w = cands[int(torch.argmax(-sq.to(wdt)))]
+    return b + _weighted(best_w, tau).reshape(s.shape[1:])
+
+
+def _linspace(lo: torch.Tensor, hi: torch.Tensor, num: int
+              ) -> torch.Tensor:
+    """`jnp.linspace(lo, hi, num)` of 0-dim fp32 / float64 tensors, bit
+    for bit with XLA's CPU code: step i * (1 / div) and 1 - step folded
+    into constants, hi * (1 / div) hoisted, then point i = fma(i, hi /
+    div, lo * (1 - step_i)) (point 1: fma(lo, 1 - step_1, hi / div),
+    point 0: lo), and hi last."""
+    if num == 1:
+        return lo.reshape(1)
+    div = num - 1
+    one = torch.ones((), dtype=lo.dtype, device=lo.device)
+    inv = one / torch.tensor(float(div), dtype=lo.dtype, device=lo.device)
+    h = hi * inv
+    pts = [lo]
+    for i in range(1, div):
+        fi = torch.tensor(float(i), dtype=lo.dtype, device=lo.device)
+        sub = one - fi * inv
+        pts.append(prng.fma(lo, sub, h) if i == 1
+                   else prng.fma(fi, h, lo * sub))
+    pts.append(hi)
+    return torch.stack(pts)
+
+
+def _genetic_merge(s, b, grid=11, gens=3, reg=0.05, **kw):
+    """Deterministic generational search over a scalar coefficient
+    alpha: a linspace grid per generation, each [grid] fitness vector in
+    one pass over column chunks; argmax takes the first maximum."""
+    tau = _fl(s - b)
+    mu = _kmean(tau)
+    med = median_axis0(tau)
+    fdt = _default_float(tau.dtype)
+    wdt = torch.promote_types(fdt, tau.dtype)
+    msq = _sum(mu * mu)                     # jnp.sum(mu ** 2), mu's dtype
+    lo = torch.tensor(0.5, dtype=fdt, device=tau.device)
+    hi = torch.tensor(1.5, dtype=fdt, device=tau.device)
+    alpha = None
+    for g in range(gens):
+        cands = _linspace(lo, hi, grid)
+        sq = torch.zeros(grid, dtype=wdt, device=tau.device)
+        for c in range(0, mu.shape[0], _FIT_CHUNK):
+            d = cands[:, None].to(wdt) * mu[None, c:c + _FIT_CHUNK].to(wdt) \
+                - med[None, c:c + _FIT_CHUNK].to(wdt)
+            sq += (d * d).sum(dim=1)
+        am1 = cands - _const(1.0, cands)
+        pen = _const(reg, cands) * (am1 * am1)
+        fits = -(sq + (pen.to(wdt) * msq.to(wdt)))
+        alpha = cands[int(torch.argmax(fits))]
+        span = (hi - lo) / torch.tensor(4.0, dtype=fdt, device=tau.device)
+        lo, hi = alpha - span, alpha + span
+    merged = alpha.to(wdt) * mu.to(wdt)
+    return b + merged.reshape(s.shape[1:])
+
+
 # ------------------------------------------------------------------ registry
 
 
 def _reg(name, leaf_fn, *, schema, needs_key=False, binary_only=False,
-         elementwise=False, fold=None, **defaults):
+         elementwise=False, whole_model=False, fold=None, **defaults):
     register(Strategy(name=name, fn=leafwise(leaf_fn, needs_key=needs_key),
                       binary_only=binary_only, defaults=defaults,
                       leaf_fn=leaf_fn, needs_key=needs_key,
-                      elementwise=elementwise, cfg_schema=dict(schema),
-                      fold=fold))
+                      elementwise=elementwise, whole_model=whole_model,
+                      cfg_schema=dict(schema), fold=fold))
 
 
 # `schema` mirrors the reference's declaration exactly — names, types
@@ -539,12 +732,23 @@ _reg("model_breadcrumbs", _model_breadcrumbs,
 _reg("emr", _emr, schema={"trim": (float, 0.1)})
 _reg("safe_merge", _safe_merge, schema={"k_sigma": (float, 6.0)})
 _reg("split_unlearn_merge", _split_unlearn_merge, schema={})
+_reg("star", _star, whole_model=True, schema={"keep_frac": (float, 0.75)})
 
 _reg("slerp", _slerp, binary_only=True, schema={"t": (float, 0.5)})
 _reg("dual_projection", _dual_projection,
      schema={"gamma": (float, 0.5), "eps": (float, 1e-12)})
+_reg("svd_knot_tying", _svd_knot_tying, whole_model=True,
+     schema={"keep_frac": (float, 0.5)})
 _reg("representation_surgery", _representation_surgery,
      schema={"eps": (float, 1e-8)})
 _reg("weight_scope_alignment", _weight_scope_alignment, schema={})
 _reg("led_merge", _led_merge, schema={"beta": (float, 5.0),
                                       "gamma": (float, 0.7)})
+_reg("adarank", _adarank, whole_model=True,
+     schema={"keep_frac": (float, 0.5)})
+
+_reg("evolutionary_merge", _evolutionary_merge, needs_key=True,
+     whole_model=True,
+     schema={"pop": (int, 16), "gens": (int, 3), "sigma": (float, 0.3)})
+_reg("genetic_merge", _genetic_merge, whole_model=True,
+     schema={"grid": (int, 11), "gens": (int, 3), "reg": (float, 0.05)})

@@ -40,6 +40,12 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                bits, also with calls of another shape between them (the
                decode tickets reset); the smoke model's greedy decode on
                the card gives the CPU's tokens in fp32
+  whole-model  `random.split` / `normal` on the card equal the CPU's
+               (bitwise), the medians on the card equal the CPU's
+               (bitwise: ties, +-0, NaN), the five whole-model
+               strategies on the card within `WHOLE_TOL` of the CPU's
+               (the SVD runs in cuSOLVER there, in LAPACK here), and two
+               runs of each SVD strategy on the card give equal bytes
 """
 import numpy as np
 import pytest
@@ -599,3 +605,77 @@ def test_cuda_smoke_model_greedy_decode_equals_cpu():
                         batch, 8)
     assert flash_attention.launches - before == cfg.n_layers * 9
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------------ whole-model ---
+
+from repro_torch import random as prng  # noqa: E402
+from repro_torch.core.resolve import reference_apply  # noqa: E402
+from repro_torch.kernels.quantile import median_axis0, median_flat  # noqa
+
+WHOLE = ("star", "svd_knot_tying", "adarank", "evolutionary_merge",
+         "genetic_merge")
+# card against CPU, relative to the output's magnitude: cuSOLVER's gesvd
+# against LAPACK (fp32 reconstruction errors ~1e-5 relative on the H100)
+WHOLE_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_split_and_normal_equal_cpu(dtype):
+    for seed in range(8):
+        key = prng.fold_in(prng.PRNGKey(seed), 3)
+        assert prng.split(key, 3) == tuple(prng.split(key, 3))
+        got = prng.normal(key, (16, 4), dtype, device="cuda")
+        want = prng.normal(key, (16, 4), dtype, device="cpu")
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+        u = prng.uniform(key, (3, 1001), dtype, device="cuda",
+                         minval=-0.7, maxval=2.5)
+        assert torch.equal(u.cpu(), prng.uniform(
+            key, (3, 1001), dtype, device="cpu", minval=-0.7, maxval=2.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+def test_cuda_median_equals_cpu(dtype, k):
+    rng = np.random.default_rng(k)
+    a = rng.standard_normal((k, 5000))
+    a[:, :100] = np.round(a[:, :100])
+    a[rng.random((k, 5000)) < 0.1] = -0.0
+    a[0, 7] = np.nan
+    x = torch.tensor(a, dtype=dtype)
+    got, want = median_axis0(x.cuda()).cpu(), median_axis0(x)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[~got.isnan()].view(torch.uint8),
+                       want[~want.isnan()].view(torch.uint8))
+    row = x[-1].abs()                 # k = 1: the row with the NaN
+    got, want = median_flat(row.cuda()).cpu(), median_flat(row)
+    assert torch.equal(got.reshape(1).view(torch.uint8),
+                       want.reshape(1).view(torch.uint8))
+
+
+def _whole_inputs(dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(shape)
+    cs = [base + 0.1 * rng.standard_normal(shape) for _ in range(4)]
+    return [torch.tensor(c, dtype=dtype) for c in cs], \
+        torch.tensor(base, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(37,), (96, 80), (6, 40, 33)], ids=str)
+@pytest.mark.parametrize("name", WHOLE)
+def test_cuda_whole_model_strategies_near_cpu(name, shape, dtype):
+    cs, base = _whole_inputs(dtype, shape, seed=len(shape))
+    want = reference_apply(name, cs, base=base, seed=5)
+    got = reference_apply(name, [c.cuda() for c in cs], base=base.cuda(),
+                          seed=5)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= WHOLE_TOL[dtype] * scale
+    again = reference_apply(name, [c.cuda() for c in cs], base=base.cuda(),
+                            seed=5)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))

@@ -439,11 +439,10 @@ def test_slerp_wrappers_refuse_bad_operands():
 
 
 def test_registry_covers_the_per_leaf_catalog():
-    assert len(list_strategies()) == 21
+    assert len(list_strategies()) == 26
     assert set(NEW) <= set(list_strategies())
-    for name in WHOLE_MODEL:
-        with pytest.raises(KeyError, match="ROADMAP A3.6"):
-            get_strategy(name)
+    for name in list_strategies():
+        assert get_strategy(name).whole_model == (name in WHOLE_MODEL)
     assert get_strategy("slerp").binary_only
     assert get_strategy("fisher_merge").batchable
     for name in NEW:

@@ -88,8 +88,13 @@ def test_spec_validation_matches_reference():
             JSpec("ties", bad)
         with pytest.raises(SpecError):
             MergeSpec("ties", bad)
-    with pytest.raises(KeyError, match="ROADMAP A3.6"):
-        MergeSpec("star")
+    # the whole-model strategies validate as the reference's do
+    for bad in ({"keep_frac": "x"}, {"pop": 1.5}):
+        name = "star" if "keep_frac" in bad else "evolutionary_merge"
+        with pytest.raises(JSpecError):
+            JSpec(name, bad)
+        with pytest.raises(SpecError):
+            MergeSpec(name, bad)
 
 
 @pytest.mark.parametrize("with_base", [False, True])
@@ -212,17 +217,24 @@ def test_kernel_outputs_never_enter_the_cache():
 
 
 def test_unported_paths_raise():
+    """What still raises: an absent payload (fetch-on-resolve, A6) and
+    sparse contributions (A4), on the plain, gated and hierarchical
+    paths alike."""
     cs, _ = _contribs(seed=6)
     tc = [convert.from_numpy_tree(c, "cpu") for c in cs]
-    with pytest.raises(KeyError, match="ROADMAP A3.6"):
-        get_strategy("svd_knot_tying")
+    assert get_strategy("svd_knot_tying").whole_model
     rep = Replica("r", device="cpu")
     for c in tc:
         rep.contribute(c)
-    with pytest.raises(NotImplementedError, match="A1"):
+    stored = dict(rep.state.store)
+    rep.state.store.pop(sorted(stored)[0])
+    with pytest.raises(KeyError, match="A6"):
+        rep.resolve(MergeSpec("svd_knot_tying"))
+    rep.state.store.update(stored)
+    rep.add({"emb": tc[0]["emb"]}, leaves=["['emb']"])
+    with pytest.raises(NotImplementedError, match="A4"):
         rep.resolve(MergeSpec("ties", trust_threshold=0.5))
     with pytest.raises(NotImplementedError, match="A4"):
         rep.resolve(MergeSpec("ties", group_size=2))
-    rep.add({"emb": tc[0]["emb"]}, leaves=["['emb']"])
     with pytest.raises(NotImplementedError, match="A4"):
         rep.resolve(MergeSpec("weight_average"))
