@@ -30,6 +30,27 @@ before it and read just after:
   search  genetic_merge and evolutionary_merge through `engine.merge(...,
           contrib_ids=...)` on the same bf16 contributions at full
           depth: whole-model strategies, no kernel (0 launches).
+  sparse  benchmarks/bench_sparse.py's adapter update at full width: S,
+          base + 0.1 x a seeded delta on the four attention projections
+          (1,207,959,552 parameters), lands on replica A, which resolved
+          weight_average over the K dense contributions: the warm
+          re-resolve runs exactly the 4 attention leaves (fold
+          resumptions) and hits the cache on the other 8, bitwise the
+          cold resolve and replica B's (reverse order). Then
+          `engine.merge(..., coverages=..., kernels=True)` over the K
+          dense contributions and S: B1 and B3-B5 launch on fused groups
+          of K + 1 rows (attention) and K rows (the rest) in one merge.
+
+The consortium (`[gossip]`, full width) runs after the main paths: 8
+gossip nodes on the card with delta gossip, an attention update each and
+the main path's first two fine-tunes on nodes 0 and 1 (every payload one
+tensor shared by all stores); partitioned in two halves a round leaves 2
+roots, healed 1; every node resolves weight_average to node 0's bytes,
+and nodes 0 and 7 histogram TIES to each other's. Last, the paper's
+Tables 6-9 (benchmarks/bench_gossip.py --full: 100 nodes at 512^2 over
+20 orderings, 10 partitions healing, 26 of 26 strategies at 10 nodes,
+2-50 nodes and epidemic gossip) on the card, every node's output
+byte-identical; no merge kernel runs there, as in the reference.
 
 The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 16 of
 its 32 layers, fp32 (five fp32 models at 32 layers would take 76.4 GB;
@@ -47,7 +68,9 @@ CPU at 512^2.
 
 At depth 2 it holds the kernel routes against the exact routes
 (`Replica.resolve`, and the exact path over the same int8 payloads),
-the per-leaf slerp and quantile-TIES kernels against `Replica.resolve`
+the sparse kernel routes against the exact path, which must be bitwise
+`sparse_reference_apply` (and, over fp32 copies, the CPU's), the
+per-leaf slerp and quantile-TIES kernels against `Replica.resolve`
 (slerp at k = 2, and at k = 4 folded in sequence and as a tree, each
 also over fp32 copies against `reference_apply`), and the exact DARE
 path's threefry draw on the card against the CPU's, and the served
@@ -61,13 +84,20 @@ Needs CUDA, the CUDA toolkit's `nvcc`, and the repository's `src/`.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import torch
+# one device pool that grows in place: the sparse re-resolve's cache
+# (every leaf's output and fp32 fold accumulator, 23 GB) beside the five
+# models left 9 GB of a segmented pool in fragments and ran out
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -268,11 +298,13 @@ def flash_instances(log_text: str) -> None:
             raise AssertionError(f"{name} has no tensor-core instruction")
 
 
-def main_path_lengths(cfg, itemsize: int = 2) -> list:
-    """Leaf lengths of the largest fused batch the engine dispatches for
-    this model at k = K, from the engine's own packing rule, with every
-    contribution priced at `itemsize` bytes per element (2: bf16; 1:
-    int8 payloads)."""
+def main_path_lengths(cfg, itemsize: int = 2, k: int = K) -> list:
+    """Leaf lengths of the largest fused batch of k contributions the
+    engine dispatches for this model, from the engine's own packing
+    rule, with every contribution priced at `itemsize` bytes per element
+    (2: bf16; 1: int8 payloads). k = K: the dense plan; k = K + 1: the
+    sparse path's plan, where the adapter update covers the attention
+    leaves (k_i = K + 1 there, K elsewhere)."""
     from repro_torch.core.engine import _dispatch_groups, LeafTask
     from repro_torch.models.model import Model
     from repro_torch.models.schema import schema_leaves
@@ -282,24 +314,27 @@ def main_path_lengths(cfg, itemsize: int = 2) -> list:
         n = 1
         for d in pdef.shape:
             n *= d
+        ki = K + 1 if k > K and path in SPARSE_LEAVES else K
         tasks.append(LeafTask(index=i, path=path, sub_root=b"",
                               shape=pdef.shape, dtype=torch.bfloat16,
-                              stacked_nbytes=K * n * itemsize,
-                              contributors=tuple(range(K))))
+                              stacked_nbytes=ki * n * itemsize,
+                              contributors=tuple(range(ki))))
     groups = _dispatch_groups(get_strategy("weight_average"), tasks,
                               max(t.stacked_nbytes for t in tasks))
-    big = max((g for g in groups if len(g) > 1),
+    big = max((g for g in groups if len(g) > 1 and g[0].k == k),
               key=lambda g: sum(t.stacked_nbytes for t in g))
-    return [t.stacked_nbytes // (K * itemsize) for t in big]
+    return [t.stacked_nbytes // (k * itemsize) for t in big]
 
 
 def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
                   ops, src: str, replaces: str, library=None,
-                  library_note: str = "") -> None:
+                  library_note: str = "", into: str = "") -> None:
     """One kernel against its plain version (bitwise), then timed: median
     of 10 CUDA-event-timed launches, the plain version's of 3, and the
     one PyTorch call computing the same function (`library`), where
-    there is one, of 10; else `library_note` says why there is none."""
+    there is one, of 10; else `library_note` says why there is none.
+    `into` files the numbers under that key of the kernel's row (a
+    second shape of the same kernel) instead of making the row."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     same = torch.equal(got, want)
@@ -316,13 +351,20 @@ def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
     plain_ms = cuda_ms(plain, 3)
     lib_ms = cuda_ms(library, 10) if library is not None else None
     bms, by, t_bytes, t_ops = bound_ms(nbytes, ops)
-    rows[name] = {"name": name, "route": "cuda", "source": src,
-                  "replaces": replaces, "max_abs_err": err, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                  "library_ms": lib_ms}
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib_ms}
     if library is None:
-        rows[name]["library_note"] = library_note
-    log(f"[kernels] {name}: bitwise equal to plain; {ms:.3f} ms "
+        row["library_note"] = library_note
+    if into:
+        rows[name][into] = {k: row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    else:
+        rows[name] = row
+    log(f"[kernels] {name}{f' ({into})' if into else ''}: bitwise equal "
+        f"to plain; {ms:.3f} ms "
         f"(bound {bms:.3f} ms by {by}: {nbytes / 1e9:.2f} GB in "
         f"{t_bytes:.3f} ms, operations {t_ops:.3f} ms; "
         f"{nbytes / ms / 1e6:.0f} GB/s); plain "
@@ -331,89 +373,112 @@ def hold_and_time(rows: dict, name: str, kern, plain, nbytes: float,
            f"none ({library_note})"))
 
 
-def phase_kernels(cfg) -> dict:
-    """Each kernel against its plain version on one fused batch of the
-    main path: bf16 rows for B1, B3-B6 (as the engine dispatches them),
-    int8 rows for B2."""
-    from repro_torch.kernels import dare as D
+def merge_batch(cfg, k: int, g) -> dict:
+    """One fused bf16 batch of k rows at the engine's largest batch of k
+    contributions (`main_path_lengths`), with the per-tile metadata B1
+    and B3-B6 take, and the linear-family and histogram-TIES cases:
+    name -> (kernel, plain version, bytes, operations, source, the TPU
+    kernel it replaces), plus B1's library call."""
     from repro_torch.kernels import histogram as H
     from repro_torch.kernels import nary_accum as N
-    from repro_torch.kernels import quant as Q
-    from repro_torch.kernels.common import padded_len
     from repro_torch.kernels.config import kernel_env
     dev = torch.device(DEVICE)
     block, bins = kernel_env.block, kernel_env.hist_bins
-    lengths = main_path_lengths(cfg)
+    lengths = main_path_lengths(cfg, k=k)
     leaf_id, valid, npad = H.batch_layout(lengths, block)
     nb = len(leaf_id)
-    g = torch.Generator(device=dev).manual_seed(SEED + 100)
-    x = (torch.randn((K, npad), generator=g, device=dev) * 0.02).to(
+    x = (torch.randn((k, npad), generator=g, device=dev) * 0.02).to(
         torch.bfloat16)
     base = torch.randn((npad,), generator=g, device=dev) * 0.02
-    w = torch.full((K,), 1.0 / K, device=dev)
+    w = torch.full((k,), 1.0 / k, device=dev)
     log(f"[kernels] bf16 batch of {len(lengths)} leaves {lengths}: "
-        f"stacked [{K}, {npad}] bf16, {nb} tiles of {block}")
+        f"stacked [{k}, {npad}] bf16, {nb} tiles of {block}")
     lid = torch.tensor(leaf_id, device=dev)
     vld = torch.tensor(valid, dtype=torch.int32, device=dev)
     bmax = H.block_amax_plain(x, base, block)
     amax_meta = (torch.stack([bmax[lid == j].amax(dim=0)
                               for j in range(len(lengths))])[lid]
                  + 1e-12).contiguous()
+    del bmax
     thr_meta = (amax_meta * 0.3).contiguous()
-    # (leaf seed, leaf padded length, start column) per tile, as the
-    # engine builds them; seeds near the uint32 wrap
-    dmeta = torch.cat([D.leaf_meta(2 ** 32 - 1 - j, padded_len(n, block),
-                                   block, device=dev)
-                       for j, n in enumerate(lengths)])
-    xe = K * npad * 2                       # stacked bytes (bf16)
-    rows: dict = {}
+    xe = k * npad * 2                       # stacked bytes (bf16)
     # B1's library call: one addmm over an fp32 copy of the stack,
     # base * (1 - sum w) + w @ x = base + sum_i w_i (x_i - base) (cuBLAS
     # takes no bf16 rows into an fp32 result)
-    xf = x.to(torch.float32)
-    beta = 1.0 - float(w.sum())
-    cases = {
+    b = {"x": x, "base": base, "w": w, "lengths": lengths, "npad": npad,
+         "nb": nb, "block": block, "xf": x.to(torch.float32),
+         "beta": 1.0 - float(w.sum())}
+    b["library"] = {"nary_accum": lambda: torch.addmm(
+        base, w[None], b["xf"], beta=b["beta"])}
+    b["cases"] = {
         "nary_accum": (lambda: N.nary_accum(x, base, w),
                        lambda: N.nary_accum_plain(x, base, w),
-                       xe + npad * 4 * 2 + K * 4, 3 * K * npad + npad,
+                       xe + npad * 4 * 2 + k * 4, 3 * k * npad + npad,
                        "src/repro_torch/csrc/nary_accum.cu",
                        "src/repro/kernels/nary_accum.py:35"),
         "block_amax": (lambda: H.block_amax(x, base, block),
                        lambda: H.block_amax_plain(x, base, block),
-                       xe + npad * 4 + nb * K * 4, 3 * K * npad,
+                       xe + npad * 4 + nb * k * 4, 3 * k * npad,
                        "src/repro_torch/csrc/histogram.cu",
                        "src/repro/kernels/histogram.py:99"),
         "block_hist": (lambda: H.block_hist(x, base, amax_meta, vld, bins,
                                             block),
                        lambda: H.block_hist_plain(x, base, amax_meta, vld,
                                                   bins, block),
-                       xe + npad * 4 + nb * K * 4 + nb * 4
-                       + nb * K * bins * 4, 6 * K * npad,
+                       xe + npad * 4 + nb * k * 4 + nb * 4
+                       + nb * k * bins * 4, 6 * k * npad,
                        "src/repro_torch/csrc/histogram.cu",
                        "src/repro/kernels/histogram.py:118"),
         "ties_block": (lambda: H.ties_block(x, base, thr_meta, block),
                        lambda: H.ties_block_plain(x, base, thr_meta, block),
-                       xe + npad * 4 * 2 + nb * K * 4, 12 * K * npad,
+                       xe + npad * 4 * 2 + nb * k * 4, 12 * k * npad,
                        "src/repro_torch/csrc/histogram.cu",
                        "src/repro/kernels/histogram.py:141"),
-        # per stacked element: the hash (~17 int32 ops: index, 3
-        # multiplies, 3 shifts, 4 xors, convert, scale, compare) and 4
-        # fp32 ops (sub, 2 mul, add); per column a multiply and an add
-        "dare_block": (lambda: D.dare_block(x, base, dmeta, DARE_P, block),
-                       lambda: D.dare_block_plain(x, base, dmeta, DARE_P,
-                                                  block),
-                       xe + npad * 4 * 2 + nb * 3 * 4,
-                       (4 * K * npad + 2 * npad, 17 * K * npad),
-                       "src/repro_torch/csrc/dare.cu",
-                       "src/repro/kernels/dare.py:45"),
     }
-    library = {"nary_accum": lambda: torch.addmm(base, w[None], xf,
-                                                 beta=beta)}
-    for name, (kern, plain, nbytes, ops, src, replaces) in cases.items():
+    return b
+
+
+def hold_batch(rows: dict, b: dict, into: str = "") -> None:
+    for name, (kern, plain, nbytes, ops, src, replaces) in \
+            b["cases"].items():
         hold_and_time(rows, name, kern, plain, nbytes, ops, src, replaces,
-                      library=library.get(name),
-                      library_note=NO_LIBRARY.get(name, ""))
-    del xf, library
+                      library=b["library"].get(name),
+                      library_note=NO_LIBRARY.get(name, ""), into=into)
+
+
+def phase_kernels(cfg) -> dict:
+    """Each kernel against its plain version on one fused batch of the
+    main path: bf16 rows for B1, B3-B6 (as the engine dispatches them),
+    int8 rows for B2; B1 and B3-B5 also on the sparse path's batch of
+    K + 1 rows (the attention leaves the adapter update covers)."""
+    from repro_torch.kernels import dare as D
+    from repro_torch.kernels import histogram as H
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels.common import padded_len
+    from repro_torch.kernels.config import kernel_env
+    dev = torch.device(DEVICE)
+    block, bins = kernel_env.block, kernel_env.hist_bins
+    g = torch.Generator(device=dev).manual_seed(SEED + 100)
+    b = merge_batch(cfg, K, g)
+    x, base, w, lengths = b["x"], b["base"], b["w"], b["lengths"]
+    npad, nb = b["npad"], b["nb"]
+    # (leaf seed, leaf padded length, start column) per tile, as the
+    # engine builds them; seeds near the uint32 wrap
+    dmeta = torch.cat([D.leaf_meta(2 ** 32 - 1 - j, padded_len(n, block),
+                                   block, device=dev)
+                       for j, n in enumerate(lengths)])
+    # per stacked element: the hash (~17 int32 ops: index, 3 multiplies,
+    # 3 shifts, 4 xors, convert, scale, compare) and 4 fp32 ops (sub, 2
+    # mul, add); per column a multiply and an add
+    b["cases"]["dare_block"] = (
+        lambda: D.dare_block(x, base, dmeta, DARE_P, block),
+        lambda: D.dare_block_plain(x, base, dmeta, DARE_P, block),
+        K * npad * 2 + npad * 4 * 2 + nb * 3 * 4,
+        (4 * K * npad + 2 * npad, 17 * K * npad),
+        "src/repro_torch/csrc/dare.cu", "src/repro/kernels/dare.py:45")
+    rows: dict = {}
+    hold_batch(rows, b)
+    b.clear()
     # B3 keeps a NaN, as jnp.max does (fmaxf alone would drop it)
     xn = torch.zeros((K, 2 * block), dtype=torch.bfloat16, device=dev)
     xn[2, block + 7] = float("nan")
@@ -444,7 +509,12 @@ def phase_kernels(cfg) -> dict:
                              f"{1 - DARE_P} within 1e-3")
     log(f"[kernels] dare_block kept share {kept:.6f} (1 - p = "
         f"{1 - DARE_P}; limit 1e-3)")
-    del x, out, amax_meta, thr_meta, bmax
+    del x, out
+    torch.cuda.empty_cache()
+    # the sparse path's k = K + 1 batch (two attention leaves)
+    b = merge_batch(cfg, K + 1, g)
+    hold_batch(rows, b, into=f"k{K + 1}")
+    b.clear()
     torch.cuda.empty_cache()
     # B2 on the largest int8 batch (int8 pricing halves the cap and the
     # leaves alike)
@@ -685,7 +755,63 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                             "nary_accum"),
                 "int8": ("quant_nary",),
                 "search": (),
+                "sparse": ("nary_accum", "block_amax", "block_hist",
+                           "ties_block"),
+                "gossip": (),
                 "serve": ("flash_attention",)}
+# the sparse path's adapter update: Phi-3-mini's four attention
+# projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
+SPARSE_LEAVES = tuple(f"['blocks']['sub0']['attn']['{w}']"
+                      for w in ("wk", "wo", "wq", "wv"))
+
+
+def sparse_eid(layers: int) -> str:
+    """The update's element id (one per depth: an eid names one
+    content). A pinned sort prefix puts it last in the canonical order
+    (as benchmarks/bench_sparse.py pins its eids), so the re-resolve
+    extends each attention leaf's cached fold by one contribution."""
+    tag = f"sparse adapter update, {layers} layers".encode()
+    return "ff" + hashlib.sha256(tag).hexdigest()[:62]
+
+
+# the re-resolve's cache holds every leaf's output and fp32 fold
+# accumulator: 3.82e9 parameters x (2 + 4) bytes, and S's four leaves
+SPARSE_CACHE_BYTES = 40 * 10 ** 9
+# the consortium: nodes, and each node's update under a fixed eid
+CONSORTIUM = 8
+
+
+def consortium_eid(i: int) -> str:
+    return hashlib.sha256(f"consortium update {i}".encode()).hexdigest()
+
+
+# the paper's Tables 6-9 at benchmarks/bench_gossip.py --full sizes
+T6_NODES, T6_SIDE, T6_ORDERINGS = 100, 512, 20
+T7_NODES, T7_SIDE, T7_PARTS = 100, 64, 10
+T8_NODES, T8_SIDE = 10, 64
+T9_SIZES, T9_SIDE = (2, 5, 10, 20, 30, 50), 64
+
+
+def sparse_update(cfg, base, seed: int) -> dict:
+    """An adapter update of the attention leaves by `make_models`'
+    recipe: base + 0.1 x a delta drawn as the schema initialises those
+    leaves from `seed`, in bf16 on the device."""
+    from repro_torch import pytree
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    attn = Model(cfg).schema()["blocks"]["sub0"]["attn"]
+    delta = init_from_schema({"blocks": {"sub0": {"attn": attn}}},
+                             seed=seed, device=DEVICE,
+                             dtype=base["embed"].dtype)
+    attn_base = {"blocks": {"sub0": {"attn": base["blocks"]["sub0"]["attn"]}}}
+    return pytree.tree_map(lambda d, b: b + d * 0.1, delta, attn_base)
+
+
+def same_bytes(a, b) -> int:
+    """Leaves of two trees whose bytes differ."""
+    from repro_torch import pytree
+    return sum(not torch.equal(bits(x), bits(y.to(x.device)))
+               for x, y in zip(pytree.leaves(a), pytree.leaves(b)))
 
 
 def check_output(name: str, out, base) -> None:
@@ -865,6 +991,7 @@ def phase_main_path(cfg) -> dict:
     paths["perleaf"] = perleaf_path(ordered, base, nleaves)
     paths["search"] = search_path(ordered, order, base, ref, seed,
                                   rep.cache)
+    paths["sparse"] = sparse_path(cfg, ordered, order, base)
 
     # int8 merge-on-arrival: compress on the card, drop the bf16 copies
     torch.cuda.synchronize()
@@ -874,6 +1001,8 @@ def phase_main_path(cfg) -> dict:
     log(f"[main] compress x{K} to int8 on the card: "
         f"{time.perf_counter() - t0:.1f} s "
         f"({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads)")
+    # the consortium reuses the base and the first two fine-tunes
+    keep = {"base": base, "dense": ordered[:2], "eids": order[:2]}
     del ordered, rep
     torch.cuda.empty_cache()
     qids = ["int8:" + e for e in order]
@@ -908,7 +1037,7 @@ def phase_main_path(cfg) -> dict:
     torch.cuda.empty_cache()
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in paths["bf16"]["launches"]}
-    return {"launches": launches,
+    return {"launches": launches, "keep": keep,
             "ms": {f"{p} {k}": v for p, d in paths.items()
                    for k, v in d["ms"].items()}}
 
@@ -1105,7 +1234,76 @@ def phase_exact_vs_kernels(cfg) -> None:
     if differ:
         raise AssertionError("exact DARE on the card != its CPU "
                              "recomputation")
-    del out, base, ordered, rep
+    del out
+    sparse_vs_exact(cfg, rep, order, base, ref)
+    del base, ordered, rep
+    torch.cuda.empty_cache()
+
+
+def sparse_vs_exact(cfg, rep, order, base, ref) -> None:
+    """The sparse path at depth 2: the adapter update S lands on the
+    replica of the K dense contributions. The kernel routes are held to
+    the main path's limits against the exact path (`Replica.resolve`),
+    which is bitwise the engine-free `sparse_reference_apply` on the
+    card; over fp32 copies the exact linear-family merges on the card
+    are bitwise the CPU's (their fold order is pinned)."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec
+    from repro_torch.core import engine
+    from repro_torch.core.resolve import seed_from_root, \
+        sparse_reference_apply
+    layers, eid_s = cfg.n_layers, sparse_eid(cfg.n_layers)
+    upd = sparse_update(cfg, base, SEED + 50)
+    rep.contribute(upd, eid_s, leaves=SPARSE_LEAVES)
+    ids = sorted(list(order) + [eid_s])
+    payloads = [rep.state.store[i] for i in ids]
+    covs = [SPARSE_LEAVES if i == eid_s else None for i in ids]
+    seed = seed_from_root(rep.merkle_root())
+    for name, cfgd, uses_base in STRATEGIES:
+        spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
+        exact = rep.resolve(spec, use_cache=False)
+        want = sparse_reference_apply(name, payloads, covs, base=base,
+                                      seed=seed, **cfgd)
+        differ = same_bytes(exact, want)
+        log(f"[exact-vs-kernels] sparse {name} ({layers} layers): the exact "
+            f"path vs sparse_reference_apply on the card, {differ} leaves "
+            "differ (bitwise)")
+        if differ:
+            raise AssertionError(f"sparse {name}: the exact path is not "
+                                 "sparse_reference_apply")
+        kern = engine.merge(payloads, spec=spec, contrib_ids=ids, seed=seed,
+                            base=base if uses_base else None, kernels=True,
+                            use_cache=False, coverages=covs)
+        bad, total, worst = ulp_diff(exact, kern)
+        if name == "ties":
+            ok = bad / total <= TIES_MAX_DIFF_SHARE
+            rule = f"share beyond one bf16 ulp <= {TIES_MAX_DIFF_SHARE}"
+        else:
+            ok = bad == 0
+            rule = f"|exact - kernel| <= {LIN_ATOL} + {LIN_RTOL} |exact|"
+        report(f"sparse {name} ({layers} layers)", bad, total, worst, ok,
+               rule)
+        del exact, want, kern
+    f32 = [pytree.tree_map(lambda t: t.to(torch.float32), p)
+           for p in payloads]
+    b32 = pytree.tree_map(lambda t: t.to(torch.float32), base)
+    fids = ["fp32:" + i for i in ids]
+    for name, cfgd, uses_base in STRATEGIES[:2]:
+        outs = []
+        for dev in (DEVICE, "cpu"):
+            outs.append(engine.merge(
+                [pytree.tree_map(lambda t: t.to(dev), p) for p in f32],
+                name, contrib_ids=fids, seed=seed, use_cache=False,
+                base=pytree.tree_map(lambda t: t.to(dev), b32)
+                if uses_base else None, coverages=covs, **cfgd))
+        differ = same_bytes(outs[0], outs[1])
+        log(f"[exact-vs-kernels] sparse {name} ({layers} layers, fp32): the "
+            f"exact path on the card vs the CPU, {differ} leaves differ "
+            "(bitwise)")
+        if differ:
+            raise AssertionError(f"sparse {name} fp32: card != CPU")
+        del outs
+    del f32, b32, upd, payloads
     torch.cuda.empty_cache()
 
 
@@ -1373,6 +1571,434 @@ def search_path(ordered, order, base, ref, seed, cache) -> dict:
     return out
 
 
+def sparse_reresolve(cfg, ordered, order, base, eid_s: str) -> dict:
+    """The adapter update landing on a warm replica: A holds the K
+    dense contributions and the base and resolves weight_average (cold);
+    then S is made, lands through `contribute(leaves=...)` and A resolves
+    again (warm): exactly the 4 attention leaves run, each resuming its
+    cached fold, and the other 8 are cache hits. The warm tree must be
+    bitwise the cold resolve of the same state and replica B's, which
+    took the five contributions in reverse order under A's eids.
+    Returns S."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.obs import set_tracer, Tracer
+    rep_a = Replica("chip-smoke-sparse-a", device=DEVICE)
+    for c, eid in zip(ordered, order):
+        rep_a.contribute(c, eid)
+    t0 = time.perf_counter()
+    ref = rep_a.register_base(base)
+    t_base = time.perf_counter() - t0
+    rep_a.set_cache_limit(bytes=SPARSE_CACHE_BYTES)
+    spec = MergeSpec("weight_average", base_ref=ref)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tracer = Tracer()
+        prev = set_tracer(tracer)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            set_tracer(prev)
+        dt = time.perf_counter() - t0
+        split = {sp.name: sp.duration for sp in tracer.spans
+                 if sp.name in ("engine.plan", "engine.execute")}
+        log(f"[sparse] {label}: {dt:.1f} s (planning, the base's digest "
+            f"included, {split.get('engine.plan', 0):.1f} s; executing "
+            f"{split.get('engine.execute', 0):.1f} s; the rest, the "
+            "element digests of a payload first seen and Layer 1, "
+            f"{dt - sum(split.values()):.1f} s); peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return out, dt
+
+    cold, t_cold = timed("replica A, cold resolve of K dense "
+                         "contributions", lambda: rep_a.resolve(spec))
+    del cold
+    # S is made after the cold resolve: its 2.42 GB would sit beside the
+    # cache's 23 GB there
+    t0 = time.perf_counter()
+    upd = sparse_update(cfg, base, SEED + 50)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(upd))
+    log(f"[sparse] adapter update S over {len(SPARSE_LEAVES)} attention "
+        f"leaves: {n} parameters ({n * 2 / 1e9:.2f} GB bf16), made in "
+        f"{time.perf_counter() - t0:.1f} s; eid {eid_s[:16]}… (sorts "
+        "last)")
+    rep_a.cache.reset_exec_stats()
+    obs = rep_a.cache.obs
+    folds = obs.counter("resolve_fold_updates_total").value()
+    rep_a.contribute(upd, eid_s, leaves=SPARSE_LEAVES)
+    warm, t_warm = timed("replica A, warm resolve after S lands",
+                         lambda: rep_a.resolve(spec))
+    st = rep_a.cache.exec_stats()
+    got = {"leaf_tasks": st.get("leaf_tasks", 0), "hits": st.get("hits", 0),
+           "fold_resumes": st.get("fold_resumes", 0),
+           "resolve_fold_updates_total":
+               obs.counter("resolve_fold_updates_total").value() - folds,
+           "engine_sparse_leaves_skipped":
+               obs.gauge("engine_sparse_leaves_skipped").value()}
+    want = {"leaf_tasks": 4, "hits": 8, "fold_resumes": 4,
+            "resolve_fold_updates_total": 4.0,
+            "engine_sparse_leaves_skipped": 8.0}
+    log(f"[sparse] warm accounting {got}; warm / cold seconds "
+        f"{t_warm / t_cold:.2f} (a reading; register_base took "
+        f"{t_base:.1f} s)")
+    if got != want:
+        raise AssertionError(f"warm re-resolve accounting {got} != {want}")
+    rep_a.clear_cache()
+    cold, _ = timed("replica A, cold resolve of the same state "
+                    "(use_cache=False)",
+                    lambda: rep_a.resolve(spec, use_cache=False))
+    differ = same_bytes(warm, cold)
+    del cold
+    rep_b = Replica("chip-smoke-sparse-b", device=DEVICE)
+    for c, eid in zip([upd] + ordered[::-1], [eid_s] + order[::-1]):
+        rep_b.contribute(c, eid,
+                         leaves=SPARSE_LEAVES if eid == eid_s else None)
+    if rep_b.register_base(base) != ref or \
+            rep_b.merkle_root() != rep_a.merkle_root():
+        raise AssertionError("the two replicas disagree on Layer 1")
+    other, _ = timed("replica B (reverse order, A's eids), resolve",
+                     lambda: rep_b.resolve(spec))
+    differ_b = same_bytes(warm, other)
+    log(f"[sparse] the warm tree vs A's cold resolve: {differ} leaves "
+        f"differ; vs replica B's: {differ_b} (bitwise, int16 views)")
+    if differ or differ_b:
+        raise AssertionError("the re-resolve is not bitwise the cold "
+                             "resolve / replica B's")
+    del warm, other, rep_a, rep_b
+    torch.cuda.empty_cache()
+    return upd
+
+
+def sparse_path(cfg, ordered, order, base) -> dict:
+    """The adapter-update scenario of benchmarks/bench_sparse.py at
+    Phi-3-mini's full width: the re-resolve (`sparse_reresolve`), then
+    `engine.merge(..., coverages=..., kernels=True)` over the K dense
+    contributions and S in canonical order for weight_average,
+    task_arithmetic and histogram TIES: the attention leaves' fused
+    groups have K + 1 contributions, the others K, so B1 and B3-B5
+    launch at both heights in one merge."""
+    from repro_torch.api import MergeSpec
+    from repro_torch.core import engine
+    from repro_torch.core.merkle import merkle_root
+    from repro_torch.core.resolve import seed_from_root
+    from repro_torch.strategies import get_strategy
+    eid_s = sparse_eid(cfg.n_layers)
+    if eid_s <= max(order):
+        raise AssertionError("S's eid does not sort after the dense ones")
+    upd = sparse_reresolve(cfg, ordered, order, base, eid_s)
+    ids = sorted(list(order) + [eid_s])
+    by_id = dict(zip(order, ordered))
+    by_id[eid_s] = upd
+    payloads = [by_id[i] for i in ids]
+    covs = [SPARSE_LEAVES if i == eid_s else None for i in ids]
+    seed = seed_from_root(merkle_root([bytes.fromhex(i) for i in ids]))
+    # the engine's own grouping: fused groups of K + 1 and of K rows
+    plan = engine.plan_for(payloads, contrib_ids=ids, coverages=covs,
+                           spec=MergeSpec("weight_average"))
+    groups = [grp for grp in engine._dispatch_groups(
+        get_strategy("weight_average"), list(plan.tasks),
+        max(t.stacked_nbytes for t in plan.tasks)) if len(grp) > 1]
+    heights = sorted({grp[0].k for grp in groups})
+    log("[sparse] fused groups (k_i: leaves): " + "; ".join(
+        f"{grp[0].k}: {[t.path.split('[')[-1][1:-2] for t in grp]}"
+        for grp in groups) + f"; {len(plan.tasks) - sum(map(len, groups))} "
+        "leaves alone (exact path)")
+    if heights != [K, K + 1]:
+        raise AssertionError(f"fused groups of heights {heights}, expected "
+                             f"{[K, K + 1]}")
+    nb = len(groups)
+    cache = engine.EngineCache()
+
+    def merge_of(name, cfgd, uses_base):
+        def thunk():
+            spec = MergeSpec(name, cfgd)
+            out = engine.merge(payloads, spec=spec, contrib_ids=ids,
+                               base=base if uses_base else None, seed=seed,
+                               kernels=True, use_cache=False,
+                               coverages=covs, cache=cache)
+            check_output(name, out, base)
+        return name, thunk
+
+    expect = {name: ({"block_amax": nb, "block_hist": nb, "ties_block": nb}
+                     if name == "ties" else {"nary_accum": nb})
+              for name, _, _ in STRATEGIES}
+    out = run_path("sparse", [merge_of(*st) for st in STRATEGIES],
+                   Dispatches(cache.obs), expect=expect)
+    del upd, payloads, by_id
+    torch.cuda.empty_cache()
+    return out
+
+
+def gossip_payloads(n: int, side: int, seed: int) -> list:
+    """bench_gossip's contributions: one [side, side] fp32 normal draw a
+    node from `numpy.random.default_rng(seed)`, on the card, with their
+    eids (hashed once: the orderings reuse them)."""
+    import numpy as np
+    from repro_torch.core.hashing import pytree_digest
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.standard_normal((side, side)).astype(
+        np.float32)).to(DEVICE) for _ in range(n)]
+    return [(x, pytree_digest(x).hex()) for x in xs]
+
+
+def gossip_net(n: int, seed: int, payloads, **kw):
+    from repro_torch.core.gossip import GossipNetwork
+    net = GossipNetwork(n, seed=seed, device=DEVICE, **kw)
+    for node, (x, eid) in zip(net.nodes, payloads):
+        node.contribute(x, eid)
+    return net
+
+
+def identical(outs) -> bool:
+    return all(torch.equal(bits(outs[0]), bits(o)) for o in outs[1:])
+
+
+def divergence(probe, net) -> float:
+    """One `ConvergenceProbe` observation of the fleet's roots: the
+    `probe_root_divergence` it sets (distinct roots - 1)."""
+    probe.observe({n.node_id: n.root().hex() for n in net.nodes})
+    return probe.registry.gauge("probe_root_divergence").value()
+
+
+def round_probe(net):
+    from repro_torch.obs import ConvergenceProbe
+    clock = iter(range(1 << 20))
+    return ConvergenceProbe(registry=net.obs, clock=clock.__next__)
+
+
+def phase_gossip_tables() -> None:
+    """The paper's Tables 6-9 (benchmarks/bench_gossip.py --full) on the
+    card: gossip rounds, then every node resolves on its own; no merge
+    kernel runs (the reference's nodes resolve on the exact path)."""
+    from repro_torch.strategies import list_strategies
+    out = {}
+
+    def table6():
+        pl = gossip_payloads(T6_NODES, T6_SIDE, 123)
+        final, g_ms, r_ms, div = None, [], [], set()
+        for o in range(T6_ORDERINGS):
+            net = gossip_net(T6_NODES, o, pl)
+            probe = round_probe(net)
+            before = divergence(probe, net)
+            t0 = time.perf_counter()
+            net.all_pairs_round()
+            g_ms.append((time.perf_counter() - t0) * 1e3)
+            div.add((before, divergence(probe, net)))
+            if not net.converged():
+                raise AssertionError(f"table 6 ordering {o}: not converged")
+            t0 = time.perf_counter()
+            outs = net.resolve_all("slerp", use_cache=False)
+            torch.cuda.synchronize()
+            r_ms.append((time.perf_counter() - t0) * 1e3 / T6_NODES)
+            if final is None:
+                final = outs[0]
+            if not identical([final] + outs):
+                raise AssertionError(f"table 6 ordering {o}: outputs differ")
+            del outs
+        out["6"] = (f"{T6_NODES} nodes, {T6_SIDE}x{T6_SIDE} fp32, "
+                    f"{T6_ORDERINGS} orderings, slerp: every node's and "
+                    "every ordering's output byte-identical; gossip "
+                    f"{sum(g_ms) / len(g_ms):.1f} ms a round, resolve "
+                    f"{sum(r_ms) / len(r_ms):.2f} ms a node; probe "
+                    f"divergence before / after the round {sorted(div)}")
+
+    def table7():
+        pl = gossip_payloads(T7_NODES, T7_SIDE, 0)
+        net = gossip_net(T7_NODES, 0, pl)
+        probe = round_probe(net)
+        div = [divergence(probe, net)]
+        size = T7_NODES // T7_PARTS
+        net.partition([range(i * size, (i + 1) * size)
+                       for i in range(T7_PARTS)])
+        t0 = time.perf_counter()
+        net.all_pairs_round()
+        part_ms = (time.perf_counter() - t0) * 1e3
+        div.append(divergence(probe, net))
+        distinct = len(set(net.roots()))
+        net.heal()
+        t0 = time.perf_counter()
+        net.all_pairs_round()
+        heal_ms = (time.perf_counter() - t0) * 1e3
+        div.append(divergence(probe, net))
+        healed = len(set(net.roots()))
+        if distinct != T7_PARTS or healed != 1 or not net.converged():
+            raise AssertionError(f"table 7: {distinct} roots in "
+                                 f"{T7_PARTS} partitions, {healed} after "
+                                 "the heal")
+        out["7"] = (f"{T7_NODES} nodes in {T7_PARTS} partitions: "
+                    f"{distinct} distinct roots, {healed} after the heal; "
+                    f"partitioned round {part_ms:.1f} ms, healing round "
+                    f"{heal_ms:.1f} ms; probe divergence by round {div}, "
+                    f"episodes {probe.episodes}")
+
+    def table8():
+        pl = gossip_payloads(T8_NODES, T8_SIDE, 7)
+        ok, slow = 0, []
+        for name in list_strategies():
+            net = gossip_net(T8_NODES, 1, pl)
+            net.all_pairs_round()
+            t0 = time.perf_counter()
+            outs = net.resolve_all(name, use_cache=False)
+            torch.cuda.synchronize()
+            slow.append(((time.perf_counter() - t0) * 1e3 / T8_NODES, name))
+            ok += identical(outs)
+        if ok != len(list_strategies()):
+            raise AssertionError(f"table 8: {ok} strategies converge")
+        slow.sort(reverse=True)
+        out["8"] = (f"{T8_NODES} nodes, {T8_SIDE}x{T8_SIDE}: {ok} of "
+                    f"{len(list_strategies())} strategies byte-identical "
+                    "on every node; resolve ms a node, slowest: "
+                    + ", ".join(f"{n} {ms:.1f}" for ms, n in slow[:3]))
+
+    def table9():
+        pl = gossip_payloads(max(T9_SIZES), T9_SIDE, 11)
+        rows = []
+        for n in T9_SIZES:
+            net = gossip_net(n, 2, pl[:n])
+            probe = round_probe(net)
+            before = divergence(probe, net)
+            t0 = time.perf_counter()
+            net.all_pairs_round()
+            g_ms = (time.perf_counter() - t0) * 1e3
+            after = divergence(probe, net)
+            t0 = time.perf_counter()
+            outs = net.resolve_all("slerp", use_cache=False)
+            torch.cuda.synchronize()
+            r_ms = (time.perf_counter() - t0) * 1e3
+            if not (net.converged() and identical(outs)):
+                raise AssertionError(f"table 9: {n} nodes did not converge")
+            rows.append(f"n={n} ({n * (n - 1)} merges) gossip {g_ms:.1f} "
+                        f"ms, resolve {r_ms:.1f} ms, divergence {before:.0f}"
+                        f" -> {after:.0f}")
+        for n in T9_SIZES[-2:]:
+            net = gossip_net(n, 3, pl[:n])
+            probe = round_probe(net)
+            div = [divergence(probe, net)]
+            t0 = time.perf_counter()
+            rounds = 0
+            while not net.converged() and rounds < 64:
+                net.epidemic_round(fanout=3)
+                rounds += 1
+                div.append(divergence(probe, net))
+            e_ms = (time.perf_counter() - t0) * 1e3
+            if not net.converged():
+                raise AssertionError(f"table 9: epidemic n={n} did not "
+                                     "converge")
+            rows.append(f"epidemic n={n} fanout 3: {rounds} rounds, "
+                        f"{e_ms:.1f} ms, divergence by round "
+                        f"{[int(d) for d in div]}")
+        out["9"] = "; ".join(rows)
+
+    tables = [("table 6", table6), ("table 7", table7),
+              ("table 8", table8), ("table 9", table9)]
+    run_path("gossip", tables, expect={label: {} for label, _ in tables})
+    for t in sorted(out):
+        log(f"[gossip] Table {t}: {out[t]}")
+    torch.cuda.empty_cache()
+
+
+def phase_consortium(cfg, keep: dict) -> None:
+    """A consortium at Phi-3-mini's full width: CONSORTIUM gossip nodes
+    on the card, delta gossip; each node contributes its own sparse
+    attention update, nodes 0 and 1 also a dense fine-tune (the main
+    path's first two, under their eids); every payload is one tensor
+    that all stores share. Partitioned into two halves, a round leaves
+    two roots; healed, one. Then each node resolves weight_average with
+    the base, one node at a time, each tree bitwise node 0's; nodes 0
+    and 7 resolve histogram TIES, bitwise each other's."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec
+    from repro_torch.core.gossip import GossipNetwork
+    base, dense, eids = keep["base"], keep["dense"], keep["eids"]
+    keep.clear()
+    t0 = time.perf_counter()
+    net = GossipNetwork(CONSORTIUM, seed=SEED, use_deltas=True,
+                        device=DEVICE)
+    for i, node in enumerate(net.nodes):
+        node.contribute(sparse_update(cfg, base, SEED + 60 + i),
+                        consortium_eid(i), leaves=SPARSE_LEAVES)
+    for node, c, eid in zip(net.nodes, dense, eids):
+        node.contribute(c, eid)
+    del dense
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    log(f"[gossip] consortium of {CONSORTIUM} nodes: an attention update "
+        f"each, dense fine-tunes on nodes 0 and 1, the base; "
+        f"{live / 1e9:.2f} GB on the card, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    probe = round_probe(net)
+    half = CONSORTIUM // 2
+    for label, parts in (("partitioned", [range(half),
+                                          range(half, CONSORTIUM)]),
+                         ("healed", None)):
+        if parts is None:
+            net.heal()
+        else:
+            net.partition(parts)
+        sent = net.bytes_sent
+        t0 = time.perf_counter()
+        net.all_pairs_round()
+        ms = (time.perf_counter() - t0) * 1e3
+        div = divergence(probe, net)
+        distinct = sorted({r.hex()[:16] for r in net.roots()})
+        log(f"[gossip] consortium, {label} all-pairs round: {ms:.1f} ms; "
+            f"bytes_sent {net.bytes_sent - sent}; roots {distinct}; probe "
+            f"divergence {div}")
+        if len(distinct) != (2 if parts else 1):
+            raise AssertionError(f"consortium, {label}: {len(distinct)} "
+                                 "distinct roots")
+    stores = [n.state.store for n in net.nodes]
+    shared = all(s[e] is stores[0][e] for s in stores for e in stores[0])
+    if not shared or torch.cuda.memory_allocated() != live:
+        raise AssertionError("the consortium's stores copied payloads")
+    log(f"[gossip] consortium: {len(stores[0])} payloads, one tensor each "
+        f"shared by all {CONSORTIUM} stores ({live / 1e9:.2f} GB before and "
+        f"after gossip); counters sends "
+        f"{net.obs.counter('gossip_sends_total').value():.0f}, payloads "
+        f"shipped "
+        f"{net.obs.counter('gossip_payloads_shipped_total').value():.0f}; "
+        f"probe episodes {probe.episodes}")
+
+    def resolve(i, spec):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = net.nodes[i].resolve(spec, base, use_cache=False)
+        torch.cuda.synchronize()
+        log(f"[gossip] consortium node {i}: resolve {spec.strategy} "
+            f"{time.perf_counter() - t0:.1f} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        check_output(spec.strategy, tree, base)
+        return tree
+
+    spec = MergeSpec("weight_average")
+    # node 0's tree waits in host memory: the FFN leaves' fp32 folds
+    # took the card to 76.8 GB beside it
+    first = pytree.tree_map(lambda t: t.cpu(), resolve(0, spec))
+    for i in range(1, CONSORTIUM):
+        tree = resolve(i, spec)
+        if same_bytes(first, tree):
+            raise AssertionError(f"consortium node {i}'s tree != node 0's")
+        del tree
+    del first
+    ties = MergeSpec("ties", {"trim_method": "histogram"})
+    first = pytree.tree_map(lambda t: t.cpu(), resolve(0, ties))
+    last = resolve(CONSORTIUM - 1, ties)
+    differ = same_bytes(last, first)
+    log(f"[gossip] consortium: weight_average bitwise equal on all "
+        f"{CONSORTIUM} nodes; histogram TIES on nodes 0 and "
+        f"{CONSORTIUM - 1}: {differ} leaves differ")
+    if differ:
+        raise AssertionError("consortium TIES trees differ")
+    del first, last, net, base
+    torch.cuda.empty_cache()
+
+
 def svd_drivers(x: torch.Tensor) -> None:
     """Seconds of each cuSOLVER SVD driver on x, two runs each, the runs'
     byte identity and the reconstruction error; the pinned one (gesvd)
@@ -1547,11 +2173,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(cfg)
     main = phase_main_path(cfg)
+    phase_consortium(cfg, main.pop("keep"))
     phase_exact_vs_kernels(cfg)
     serve = phase_serve(cfg)
     phase_serve_vs_plain(cfg)
     phase_whole(cfg)
     phase_audits()
+    phase_gossip_tables()
     for name, row in rows.items():
         row["launches"] = main["launches"][name] \
             + serve["launches"][name]

@@ -72,8 +72,10 @@ class Replica:
                    leaves: Optional[Iterable[str]] = None) -> str:
         """Publish a model contribution; returns its element id (the
         content hash that names it everywhere). `leaves` declares a
-        sparse contribution (Layer 1 records it; resolving one waits
-        for ROADMAP A4)."""
+        sparse contribution: the pytree carries exactly those leaves
+        (canonical keystr paths); a resolve merges each leaf over the
+        contributions covering it, and a leaf none covers inherits the
+        base."""
         contribution = self._to_device(contribution)
         eid = element_id or pytree_digest(contribution).hex()
         self.state = self.state.add(contribution, self.node_id,

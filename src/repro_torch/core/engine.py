@@ -43,8 +43,20 @@ one leaf at a time through the strategy's leaf function, freeing each
 stack before the next (the reference stacks the whole model at once:
 the same bytes, k models' memory less).
 
-Not ported yet, and refused rather than approximated: sparse
-contributions (ROADMAP A4).
+Sparse contributions
+--------------------
+A contribution may cover only some of the model's leaves (its
+`leaf_paths` coverage descriptor, from `CRDTMergeState.coverage()`).
+The planner maps its leaves onto the model by path and keys each leaf
+task on that leaf's ordered covering subset, so a leaf a new sparse
+contribution does not touch keeps its sub-root and stays a cache hit:
+re-resolve costs O(changed leaves). The sub-roots are the reference's,
+byte for byte. A leaf covered by no contribution inherits the base leaf
+(the rule is folded into `spec.cache_fragment()`). One plan then holds
+tasks of different k_i; the executor fuses only tasks with the same
+ordered contributor subset, so every batch, and every kernel launch
+(`kernels=True`), has one k. Whole-model strategies densify sparse
+payloads with the base's leaves first (`densify_contributions`).
 """
 from __future__ import annotations
 
@@ -203,6 +215,10 @@ class MergePlan:
     tasks: Tuple[LeafTask, ...]
     spec: Optional[MergeSpec] = None
     frag: bytes = b""                     # spec fragment (prefix probing)
+    # per-contribution coverage (None entry = dense); None = all dense
+    coverages: Optional[Tuple[Optional[Tuple[str, ...]], ...]] = None
+    # model leaf indices covered by NO contribution: inherit-base
+    base_only: Tuple[int, ...] = ()
 
     def cfg_dict(self) -> Dict[str, Any]:
         return dict(self.cfg)
@@ -212,7 +228,9 @@ def _leaf_subroot(frag: bytes, base_frag: bytes,
                   digests: Sequence[bytes], needs_key: bool,
                   seed: int, index: int) -> bytes:
     """Sub-root over ONE leaf's ordered contribution digests (the
-    reference's derivation, byte for byte)."""
+    reference's derivation, byte for byte). A sparse plan passes only
+    the leaf's covering subset, so the key equals that of a dense merge
+    over exactly that subset."""
     h = hashlib.sha256(_DOMAIN_LEAF)
     h.update(frag)
     h.update(base_frag)
@@ -233,51 +251,110 @@ def plan_merge(metas: Sequence[ContribMeta],
                coverages: Optional[Sequence[Optional[Tuple[str, ...]]]]
                = None, **cfg) -> MergePlan:
     """Emit a per-leaf merge plan from contribution metadata (canonical
-    order). Payloads are not needed to plan — only their digests."""
+    order). Payloads are not needed to plan — only their digests.
+
+    `coverages` (parallel to `metas`) marks sparse contributions: the
+    keystr leaf paths a contribution carries, or None for dense. Each
+    leaf task is keyed on the contributions covering that leaf; a leaf
+    covered by none inherits the base leaf (requires base=). The model
+    structure comes from the first dense contribution, or from the base
+    when every contribution is sparse."""
     if not metas:
         raise ValueError("plan_merge() requires at least one contribution")
-    if coverages is not None and any(c is not None for c in coverages):
-        raise NotImplementedError(
-            "sparse contributions are not ported yet (ROADMAP A4)")
     spec = _as_spec(spec, strategy_name, reduction, cfg)
     strat = get_strategy(spec.strategy)
     if strat.whole_model:
         raise ValueError(
             f"strategy {spec.strategy!r} is whole-model; use merge()")
     k = len(metas)
-    first = metas[0]
+    if coverages is None:
+        coverages = (None,) * k
+    if len(coverages) != k:
+        raise ValueError("coverages must parallel metas")
+    dense = [j for j, cov in enumerate(coverages) if cov is None]
     with span("engine.plan", strategy=spec.strategy, k=k,
-              leaves=first.leaf_count):
+              leaves=(metas[dense[0]].leaf_count if dense else 0)):
         frag = spec.cache_fragment(
             with_reduction=(strat.binary_only and k > 2))
-        for m in metas[1:]:
-            if m.treedef != first.treedef or m.shapes != first.shapes \
-                    or m.dtypes != first.dtypes:
-                raise ValueError("contributions disagree on tree structure")
-        treedef = first.treedef
+        if dense:
+            first = metas[dense[0]]
+            for j in dense[1:]:
+                m = metas[j]
+                if m.treedef != first.treedef or m.shapes != first.shapes \
+                        or m.dtypes != first.dtypes:
+                    raise ValueError(
+                        "contributions disagree on tree structure")
+            treedef = first.treedef
+            shapes, dtypes = first.shapes, first.dtypes
+        else:
+            if base is None:
+                raise ValueError(
+                    "every contribution is sparse and no base was given; "
+                    "the model structure must come from a dense "
+                    "contribution or the base model")
+            bflat, treedef = pytree.flatten(base)
+            shapes = tuple(tuple(b.shape) for b in bflat)
+            dtypes = tuple(b.dtype for b in bflat)
         paths = pytree.leaf_paths(treedef)
+        n_leaves = len(paths)
+        path_index = {p: i for i, p in enumerate(paths)}
+        # per leaf: (contribution position, its leaf digest, its bytes
+        # per element) for every contribution covering the leaf
+        cover: List[List[Tuple[int, bytes, int]]] = [
+            [] for _ in range(n_leaves)]
+        for j, (m, cov) in enumerate(zip(metas, coverages)):
+            if cov is None:
+                for i in range(n_leaves):
+                    cover[i].append((j, m.digests[i], m.itemsizes[i]))
+                continue
+            if set(m.paths) != set(cov):
+                raise ValueError(
+                    f"contribution {j}: coverage descriptor does not "
+                    "match its leaf paths")
+            for local, p in enumerate(m.paths):
+                i = path_index.get(p)
+                if i is None:
+                    raise ValueError(
+                        f"contribution {j} covers leaf {p!r} which the "
+                        "model structure does not have")
+                if m.shapes[local] != shapes[i] \
+                        or m.dtypes[local] != dtypes[i]:
+                    raise ValueError(
+                        f"contribution {j}: leaf {p!r} shape/dtype "
+                        "disagrees with the model structure")
+                cover[i].append((j, m.digests[local], m.itemsizes[local]))
         if base is None:
-            base_frags: Sequence[bytes] = [_NO_BASE] * len(paths)
+            base_frags: Sequence[bytes] = [_NO_BASE] * n_leaves
         else:
             base_frags = [tensor_digest(bl)
                           for bl in treedef.flatten_up_to(base)]
         tasks = []
+        base_only = []
         for i, path in enumerate(paths):
-            digs = tuple(m.digests[i] for m in metas)
+            if not cover[i]:
+                # absent-leaf semantics: inherit-base (the spec fragment
+                # encodes this choice). Only an all-sparse plan has such
+                # leaves, and it took its structure from the base.
+                base_only.append(i)
+                continue
+            digs = tuple(d for _, d, _ in cover[i])
             # int8 contributors stack at wire width: the merge-on-arrival
             # kernel never densifies them
-            stacked = math.prod(first.shapes[i]) * sum(
-                m.itemsizes[i] for m in metas)
+            stacked = math.prod(shapes[i]) * sum(w for _, _, w in cover[i])
             tasks.append(LeafTask(
                 index=i, path=path,
                 sub_root=_leaf_subroot(frag, base_frags[i], digs,
                                        strat.needs_key, seed, i),
-                shape=first.shapes[i], dtype=first.dtypes[i],
-                stacked_nbytes=stacked, contributors=tuple(range(k)),
+                shape=shapes[i], dtype=dtypes[i],
+                stacked_nbytes=stacked,
+                contributors=tuple(j for j, _, _ in cover[i]),
                 digests=digs, base_frag=base_frags[i]))
+    any_sparse = any(c is not None for c in coverages)
     return MergePlan(strategy=spec.strategy, reduction=spec.reduction,
                      seed=seed, k=k, cfg=spec.cfg, treedef=treedef,
-                     tasks=tuple(tasks), spec=spec, frag=frag)
+                     tasks=tuple(tasks), spec=spec, frag=frag,
+                     coverages=tuple(coverages) if any_sparse else None,
+                     base_only=tuple(base_only))
 
 
 def plan_for(contribs: Sequence[Any],
@@ -285,12 +362,15 @@ def plan_for(contribs: Sequence[Any],
              contrib_ids: Optional[Sequence[str]] = None,
              base: Any = None, seed: int = 0,
              reduction: Optional[str] = None,
-             spec: Optional[MergeSpec] = None, **cfg) -> MergePlan:
+             spec: Optional[MergeSpec] = None,
+             coverages: Optional[Sequence[Optional[Tuple[str, ...]]]]
+             = None, **cfg) -> MergePlan:
     """Convenience planner over resident payloads (ids memoize digests)."""
     ids: Sequence[Optional[str]] = contrib_ids or [None] * len(contribs)
     metas = [contrib_meta(c, eid=e) for c, e in zip(contribs, ids)]
     return plan_merge(metas, strategy_name, base=base, seed=seed,
-                      reduction=reduction, spec=spec, **cfg)
+                      reduction=reduction, spec=spec, coverages=coverages,
+                      **cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -463,11 +543,18 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
     """
     cache = _cache_or_default(cache)
     strat = get_strategy(plan.strategy)
-    outputs: List[Optional[Any]] = [None] * len(plan.tasks)
+    outputs: List[Optional[Any]] = \
+        [None] * (len(plan.tasks) + len(plan.base_only))
     cache.obs.gauge("engine_plan_leaves").set(len(plan.tasks))
-    cache.obs.gauge("engine_sparse_leaves_skipped").set(0)
+    cache.obs.gauge("engine_sparse_leaves_skipped").set(
+        sum(1 for t in plan.tasks if t.k < plan.k) + len(plan.base_only))
     base_leaves = (plan.treedef.flatten_up_to(base)
                    if base is not None else None)
+    if plan.base_only and base_leaves is None:
+        raise ValueError("plan has inherit-base leaves but no base was "
+                         "supplied to execute_plan()")
+    for i in plan.base_only:
+        outputs[i] = base_leaves[i]          # inherit-base
 
     misses: List[LeafTask] = []
     resumes: List[Tuple[LeafTask, int, Any]] = []
@@ -495,17 +582,16 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
             if len(contribs) != plan.k:
                 raise ValueError(f"plan expects {plan.k} contributions, "
                                  f"got {len(contribs)}")
-            flat = [plan.treedef.flatten_up_to(
-                compressed_tree_to_structure(c)
-                if isinstance(c, CompressedTree) else c) for c in contribs]
+            flat = _flatten_contribs(plan, contribs)
 
             def leaf_raw(j: int, t: LeafTask):
-                return flat[j][t.index]
+                f = flat[j]
+                return f[t.index] if isinstance(f, list) else f[t.path]
 
             def leaf_of(j: int, t: LeafTask):
                 # the exact path densifies int8 slices where it reads
                 # them (counted); the int8 kernel route reads leaf_raw
-                return _dense_leaf(flat[j][t.index], obs=cache.obs)
+                return _dense_leaf(leaf_raw(j, t), obs=cache.obs)
 
             cfg = plan.cfg_dict()
             for t, m, aux in resumes:
@@ -556,6 +642,43 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
     return plan.treedef.unflatten(outputs)
 
 
+def _flatten_contribs(plan: MergePlan, contribs: Sequence[Any]
+                      ) -> List[Any]:
+    """Per-contribution leaf accessors: a flatten-order list for a dense
+    contribution, a path-keyed dict for a sparse one. A `CompressedTree`
+    flattens to its `CompressedLeaf` payloads, densified where they are
+    read."""
+    covs = plan.coverages or (None,) * plan.k
+    out: List[Any] = []
+    for c, cov in zip(contribs, covs):
+        if isinstance(c, CompressedTree):
+            c = compressed_tree_to_structure(c)
+        if cov is None:
+            out.append(plan.treedef.flatten_up_to(c))
+        else:
+            out.append({pytree.keystr(p): leaf for p, leaf in
+                        pytree.flatten_with_path(c)[0]})
+    return out
+
+
+def plan_needed_ids(plan: MergePlan, cache: Optional[EngineCache] = None,
+                    *, use_cache: bool = True) -> Tuple[int, ...]:
+    """Contribution positions whose payloads execution will need under
+    the current cache state: contributors of cache-missed tasks, minus
+    the already-folded prefix of fold-resumable tasks (O(changed))."""
+    cache = _cache_or_default(cache)
+    strat = get_strategy(plan.strategy)
+    needed: set = set()
+    for t in plan.tasks:
+        if use_cache and t.sub_root in cache:
+            continue
+        rp = _fold_resume_point(strat, plan, t, cache) if use_cache \
+            else None
+        lo = rp[0] if rp is not None else 0
+        needed.update(t.contributors[lo:])
+    return tuple(sorted(needed))
+
+
 def _fold_resume_point(strat: Strategy, plan: MergePlan, task: LeafTask,
                        cache: EngineCache) -> Optional[Tuple[int, Any]]:
     """Longest cached proper prefix of a missed fold-capable task:
@@ -583,6 +706,8 @@ def _dispatch_groups(strat: Strategy, misses: List[LeafTask],
     if not (strat.batchable or fuse):
         return [[t] for t in misses]
     groups: List[List[LeafTask]] = []
+    # under sparse contributions only leaves with the SAME ordered
+    # contributor subset fuse: a [k_i, N] batch has one k_i
     by_dtype: Dict[Any, List[LeafTask]] = {}
     for t in misses:
         by_dtype.setdefault((t.dtype, t.contributors), []).append(t)
@@ -884,6 +1009,32 @@ def _whole_model(strat: Strategy, contribs: Sequence[Any], spec: MergeSpec,
     return treedef.unflatten(outs)
 
 
+def densify_contributions(contribs: Sequence[Any],
+                          coverages: Sequence[Optional[Tuple[str, ...]]],
+                          base: Any) -> List[Any]:
+    """Dense view of a mixed dense/sparse contribution list: each sparse
+    contribution's absent leaves are the base's own tensors
+    (inherit-base). Whole-model strategies consume this."""
+    out: List[Any] = []
+    bflat = btd = None
+    for c, cov in zip(contribs, coverages):
+        if cov is None:
+            out.append(c)
+            continue
+        if base is None:
+            raise ValueError(
+                "a sparse contribution requires a base model here: its "
+                "absent leaves inherit the base (whole-model strategies "
+                "operate on densified contributions)")
+        if bflat is None:
+            bflat, btd = pytree.flatten_with_path(base)
+        have = {pytree.keystr(p): leaf
+                for p, leaf in pytree.flatten_with_path(c)[0]}
+        out.append(btd.unflatten([have.get(pytree.keystr(p), leaf)
+                                  for p, leaf in bflat]))
+    return out
+
+
 def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
           contrib_ids: Optional[Sequence[str]] = None, base: Any = None,
           seed: int = 0, reduction: Optional[str] = None,
@@ -891,14 +1042,18 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
           max_batch_bytes: Optional[int] = None, kernels: bool = False,
           spec: Optional[MergeSpec] = None,
           cache: Optional[EngineCache] = None,
-          key: Optional[bytes] = None, **cfg) -> Any:
+          key: Optional[bytes] = None,
+          coverages: Optional[Sequence[Optional[Tuple[str, ...]]]] = None,
+          **cfg) -> Any:
     """Merge an ORDERED contribution list through the engine.
 
-    Byte-identical to `core.resolve.reference_apply` on the same inputs.
-    `kernels=True` is the reference's `pallas=True` (see execute_plan).
-    Takes a MergeSpec (`spec=`) or a strategy name + kwargs. A
-    whole-model strategy is one dispatch (`whole_model_dispatches`) with
-    one cache entry under `model_key`; `key` passes a key the caller has
+    Byte-identical to `core.resolve.reference_apply` on the same inputs
+    (`sparse_reference_apply` with `coverages`). `kernels=True` is the
+    reference's `pallas=True` (see execute_plan). Takes a MergeSpec
+    (`spec=`) or a strategy name + kwargs. `coverages` marks sparse
+    contributions (see plan_merge). A whole-model strategy densifies
+    them first and is one dispatch (`whole_model_dispatches`) with one
+    cache entry under `model_key`; `key` passes a key the caller has
     already made (resolve's cache probe), and without the cache no key
     is made.
     """
@@ -909,6 +1064,9 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
     strat = get_strategy(spec.strategy)
     if strat.whole_model:
         cache.stats["whole_model_dispatches"] += 1
+        if coverages is not None and any(c is not None
+                                         for c in coverages):
+            contribs = densify_contributions(contribs, coverages, base)
         if use_cache:
             if key is None:
                 key = model_key(None, _eid_digests(contribs, contrib_ids),
@@ -927,7 +1085,7 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
         return out
     cache.stats["planned_merges"] += 1
     plan = plan_for(contribs, contrib_ids=contrib_ids,
-                    base=base, seed=seed, spec=spec)
+                    base=base, seed=seed, spec=spec, coverages=coverages)
     return execute_plan(plan, contribs, base=base, use_cache=use_cache,
                         max_batch_bytes=max_batch_bytes, kernels=kernels,
                         cache=cache)

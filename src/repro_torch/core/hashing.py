@@ -1,13 +1,20 @@
 """Content hashing for model contributions (`repro.core.hashing`).
 
-`tensor_digest` / `pytree_digest` are SHA-256 over canonical bytes:
-numpy dtype name | shape as a Python tuple | row-major data, with the
-leaves of a pytree combined in sorted `keystr` order. These are the
-paper's canonical identifiers (Assumption 11), so the port reproduces
-the reference's bytes exactly: a torch replica and a JAX replica name
-the same contribution with the same element id.
-
-A CUDA tensor is copied to the host leaf by leaf to be hashed.
+Two tiers:
+  * `tensor_digest` / `pytree_digest`: SHA-256 over canonical bytes:
+    numpy dtype name | shape as a Python tuple | row-major data, with
+    the leaves of a pytree combined in sorted `keystr` order. These are
+    the paper's canonical identifiers (Assumption 11), so the port
+    reproduces the reference's bytes exactly: a torch replica and a JAX
+    replica name the same contribution with the same element id. A CUDA
+    tensor is copied to the host leaf by leaf to be hashed.
+  * `fingerprint2x32`: an order-independent integer fingerprint, each
+    element contributing `word * mix(global_index)` under wrap-around
+    uint32 arithmetic, so partial sums over any split add up to the
+    whole. It runs on the tensor's device. torch has no uint32
+    arithmetic on the CPU, so the words are int64 in [0, 2^32) and
+    every product is split into 16-bit halves, which keeps it exact
+    without a signed overflow.
 """
 from __future__ import annotations
 
@@ -18,6 +25,14 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.dtypes import dtype_name, host_view
+
+_MIX_A = 2654435761        # Knuth multiplicative
+_MIX_B = 0x9E3779B9
+_MIX_C = 0x85EBCA6B
+_MIX_D = 0xC2B2AE35
+_M32 = 0xFFFFFFFF
+# elements summed at once: 2^30 terms below 2^32 stay below 2^62
+_SUM_CHUNK = 1 << 30
 
 
 def tensor_digest(t: torch.Tensor) -> bytes:
@@ -50,3 +65,66 @@ def leaf_paths_of(tree) -> Tuple[str, ...]:
     coverage descriptor of a (possibly partial) contribution."""
     flat, _ = pytree.flatten_with_path(tree)
     return tuple(sorted(pytree.keystr(p) for p, _ in flat))
+
+
+# ---------------------------------------------------------------------------
+# Order-independent fingerprint
+# ---------------------------------------------------------------------------
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 a, b in [0, 2^32), through b's 16-bit
+    halves: each partial product stays below 2^48."""
+    lo = a * (b & 0xFFFF)
+    hi = (a * (b >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _words_u32(x: torch.Tensor) -> torch.Tensor:
+    """The reference's uint32 words of a leaf, as int64: fp32 bits; bf16
+    bits widened; int32 / uint32 values mod 2^32; anything else cast to
+    fp32 first."""
+    x = x.reshape(-1)
+    if x.dtype == torch.float32:
+        return x.view(torch.int32).to(torch.int64) & _M32
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).to(torch.int64) & 0xFFFF
+    if x.dtype in (torch.int32, torch.uint32):
+        return x.to(torch.int64) & _M32
+    return x.to(torch.float32).view(torch.int32).to(torch.int64) & _M32
+
+
+def _sum32(t: torch.Tensor) -> int:
+    total = 0
+    for s in range(0, t.numel(), _SUM_CHUNK):
+        total += int(t[s:s + _SUM_CHUNK].sum())
+    return total & _M32
+
+
+def fingerprint2x32(x: torch.Tensor) -> torch.Tensor:
+    """uint32[2]; exact, associative-commutative accumulation, bitwise
+    equal to the reference's."""
+    w = _words_u32(x)
+    i = torch.arange(w.numel(), dtype=torch.int64, device=w.device)
+    k1 = ((_mul32(i, _MIX_A) + _MIX_B) & _M32) ^ (i >> 7)
+    k2 = ((_mul32(i, _MIX_C) + _MIX_D) ^ (i << 3)) & _M32
+    lane1 = _sum32(_mul32(w, k1))
+    lane2 = _sum32(_mul32(w ^ k2, _MIX_A))
+    return torch.tensor([lane1, lane2], dtype=torch.uint32)
+
+
+def tree_fingerprint(tree) -> torch.Tensor:
+    """uint32[2] fingerprint of a whole pytree: leaves in sorted path
+    order, leaf idx weighted by (idx * 0x9E3779B9 + 1) mod 2^32. The
+    reference builds that weight as `jnp.uint32(...)` of the unreduced
+    integer, which raises OverflowError from the third leaf on; the
+    port reduces it mod 2^32, and equals the reference bitwise for
+    trees of one and two leaves."""
+    flat, _ = pytree.flatten_with_path(tree)
+    acc = [0, 0]
+    for idx, (_, leaf) in enumerate(
+            sorted(flat, key=lambda kv: pytree.keystr(kv[0]))):
+        fp = fingerprint2x32(leaf).tolist()
+        rot = (idx * 0x9E3779B9 + 1) & _M32
+        acc = [(a + f * rot) & _M32 for a, f in zip(acc, fp)]
+    return torch.tensor(acc, dtype=torch.uint32)

@@ -11,15 +11,24 @@ Ported: the plain, trust-gated (`trust_threshold`: the visible set is
 gated by the converged trust evidence and the seed derives from the
 Merkle root of the gated ids) and hierarchical (`group_size`: groups of
 the canonical order resolve first, a second pass merges their outputs
-with seed + 1) paths, for every strategy; whole-model strategies probe
-their cache entry before touching a payload. Sparse contributions
-(ROADMAP A4) and fetch-on-resolve over a sharded store (A6) raise.
+with seed + 1) paths, for every strategy, over dense and sparse
+contributions (each leaf merged over its covering subset; an uncovered
+leaf inherits the base; `sparse_reference_apply` is the engine-free
+definition); whole-model strategies probe their cache entry before
+touching a payload. Also `IncrementalMean` (O(p) running weight
+average) and the deprecated `resolve(state, name, **cfg)` shim, which
+the gossip nodes' string form calls. Fetch-on-resolve over a sharded
+store waits for ROADMAP A6: an absent payload raises.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.api.spec import MergeSpec, SpecError
+import torch
+
+from repro_torch import pytree
+from repro_torch.api.spec import coerce_spec, MergeSpec, SpecError
 from repro_torch.core import engine
 from repro_torch.core.engine import EngineCache
 from repro_torch.core.hashing import pytree_digest
@@ -45,6 +54,11 @@ def canonical_order(state: CRDTMergeState) -> List[str]:
     return sorted(state.visible())
 
 
+def _warn_shim(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new}",
+                  DeprecationWarning, stacklevel=3)
+
+
 def _absent(store: Dict[str, Any], ids: List[str]) -> None:
     absent = [i for i in ids if i not in store]
     if absent:
@@ -52,12 +66,22 @@ def _absent(store: Dict[str, Any], ids: List[str]) -> None:
                        "resolve waits for ROADMAP A6")
 
 
+Coverages = Optional[Dict[str, Optional[Tuple[str, ...]]]]
+
+
 def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
                seed: int, *, base: Any, cache: Optional[EngineCache],
-               use_cache: bool, base_digest: Optional[bytes] = None) -> Any:
+               use_cache: bool, base_digest: Optional[bytes] = None,
+               coverages: Coverages = None) -> Any:
     """Merge the ordered id list through the planner/executor engine. A
     whole-model strategy probes its cache entry first, keyed from the
-    eids alone, so a warm resolve touches no payload."""
+    eids alone (a sparse payload's content hash and the base determine
+    its densified form), so a warm resolve touches no payload.
+    `coverages` maps sparse element ids to their leaf coverage
+    descriptors; ids absent from it (or mapped to None) are dense."""
+    covs = None
+    if coverages and any(coverages.get(i) is not None for i in ids):
+        covs = [coverages.get(i) for i in ids]
     if get_strategy(spec.strategy).whole_model:
         key = None
         if use_cache:
@@ -70,10 +94,12 @@ def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
         _absent(store, ids)
         return engine.merge([store[i] for i in ids], contrib_ids=tuple(ids),
                             base=base, seed=seed, use_cache=use_cache,
-                            spec=spec, cache=cache, key=key)
+                            spec=spec, cache=cache, key=key,
+                            coverages=covs)
     _absent(store, ids)
     metas = [engine.contrib_meta(store[i], eid=i) for i in ids]
-    plan = engine.plan_merge(metas, base=base, seed=seed, spec=spec)
+    plan = engine.plan_merge(metas, base=base, seed=seed, spec=spec,
+                             coverages=covs)
     return engine.execute_plan(plan, [store[i] for i in ids], base=base,
                                use_cache=use_cache, cache=cache)
 
@@ -81,14 +107,16 @@ def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
 def _grouped_resolve(store: Dict[str, Any], ids: List[str],
                      spec: MergeSpec, seed: int, *, base: Any,
                      cache: Optional[EngineCache], use_cache: bool,
-                     base_digest: Optional[bytes] = None) -> Any:
+                     base_digest: Optional[bytes] = None,
+                     coverages: Coverages = None) -> Any:
     """Two-level resolve (paper §7.2 L3 mitigation 2): sub-groups of
     `spec.group_size` over the canonical order resolve first; a second
     pass merges the sub-group outputs with seed + 1. Both passes run
-    through the engine."""
+    through the engine. Sub-group outputs are dense whatever their
+    inputs' coverage, so the second pass never sees sparsity."""
     firsts = [_merge_ids(store, ids[i:i + spec.group_size], spec, seed,
                          base=base, cache=cache, use_cache=use_cache,
-                         base_digest=base_digest)
+                         base_digest=base_digest, coverages=coverages)
               for i in range(0, len(ids), spec.group_size)]
     return engine.merge(firsts, base=base, seed=seed + 1,
                         use_cache=use_cache, spec=spec, cache=cache)
@@ -141,15 +169,37 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
                     "resolve() requires a non-empty visible set")
             root = state.merkle_root()
         seed = seed_from_root(root)
-        if any(c is not None for c in state.coverage().values()):
-            raise NotImplementedError(
-                "sparse contributions are not ported yet (ROADMAP A4)")
+        coverages = state.coverage()
     if spec.group_size is not None:
         return _grouped_resolve(state.store, ids, spec, seed, base=base,
                                 cache=cache, use_cache=use_cache,
-                                base_digest=base_digest)
+                                base_digest=base_digest,
+                                coverages=coverages)
     return _merge_ids(state.store, ids, spec, seed, base=base, cache=cache,
-                      use_cache=use_cache, base_digest=base_digest)
+                      use_cache=use_cache, base_digest=base_digest,
+                      coverages=coverages)
+
+
+def resolve(state: CRDTMergeState, spec: Any, base: Any = None, *,
+            reduction: Optional[str] = None, use_cache: bool = True,
+            cache: Optional[EngineCache] = None, trust: Any = None,
+            **cfg) -> Any:
+    """Resolve the state. `spec` is a `MergeSpec`.
+
+    The historical form `resolve(state, "ties", trim=0.3)` still works
+    but is DEPRECATED: it wraps the unvalidated kwargs in a lenient
+    MergeSpec and delegates, emitting DeprecationWarning."""
+    if isinstance(spec, MergeSpec):
+        return resolve_spec(state, coerce_spec(spec, cfg,
+                                               reduction=reduction),
+                            base=base, trust=trust, cache=cache,
+                            use_cache=use_cache)
+    _warn_shim("resolve(state, strategy_name, **cfg)",
+               "resolve(state, MergeSpec(strategy, cfg)) or "
+               "Replica.resolve(spec)")
+    lenient = coerce_spec(spec, cfg, reduction=reduction, lenient=True)
+    return resolve_spec(state, lenient, base=base, trust=trust,
+                        cache=cache, use_cache=use_cache)
 
 
 def hierarchical_resolve(states: List[CRDTMergeState], spec: MergeSpec,
@@ -185,3 +235,101 @@ def reference_apply(strategy_name: str, contribs: List[Any], *, base=None,
         return pairwise_fold(contribs, lambda x, y, sd: strat(
             [x, y], base=base, seed=sd, **cfg), seed, reduction)
     return strat(contribs, base=base, seed=seed, **cfg)
+
+
+def sparse_reference_apply(strategy_name: str, contribs: List[Any],
+                           coverages: List[Optional[Tuple[str, ...]]], *,
+                           base: Any, seed: int = 0,
+                           reduction: str = "fold", **cfg) -> Any:
+    """Reference semantics for mixed dense/sparse contribution lists,
+    built ONLY from the whole-tree path: each model leaf is merged over
+    exactly its covering contribution subset, at its global flatten
+    index; zero-coverage leaves inherit the base. For each distinct
+    covering subset, its contributions are densified (base fill) and
+    `reference_apply` runs over the whole model; the leaves whose subset
+    it is are kept — an engine-free definition the sparse engine path is
+    held to bitwise."""
+    strat = get_strategy(strategy_name)
+    if strat.whole_model:
+        dense = engine.densify_contributions(contribs, coverages, base)
+        return reference_apply(strategy_name, dense, base=base, seed=seed,
+                               reduction=reduction, **cfg)
+    flat, treedef = pytree.flatten_with_path(base)
+    paths = [pytree.keystr(p) for p, _ in flat]
+    subset_of = {p: tuple(j for j, cov in enumerate(coverages)
+                          if cov is None or p in cov) for p in paths}
+    out: List[Any] = [None] * len(paths)
+    for subset in sorted(set(subset_of.values())):
+        if not subset:
+            for i, p in enumerate(paths):
+                if subset_of[p] == subset:
+                    out[i] = flat[i][1]
+            continue
+        dense = engine.densify_contributions(
+            [contribs[j] for j in subset],
+            [coverages[j] for j in subset], base)
+        ref = pytree.leaves(reference_apply(
+            strategy_name, dense, base=base, seed=seed,
+            reduction=reduction, **cfg))
+        for i, p in enumerate(paths):
+            if subset_of[p] == subset:
+                out[i] = ref[i]
+    return treedef.unflatten(out)
+
+
+# ---------------------------------------------------------------------------
+# Incremental resolve (paper §7.2 L3 mitigation 3)
+# ---------------------------------------------------------------------------
+
+
+class IncrementalMean:
+    """O(p)-per-contribution running weight average.
+
+    Matches weight_average over the same visible set because fp32 running
+    sums are order-dependent only through accumulation order — so
+    `sync()` re-folds in canonical order whenever out-of-order
+    contributions arrive, and drops ids the state has since retracted.
+    Fast path: appends.
+    """
+
+    def __init__(self):
+        self._sum = None
+        self._ids: List[str] = []
+
+    def add(self, element_id: str, contribution) -> None:
+        if self._sum is None:
+            self._sum = pytree.tree_map(
+                lambda x: x.to(torch.float32), contribution)
+        else:
+            self._sum = pytree.tree_map(
+                lambda a, x: a + x.to(torch.float32), self._sum,
+                contribution)
+        self._ids.append(element_id)
+
+    def sync(self, state: CRDTMergeState) -> bool:
+        """Re-fold from the state's canonical visible set: retracted ids
+        are dropped, missed ones folded in, and accumulation order
+        restored to canonical. Returns True if a re-fold was needed.
+        Raises KeyError if a visible element's payload is absent from
+        the store (resolve would fail there too)."""
+        ids = canonical_order(state)
+        absent = [eid for eid in ids if eid not in state.store]
+        if absent:
+            raise KeyError(f"store lacks payloads for {absent}; "
+                           "fetch missing blobs before sync()")
+        if ids == self._ids:
+            return False
+        self._sum = None
+        self._ids = []
+        for eid in ids:
+            self.add(eid, state.store[eid])
+        return True
+
+    def value(self):
+        k = len(self._ids)
+        if k == 0:
+            raise ValueError("IncrementalMean has no contributions")
+        return pytree.tree_map(lambda s: s / k, self._sum)
+
+    def count(self) -> int:
+        return len(self._ids)

@@ -1,9 +1,10 @@
 """Metrics registry — deterministic, catalog-declared, per-replica.
 
-A copy of the part of `repro.obs.metrics` (which imports no JAX, but
-the port imports nothing of `repro`) that the engine and resolve record
-through, with the catalog cut to the series they record. The names,
-kinds, labels and deterministic flags are the reference's.
+A copy of `repro.obs.metrics` (which imports no JAX, but the port
+imports nothing of `repro`) without its process-default registry and
+enable switch: every series is recorded into a registry its owner
+holds. The catalog is the reference's, name for name: kinds, labels,
+buckets and deterministic flags.
 
 Three metric kinds over labeled series:
 
@@ -74,10 +75,12 @@ def declare(name: str, kind: str, help: str, *,  # noqa: A002
     return spec
 
 
-# Millisecond histogram boundaries (headline quantiles come from the
-# sample reservoir).
+# Millisecond and second histogram boundaries (headline quantiles come
+# from the sample reservoir).
 _MS_BUCKETS = (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
                25.0, 50.0, 100.0)
+_S_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
+              10.0, 50.0)
 
 # --------------------------------------------------------------------------
 # The catalog: <subsystem>_<what>[_total for counters]; units are
@@ -116,6 +119,70 @@ declare("resolve_layer1_overhead_ms", "histogram",
         "CRDT-side resolve overhead: gate + canonical order + Merkle "
         "root + seed derivation, per resolve (the paper's <0.5 ms claim)",
         buckets=_MS_BUCKETS)
+# The gossip network and ConvergenceProbe record the gossip_* and probe_*
+# series; the sync, net, journal, store and repair series are declared
+# for the anti-entropy, transport and durability modules (ROADMAP A6).
+declare("sync_events_total", "counter",
+        "SyncNode protocol events (per node; the former stats dict)",
+        labels=("event",))
+declare("sync_handle_seconds", "histogram",
+        "Time spent in SyncNode.handle per wire message",
+        labels=("type",), buckets=_S_BUCKETS)
+declare("sync_chunk_windows", "gauge",
+        "Chunk-request windows currently outstanding (per node)")
+declare("sync_source_pool", "gauge",
+        "Multi-source pool size: (eid, peer) source records (per node)")
+declare("sync_wire_bytes_total", "counter",
+        "Anti-entropy bytes on wire by session phase",
+        labels=("phase",))
+declare("sync_wire_frames_total", "counter",
+        "Anti-entropy frames on wire by session phase",
+        labels=("phase",))
+declare("net_bytes_total", "counter",
+        "Frame bytes sent through a transport, by message type",
+        labels=("type",))
+declare("net_frames_total", "counter",
+        "Frames sent through a transport, by message type",
+        labels=("type",))
+declare("net_peer_bytes_total", "counter",
+        "Frame bytes sent per directed (src, dst) pair",
+        labels=("src", "dst"))
+declare("net_queue_depth", "gauge",
+        "Frames queued in the transport / simulator event loop")
+declare("sim_inflight_bytes", "gauge",
+        "Bytes in flight in the simulated network")
+declare("gossip_rounds_total", "counter",
+        "Gossip rounds driven, by protocol",
+        labels=("protocol",))
+declare("gossip_sends_total", "counter",
+        "Directed gossip pushes issued")
+declare("gossip_payloads_shipped_total", "counter",
+        "Payloads included in gossip pushes (placement said ship)")
+declare("gossip_payloads_filtered_total", "counter",
+        "Payloads withheld from gossip pushes (placed elsewhere)")
+declare("probe_root_divergence", "gauge",
+        "Distinct Merkle roots across the probed fleet minus one "
+        "(0 = converged)", deterministic=True)
+declare("probe_replica_diverged", "gauge",
+        "1 while this replica's root differs from the plurality root",
+        labels=("node",), deterministic=True)
+declare("probe_convergence_seconds", "histogram",
+        "Time from first observed root divergence to root equality "
+        "(probe clock: virtual under simulation)", buckets=_S_BUCKETS)
+declare("launch_events_total", "counter",
+        "Structured CLI events emitted by launch/ tools",
+        labels=("event",))
+declare("journal_events_total", "counter",
+        "Durable-store events: appends, fsyncs, replays, snapshots, "
+        "compactions, torn-tail repairs (per DurableStore)",
+        labels=("event",), deterministic=True)
+declare("store_log_bytes", "gauge",
+        "Bytes on disk across a DurableStore's blob log + WAL",
+        deterministic=True)
+declare("repair_events_total", "counter",
+        "Replication-repair events on membership change: re-placed "
+        "eids, repair fetches, shed blobs (per SyncNode)",
+        labels=("event",), deterministic=True)
 
 
 # ---------------------------------------------------------------------------

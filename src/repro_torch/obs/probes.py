@@ -1,19 +1,27 @@
-"""Layer-1 overhead probe (the part of `repro.obs.probes` the resolve
-path records through).
+"""CRDT-specific probes (`repro.obs.probes`, the Layer-1 overhead and
+convergence parts).
 
-`layer1_timer` feeds `resolve_layer1_overhead_ms`. Layer-1 work is the
-CRDT-side slice of a resolve: canonical ordering, Merkle root, seed
-derivation — everything *except* the strategy math. The paper claims
-this stays under 0.5 ms.
+  * `layer1_timer` feeds `resolve_layer1_overhead_ms`. Layer-1 work is
+    the CRDT-side slice of a resolve: canonical ordering, Merkle root,
+    seed derivation — everything *except* the strategy math. The paper
+    claims this stays under 0.5 ms.
+  * `ConvergenceProbe` watches a fleet's Merkle roots:
+    `probe_root_divergence` is (#distinct roots − 1), so 0 means the
+    fleet agrees; `probe_replica_diverged{node=...}` flags stragglers;
+    `probe_convergence_seconds` times each divergence episode on the
+    clock the caller gives (a round counter under simulation, so the
+    number is a property of the schedule, not the host).
+
+`wire_phase` waits for the wire (ROADMAP A6).
 """
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 from .metrics import MetricsRegistry
 
-__all__ = ["layer1_timer"]
+__all__ = ["layer1_timer", "ConvergenceProbe"]
 
 
 class layer1_timer:
@@ -40,3 +48,71 @@ class layer1_timer:
         self.ms = (time.perf_counter() - self._t0) * 1e3
         self._registry.histogram("resolve_layer1_overhead_ms").observe(
             self.ms)
+
+
+class ConvergenceProbe:
+    """Tracks Merkle-root agreement across a set of replicas.
+
+    Feed it `observe({node_id: root_hex})` whenever fleet state may
+    have changed (e.g. once per gossip round). It maintains the
+    divergence gauges and, across a divergence episode, one interval on
+    the supplied clock (required: the port reads no clock of its own
+    here):
+
+    >>> reg = MetricsRegistry()
+    >>> clk = iter(range(100))
+    >>> p = ConvergenceProbe(registry=reg, clock=clk.__next__)
+    >>> p.observe({"a": "r1", "b": "r1"})   # agree: no episode
+    True
+    >>> p.observe({"a": "r1", "b": "r2"})   # diverge at t=1
+    False
+    >>> reg.gauge("probe_root_divergence").value()
+    1.0
+    >>> p.observe({"a": "r2", "b": "r2"})   # re-agree at t=2
+    True
+    >>> reg.histogram("probe_convergence_seconds").count()
+    1
+    >>> p.episodes
+    [(1, 2)]
+    """
+
+    __slots__ = ("registry", "clock", "_diverged_at", "episodes")
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None, *,
+                 clock: Callable[[], float]):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self.clock = clock
+        self._diverged_at: Optional[float] = None
+        self.episodes: list = []        # closed (t_diverge, t_converge)
+
+    def observe(self, roots: Dict[str, str]) -> bool:
+        """Record one fleet observation; returns True if converged."""
+        reg = self.registry
+        distinct = set(roots.values())
+        reg.gauge("probe_root_divergence").set(max(0, len(distinct) - 1))
+        if len(distinct) <= 1:
+            plurality = next(iter(distinct), None)
+        else:
+            counts: Dict[str, int] = {}
+            for r in roots.values():
+                counts[r] = counts.get(r, 0) + 1
+            # deterministic tie-break: count desc, then root hex
+            plurality = min(counts, key=lambda r: (-counts[r], r))
+        for node, root in sorted(roots.items()):
+            reg.gauge("probe_replica_diverged").set(
+                0.0 if root == plurality else 1.0, node=node)
+        converged = len(distinct) <= 1
+        now = self.clock()
+        if not converged and self._diverged_at is None:
+            self._diverged_at = now
+        elif converged and self._diverged_at is not None:
+            dt = now - self._diverged_at
+            reg.histogram("probe_convergence_seconds").observe(dt)
+            self.episodes.append((self._diverged_at, now))
+            self._diverged_at = None
+        return converged
+
+    @property
+    def diverged(self) -> bool:
+        return self._diverged_at is not None

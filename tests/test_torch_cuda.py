@@ -22,7 +22,8 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
   engine       the int8 and DARE kernel routes on CUDA tensors equal
                the same merges on CPU tensors (plain versions), and
                the exact DARE path's threefry draws agree across the
-               two devices
+               two devices; a sparse plan whose fused groups have
+               k = 1, 4 and 5 through B1 and B3-B5 equals the CPU's
   per-leaf     `repro_torch.kernels`' six entry points on the card equal
                the same calls on the CPU: bitwise, except slerp_merge,
                whose trig scalars go through the two devices' own
@@ -163,6 +164,59 @@ def test_cuda_engine_route_equals_cpu(route):
                         max_batch_bytes=600, **kw)
     for g, w in zip(pytree.leaves(got), pytree.leaves(want)):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def _mixed_k(dtype):
+    """Six sparse contributions over a base (CPU): four cover d1, d2,
+    s1, s2, a fifth s1, s2, a sixth u1, u2; `big` is covered by none.
+    So the plan fuses a k = 4 group, a k = 5 group and a k = 1 group."""
+    rng = np.random.default_rng(9)
+
+    def leaf(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dtype)
+
+    sizes = {"big": 5000, "d1": 2047, "d2": 2049, "s1": 700, "s2": 2048,
+             "u1": 1, "u2": 3000}
+    base = {k: leaf(n) for k, n in sizes.items()}
+    covers = [("d1", "d2", "s1", "s2")] * 4 + [("s1", "s2"), ("u1", "u2")]
+    contribs = [{k: base[k] + 0.1 * leaf(sizes[k]) for k in c}
+                for c in covers]
+    covs = [tuple(sorted(f"['{k}']" for k in c)) for c in covers]
+    return contribs, covs, base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["weight_average", "task_arithmetic",
+                                  "ties"])
+def test_cuda_mixed_k_plan_equals_cpu(name, dtype):
+    """B1 (linear family) and B3-B5 (histogram TIES) over one plan whose
+    groups have k = 1, 4 and 5: the merge on CUDA tensors equals the
+    same merge on CPU tensors (plain versions), bitwise, with one
+    dispatch per group."""
+    contribs, covs, base = _mixed_k(dtype)
+    cfg = {"trim_method": "histogram"} if name == "ties" else {}
+    kind = "ties_hist" if name == "ties" else "nary_accum"
+    outs = []
+    for dev in ("cuda", "cpu"):
+        cache = engine.EngineCache()
+        kernels.reset_launch_counts()
+        outs.append(engine.merge(
+            [_on(c, dev) for c in contribs], name, base=_on(base, dev),
+            coverages=covs, kernels=True, use_cache=False,
+            max_batch_bytes=1 << 20, cache=cache, **cfg))
+        assert cache.obs.counter("kernel_dispatch_total").value(
+            kernel=kind) == 3
+        assert cache.obs.gauge("engine_sparse_leaves_skipped").value() == 7
+        counts = kernels.launch_counts()
+        launched = ("nary_accum",) if kind == "nary_accum" else \
+            ("block_amax", "block_hist", "ties_block")
+        assert all(counts[k] == (3 if dev == "cuda" else 0)
+                   for k in launched), counts
+    for g, w in zip(pytree.leaves(outs[0]), pytree.leaves(outs[1])):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert torch.equal(outs[1]["big"], base["big"])
 
 
 # ------------------------------------------------------------ B1, B3-B5

@@ -217,10 +217,15 @@ def test_kernel_outputs_never_enter_the_cache():
 
 
 def test_unported_paths_raise():
-    """What still raises: an absent payload (fetch-on-resolve, A6) and
-    sparse contributions (A4), on the plain, gated and hierarchical
-    paths alike."""
-    cs, _ = _contribs(seed=6)
+    """What still raises: an absent payload (fetch-on-resolve, A6).
+    Sparse contributions (A4) resolve since slice 8, on the plain, gated
+    and hierarchical paths alike: bitwise equal to the port's
+    `sparse_reference_apply` (the gated one over the gated ids with
+    their seed)."""
+    from repro_torch.core.merkle import merkle_root
+    from repro_torch.core.resolve import (
+        canonical_order, seed_from_root, sparse_reference_apply)
+    cs, base = _contribs(seed=6)
     tc = [convert.from_numpy_tree(c, "cpu") for c in cs]
     assert get_strategy("svd_knot_tying").whole_model
     rep = Replica("r", device="cpu")
@@ -231,10 +236,29 @@ def test_unported_paths_raise():
     with pytest.raises(KeyError, match="A6"):
         rep.resolve(MergeSpec("svd_knot_tying"))
     rep.state.store.update(stored)
-    rep.add({"emb": tc[0]["emb"]}, leaves=["['emb']"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        rep.resolve(MergeSpec("ties", trust_threshold=0.5))
-    with pytest.raises(NotImplementedError, match="A4"):
-        rep.resolve(MergeSpec("ties", group_size=2))
-    with pytest.raises(NotImplementedError, match="A4"):
-        rep.resolve(MergeSpec("weight_average"))
+    ref = rep.register_base(convert.from_numpy_tree(base, "cpu"))
+    sub = {"emb": tc[0]["emb"] + 1.0}
+    eid = rep.add(sub, leaves=["['emb']"])
+    cov = rep.state.coverage()
+    ids = canonical_order(rep.state)
+    kept = [i for i in ids if i != eid]
+    for spec, sel in ((MergeSpec("ties", base_ref=ref), ids),
+                      (MergeSpec("weight_average", base_ref=ref), ids),
+                      (MergeSpec("ties", base_ref=ref, trust_threshold=0.5),
+                       kept)):
+        if spec.trust_threshold is not None:
+            rep.report(eid, "equivocation")
+            seed = seed_from_root(merkle_root(
+                [bytes.fromhex(i) for i in sel]))
+        else:
+            seed = seed_from_root(rep.merkle_root())
+        want = sparse_reference_apply(
+            spec.strategy, [rep.state.store[i] for i in sel],
+            [cov[i] for i in sel], base=rep._bases[ref], seed=seed)
+        got = rep.resolve(spec, use_cache=False)
+        for g, w in zip(pytree.leaves(got), pytree.leaves(want)):
+            assert torch.equal(g, w), spec
+    grouped = rep.resolve(MergeSpec("ties", base_ref=ref, group_size=2),
+                          use_cache=False)
+    assert [tuple(t.shape) for t in pytree.leaves(grouped)] == \
+        [tuple(t.shape) for t in pytree.leaves(tc[0])]
