@@ -546,10 +546,10 @@ def phase_kernels(cfg) -> dict:
 def phase_perleaf_kernels(rows: dict, g) -> None:
     """B7 and B8 against their plain versions at the per-leaf path's
     largest leaf, an FFN weight of 32 x 3072 x 8192 = 805,306,368
-    elements (a multiple of the tile, so no padding): B7 on K bf16 rows,
-    B8 on two. B8's library calls take an fp32 copy of the two rows
-    (cuBLAS takes no bf16 rows into fp32 sums): the three dot products
-    as `X @ X.T`, the combine as `c @ X`."""
+    elements (a multiple of the tile, so no padding): B7 on K bf16 rows
+    and on K + 1, B8 on two. B8's library calls take an fp32 copy of the
+    two rows (cuBLAS takes no bf16 rows into fp32 sums): the three dot
+    products as `X @ X.T`, the combine as `c @ X`."""
     from repro_torch.kernels import slerp as S
     from repro_torch.kernels import ties as T
     from repro_torch.kernels.config import kernel_env
@@ -570,8 +570,7 @@ def phase_perleaf_kernels(rows: dict, g) -> None:
                   K * n * 2 + n * 4 * 2 + K * 4, 10 * K * n + 3 * n,
                   "src/repro_torch/csrc/ties.cu",
                   "src/repro/kernels/ties.py:44",
-                  library_note="no torch call trims each row at its own "
-                  "threshold and means the sign-agreeing entries")
+                  library_note=NO_LIBRARY["ties_leaf"])
     u, v = x[0], x[1]
     c = torch.tensor([0.6, 0.4], device=dev)
     xf = torch.stack([u, v]).to(torch.float32)
@@ -589,7 +588,22 @@ def phase_perleaf_kernels(rows: dict, g) -> None:
                   "src/repro_torch/csrc/slerp.cu",
                   "src/repro/kernels/slerp.py:36",
                   library=lambda: torch.mm(c.view(1, 2), xf))
-    del x, xf, base, u, v
+    del x, xf, u, v
+    torch.cuda.empty_cache()
+    # B7 at the sparse path's height, K + 1 rows (a reading: the same
+    # kernel and dispatch)
+    x = (torch.randn((K + 1, n), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    thr = torch.rand((K + 1,), generator=g, device=dev) * 0.01
+    hold_and_time(rows, "ties_leaf",
+                  lambda: T.ties_leaf(x, base, thr, block),
+                  lambda: T.ties_leaf_plain(x, base, thr, block),
+                  (K + 1) * n * 2 + n * 4 * 2 + (K + 1) * 4,
+                  10 * (K + 1) * n + 3 * n,
+                  "src/repro_torch/csrc/ties.cu",
+                  "src/repro/kernels/ties.py:44",
+                  library_note=NO_LIBRARY["ties_leaf"], into=f"k{K + 1}")
+    del x, base
     torch.cuda.empty_cache()
 
 
@@ -740,6 +754,8 @@ NO_LIBRARY = {
     "dare_block": "torch has no counter-hash RNG call",
     "quant_nary": "no torch call dequantizes int8 rows with per-tile "
                   "scales and accumulates",
+    "ties_leaf": "no torch call trims each row at its own threshold and "
+                 "means the sign-agreeing entries",
 }
 FFN_LEAF = 32 * 3072 * 8192     # Phi-3-mini's largest leaf (w_up et al.)
 STRATEGIES = (("weight_average", {}, False),

@@ -53,57 +53,22 @@ __device__ __forceinline__ void load_row(const uint16_t* p, float (&v)[VEC]) {
   }
 }
 
-// The fused TIES arithmetic of one column c of a [k, np] stack
-// (repro/kernels/ties.py `ties_tile`), shared by B5 (per-tile thresholds)
-// and B7 (one threshold per contribution): trim at th[i], elect the sign
-// of the k-sum, mean of the agreeing entries. Every sum runs over k in
-// index order from zero. KMAX > 0: the k trimmed values stay in registers
-// (k <= KMAX, unrolled so every index is a constant); KMAX == 0: any k,
-// the second pass re-reads the column.
-template <typename T, int KMAX>
-__device__ __forceinline__ float ties_column(const T* __restrict__ x,
-                                             long long np, long long c,
-                                             int k, float b,
-                                             const float* __restrict__ th) {
-  float tv[KMAX > 0 ? KMAX : 1];
-  float s = 0.f;
-  if (KMAX > 0) {
-#pragma unroll
-    for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i) {
-      if (i < k) {
-        const float t = __fsub_rn(widen(x[static_cast<long long>(i) * np + c]), b);
-        tv[i] = __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f);
-        s = __fadd_rn(s, tv[i]);
-      }
-    }
-  } else {
-    for (int i = 0; i < k; ++i) {
-      const float t = __fsub_rn(widen(x[static_cast<long long>(i) * np + c]), b);
-      s = __fadd_rn(s, __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f));
-    }
-  }
-  const float elected = sign_of(s);
-  float cnt = 0.f, acc = 0.f;
-  if (KMAX > 0) {
-#pragma unroll
-    for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i) {
-      if (i < k) {
-        const float tr = tv[i];
-        const float ag = (sign_of(tr) == elected && tr != 0.f) ? 1.f : 0.f;
-        cnt = __fadd_rn(cnt, ag);
-        acc = __fadd_rn(acc, __fmul_rn(tr, ag));
-      }
-    }
-  } else {
-    for (int i = 0; i < k; ++i) {
-      const float t = __fsub_rn(widen(x[static_cast<long long>(i) * np + c]), b);
-      const float tr = __fmul_rn(t, fabsf(t) >= th[i] ? 1.f : 0.f);
-      const float ag = (sign_of(tr) == elected && tr != 0.f) ? 1.f : 0.f;
-      cnt = __fadd_rn(cnt, ag);
-      acc = __fadd_rn(acc, __fmul_rn(tr, ag));
-    }
-  }
-  return __fadd_rn(b, __fdiv_rn(acc, fmaxf(cnt, 1.f)));
+// The two steps of the fused TIES arithmetic (repro/kernels/ties.py
+// `ties_tile`) that touch one row of one column: `trim` keeps tau = x - b
+// where |tau| >= th (times 0 elsewhere, so a NaN stays NaN); `agree` adds
+// a trimmed value that has the elected sign, and is not zero, to the
+// column's count and sum. B5 (csrc/histogram.cu) and B7 (csrc/ties.cu)
+// both run them, every sum over k in index order from zero.
+__device__ __forceinline__ float trim(float x, float b, float th) {
+  const float t = __fsub_rn(x, b);
+  return __fmul_rn(t, fabsf(t) >= th ? 1.f : 0.f);
+}
+
+__device__ __forceinline__ void agree(float tr, float elected, float& cnt,
+                                      float& acc) {
+  const float ag = (sign_of(tr) == elected && tr != 0.f) ? 1.f : 0.f;
+  cnt = __fadd_rn(cnt, ag);
+  acc = __fadd_rn(acc, __fmul_rn(tr, ag));
 }
 
 // Grid for a grid-stride loop over `items` with `threads` per block:

@@ -59,17 +59,39 @@
 //   B5 ties_block  replaces `ties_block_pallas` (`_ties_block_kernel` ->
 //                  repro/kernels/ties.py `ties_tile`): trim at the tile's
 //                  per-contribution threshold, elect the sign of the
-//                  k-sum, mean of the agreeing entries. Bound: bytes; it
-//                  streams the stack once (twice within one thread when k
-//                  exceeds its register budget, the second time from L1 /
-//                  L2). Each thread owns one column and sums over k in
-//                  index order; neighbouring threads take neighbouring
-//                  columns, so every row read is coalesced.
+//                  k-sum, mean of the agreeing entries (`merge::trim`,
+//                  `merge::agree`, every sum over k in index order).
+//
+// B5 is bound by device-memory bytes too: the stack and the base read
+// once, the fp32 output written once, ~12 operations per stacked element.
+// Its first design ran one thread per column in a grid-stride loop and
+// lost three ways (62 % of its bound at k = 4, 45 % at k = 5); the design
+// below answers each:
+//   1. Each column found its tile's thresholds through a 64-bit division
+//      by the runtime block, and read them again for every row. Now one
+//      CTA of 128 threads owns a tile: its k thresholds are read once
+//      into registers (a broadcast load) and nothing is divided.
+//   2. Two-byte scalar loads, a row at a time. Now a thread owns V
+//      adjacent columns at a time (V = 8, or 4 where k is 9-16; two
+//      vectors a thread at a 2048-column tile): one 16-byte load per row
+//      for bf16 (two for fp32), the base in 16-byte loads, the output in
+//      16-byte stores, all k rows' loads issued before the arithmetic.
+//   3. Register instances for 4, 8 and 16 rows whose unrolled loops were
+//      predicated on the runtime k, so k = 5 walked 3 dead rows. Now
+//      there is an instance per exact k up to 16, every loop unrolled
+//      with no predicate, the k trimmed values kept in registers for the
+//      agreement pass; k = 9-16 take 4 columns a thread so that ptxas
+//      gives them few enough registers for 5-9 CTAs an SM (8 columns
+//      with a second pass that loads the rows again read up to 11 %
+//      slower). Above 16 rows one instance takes any k in chunks of 4
+//      loads (8 took 13 % longer at k = 17) and loads the rows again for
+//      its second pass.
+// Occupancy sets the pace: ptxas is left to choose the registers, which
+// it keeps low; the one instance where that spills has launch bounds of
+// its own. `tools/ties_time.py --variants` times each choice above.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // B5
 
 // ------------------------------------------------------------- B3, B4
 
@@ -315,20 +337,157 @@ __global__ void __launch_bounds__(kHistWarps * kLanes)
 
 // ------------------------------------------------------------- B5
 
-// One thread per column (grid-stride); the tile arithmetic is
-// `merge::ties_column`, with the column's tile's [k] thresholds.
-template <typename T, int KMAX>
-__global__ void ties_block_kernel(const T* __restrict__ x,
-                                  const float* __restrict__ base,
-                                  const float* __restrict__ thr,
-                                  float* __restrict__ out, int k, long long np,
-                                  int block) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       c < np; c += stride)
-    out[c] = merge::ties_column<T, KMAX>(x, np, c, k, base[c],
-                                         thr + (c / block) * k);
+constexpr int kTiesThreads = 128;  // a tile's CTA: 2 vectors a thread
+constexpr int kTiesChunk = 4;      // rows a thread loads at once, any k
+
+// V adjacent columns of one row, as loaded: V * sizeof(T) bytes in 16-byte
+// loads (one 8-byte load for 4 bf16 columns); `operator[]` widens column
+// e to fp32 (exact).
+template <typename T, int V>
+struct Cols {
+  static constexpr int kWords = V * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[kWords];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    if constexpr (kWords % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < kWords; j += 4) {
+        const uint4 q = reinterpret_cast<const uint4*>(p)[j / 4];
+        w[j] = q.x;
+        w[j + 1] = q.y;
+        w[j + 2] = q.z;
+        w[j + 3] = q.w;
+      }
+    } else {
+      static_assert(kWords == 2, "4 bf16 columns: one 8-byte load");
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      w[0] = q.x;
+      w[1] = q.y;
+    }
+  }
+
+  __device__ __forceinline__ float operator[](int e) const {
+    if constexpr (sizeof(T) == 2)
+      return __uint_as_float((e & 1) ? (w[e >> 1] & 0xFFFF0000u)
+                                     : (w[e >> 1] << 16));
+    else
+      return __uint_as_float(w[e]);
+  }
+};
+
+// One CTA per tile; thread q owns the V columns from q * V of it. K > 0:
+// exactly K rows, every loop unrolled, the thresholds and the K x V
+// trimmed values in registers for the agreement pass. K == 0: any k, in
+// chunks of kTiesChunk rows, with the second pass loading again.
+template <typename T, int K, int V>
+__device__ __forceinline__ void ties_tile(const T* __restrict__ x,
+                                          const float* __restrict__ base,
+                                          const float* __restrict__ thr,
+                                          float* __restrict__ out, int k,
+                                          long long np, int block) {
+  const long long tile = blockIdx.x;
+  const float* __restrict__ th = thr + tile * (K > 0 ? K : k);
+  float thv[K > 0 ? K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) thv[i] = th[i];
+  }
+  const int nv = block / V;
+  for (int q = threadIdx.x; q < nv; q += kTiesThreads) {
+    const long long c = tile * block + static_cast<long long>(q) * V;
+    const T* __restrict__ col = x + c;
+    Cols<float, V> b;
+    b.load(base + c);
+    float s[V], el[V], cnt[V], acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s[e] = cnt[e] = acc[e] = 0.f;
+    if constexpr (K > 0) {
+      Cols<T, V> r[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) r[i].load(col + i * np);
+      float tv[K][V];
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          tv[i][e] = merge::trim(r[i][e], b[e], thv[i]);
+          s[e] = __fadd_rn(s[e], tv[i][e]);
+        }
+#pragma unroll
+      for (int e = 0; e < V; ++e) el[e] = merge::sign_of(s[e]);
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          merge::agree(tv[i][e], el[e], cnt[e], acc[e]);
+    } else {
+      for (int i0 = 0; i0 < k; i0 += kTiesChunk) {
+        Cols<T, V> r[kTiesChunk];
+#pragma unroll
+        for (int j = 0; j < kTiesChunk; ++j)
+          if (i0 + j < k) r[j].load(col + (i0 + j) * np);
+#pragma unroll
+        for (int j = 0; j < kTiesChunk; ++j)
+          if (i0 + j < k) {
+            const float t = th[i0 + j];
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              s[e] = __fadd_rn(s[e], merge::trim(r[j][e], b[e], t));
+          }
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) el[e] = merge::sign_of(s[e]);
+      for (int i0 = 0; i0 < k; i0 += kTiesChunk) {
+        Cols<T, V> r[kTiesChunk];
+#pragma unroll
+        for (int j = 0; j < kTiesChunk; ++j)
+          if (i0 + j < k) r[j].load(col + (i0 + j) * np);
+#pragma unroll
+        for (int j = 0; j < kTiesChunk; ++j)
+          if (i0 + j < k) {
+            const float t = th[i0 + j];
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              merge::agree(merge::trim(r[j][e], b[e], t), el[e], cnt[e],
+                           acc[e]);
+          }
+      }
+    }
+    float o[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o[e] = __fadd_rn(b[e], __fdiv_rn(acc[e], fmaxf(cnt[e], 1.f)));
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      *reinterpret_cast<float4*>(out + c + j) =
+          make_float4(o[j], o[j + 1], o[j + 2], o[j + 3]);
+  }
+}
+
+// Left to itself, ptxas takes 44-128 registers (4-11 CTAs an SM); launch
+// bounds that cap them at 128 or 255 make it take more, and cost 2-20 %
+// at k >= 5.
+template <typename T, int K, int V>
+__global__ void __launch_bounds__(kTiesThreads)
+    ties_block_kernel(const T* __restrict__ x,
+                      const float* __restrict__ base,
+                      const float* __restrict__ thr,
+                      float* __restrict__ out, int k, long long np,
+                      int block) {
+  ties_tile<T, K, V>(x, base, thr, out, k, np, block);
+}
+
+// The same, held to 96 registers (5 CTAs an SM): left to itself, ptxas
+// gives bf16 at K = 14 96 registers and spills 8 bytes; held, it spills
+// none (`tools/ties_time.py --variants`, min_blocks5).
+template <typename T, int K, int V>
+__global__ void __launch_bounds__(kTiesThreads, 5)
+    ties_block_kernel_r96(const T* __restrict__ x,
+                          const float* __restrict__ base,
+                          const float* __restrict__ thr,
+                          float* __restrict__ out, int k, long long np,
+                          int block) {
+  ties_tile<T, K, V>(x, base, thr, out, k, np, block);
 }
 
 // ------------------------------------------------------------- launches
@@ -381,38 +540,60 @@ int hist_launch(const void* x, const void* base, const void* amax,
 }
 
 template <typename T>
+using TiesKernel = void (*)(const T*, const float*, const float*, float*,
+                            int, long long, int);
+
+// The instance for exactly K rows (K <= 16): 8 columns a thread up to 8
+// rows, 4 from 9 to 16.
+template <typename T, int K>
+TiesKernel<T> ties_instance() {
+  if constexpr (K == 14 && sizeof(T) == 2)
+    return ties_block_kernel_r96<T, K, 4>;
+  else if constexpr (K > 8)
+    return ties_block_kernel<T, K, 4>;
+  else
+    return ties_block_kernel<T, K, 8>;
+}
+
+template <typename T>
 int ties_launch(const void* x, const void* base, const void* thr, void* out,
                 int k, long long np, int block, cudaStream_t stream) {
-  const unsigned int grid = merge::grid_for(np, kThreads);
-  const T* xp = static_cast<const T*>(x);
-  const float* bp = static_cast<const float*>(base);
-  const float* tp = static_cast<const float*>(thr);
-  float* op = static_cast<float*>(out);
-  // the smallest register budget that holds k: an instance for more
-  // rows runs its unrolled, predicated loops that much longer (at k = 5
-  // the 16-row instance streamed 808 GB/s on an H100, the 4-row one 2062
-  // GB/s at k = 4)
-  if (k <= 4)
-    ties_block_kernel<T, 4><<<grid, kThreads, 0, stream>>>(xp, bp, tp, op, k,
-                                                          np, block);
-  else if (k <= 8)
-    ties_block_kernel<T, 8><<<grid, kThreads, 0, stream>>>(xp, bp, tp, op, k,
-                                                          np, block);
-  else if (k <= 16)
-    ties_block_kernel<T, 16><<<grid, kThreads, 0, stream>>>(xp, bp, tp, op,
-                                                           k, np, block);
-  else
-    ties_block_kernel<T, 0><<<grid, kThreads, 0, stream>>>(xp, bp, tp, op, k,
-                                                          np, block);
+  const long long nb = np / block;
+  if (nb > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0) return 0;
+  TiesKernel<T> kern;
+  switch (k) {
+    case 1: kern = ties_instance<T, 1>(); break;
+    case 2: kern = ties_instance<T, 2>(); break;
+    case 3: kern = ties_instance<T, 3>(); break;
+    case 4: kern = ties_instance<T, 4>(); break;
+    case 5: kern = ties_instance<T, 5>(); break;
+    case 6: kern = ties_instance<T, 6>(); break;
+    case 7: kern = ties_instance<T, 7>(); break;
+    case 8: kern = ties_instance<T, 8>(); break;
+    case 9: kern = ties_instance<T, 9>(); break;
+    case 10: kern = ties_instance<T, 10>(); break;
+    case 11: kern = ties_instance<T, 11>(); break;
+    case 12: kern = ties_instance<T, 12>(); break;
+    case 13: kern = ties_instance<T, 13>(); break;
+    case 14: kern = ties_instance<T, 14>(); break;
+    case 15: kern = ties_instance<T, 15>(); break;
+    case 16: kern = ties_instance<T, 16>(); break;
+    default:
+      kern = ties_block_kernel<T, 0, 8>;
+  }
+  kern<<<static_cast<unsigned int>(nb), kTiesThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(base),
+      static_cast<const float*>(thr), static_cast<float*>(out), k, np,
+      block);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: [k, np] fp32 or bf16 (raw bits), base: [np] fp32, np a multiple of
-// `block`; the Python wrappers check shapes, dtypes and devices, and for
-// B3 and B4 that block is a multiple of 8 and x, base and out are 16-byte
-// aligned.
+// `block`; the Python wrappers check shapes, dtypes and devices, and that
+// block is a multiple of 8 and x, base and out are 16-byte aligned.
 extern "C" int block_amax_f32(const void* x, const void* base, void* out,
                               int k, long long np, int block, void* stream) {
   return amax_launch<float>(x, base, out, k, np, block,

@@ -9,15 +9,59 @@
 // Design: one thread per column in a grid-stride loop, neighbouring
 // threads on neighbouring columns so every row read is coalesced; rows are
 // read as fp32 or bf16 and widened in registers (exact), so a bf16 leaf is
-// never copied to fp32. The column arithmetic is `merge::ties_column`, the
-// same function B5 runs with per-tile thresholds; the k thresholds are one
-// broadcast address per row. Rounded intrinsics and --fmad=false make the
-// kernel bitwise equal to its plain version (`kernels/ties.py`).
+// never copied to fp32. The column arithmetic is `ties_column`, built
+// from the `trim` and `agree` steps B5 runs with per-tile thresholds; the
+// k thresholds are one broadcast address per row.
+// Rounded intrinsics and --fmad=false make the kernel bitwise equal to its
+// plain version (`kernels/ties.py`).
 #include "common.cuh"
 
 namespace {
 
+using merge::agree;
+using merge::sign_of;
+using merge::trim;
+using merge::widen;
+
 constexpr int kThreads = 256;
+
+// B7's column: trim at th[i], elect the sign of the k-sum, mean of the
+// agreeing entries, for one column c of a [k, np] stack. KMAX > 0: the k
+// trimmed values stay in registers (k <= KMAX, unrolled so every index is
+// a constant); KMAX == 0: any k, the second pass re-reads the column.
+template <typename T, int KMAX>
+__device__ __forceinline__ float ties_column(const T* __restrict__ x,
+                                             long long np, long long c,
+                                             int k, float b,
+                                             const float* __restrict__ th) {
+  float tv[KMAX > 0 ? KMAX : 1];
+  float s = 0.f;
+  if (KMAX > 0) {
+#pragma unroll
+    for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i) {
+      if (i < k) {
+        tv[i] = trim(widen(x[static_cast<long long>(i) * np + c]), b, th[i]);
+        s = __fadd_rn(s, tv[i]);
+      }
+    }
+  } else {
+    for (int i = 0; i < k; ++i)
+      s = __fadd_rn(s, trim(widen(x[static_cast<long long>(i) * np + c]), b,
+                            th[i]));
+  }
+  const float elected = sign_of(s);
+  float cnt = 0.f, acc = 0.f;
+  if (KMAX > 0) {
+#pragma unroll
+    for (int i = 0; i < (KMAX > 0 ? KMAX : 1); ++i)
+      if (i < k) agree(tv[i], elected, cnt, acc);
+  } else {
+    for (int i = 0; i < k; ++i)
+      agree(trim(widen(x[static_cast<long long>(i) * np + c]), b, th[i]),
+            elected, cnt, acc);
+  }
+  return __fadd_rn(b, __fdiv_rn(acc, fmaxf(cnt, 1.f)));
+}
 
 template <typename T, int KMAX>
 __global__ void ties_leaf_kernel(const T* __restrict__ x,
@@ -29,7 +73,7 @@ __global__ void ties_leaf_kernel(const T* __restrict__ x,
   for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        c < np; c += stride)
-    out[c] = merge::ties_column<T, KMAX>(x, np, c, k, base[c], thr);
+    out[c] = ties_column<T, KMAX>(x, np, c, k, base[c], thr);
 }
 
 template <typename T>

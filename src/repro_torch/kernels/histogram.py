@@ -29,9 +29,12 @@ cumulative count to fp32 once, before the division by n. Below 2^24
 the two agree bitwise.
 
 B3 and B4 run one warp per tile over all k contributions, reading the
-tile's base once and x in 16-byte loads: on CUDA tensors `block` must
-be a multiple of 8 and `stacked`, `base` and the output 16-byte
-aligned, else the wrapper raises. `hist_plan` sizes B4's launch.
+tile's base once and x in 16-byte loads; B5 one CTA per tile, its k
+thresholds read once, a thread on 8 (or 4) adjacent columns of all k
+rows in 16-byte loads, with an instance per exact k up to 16. So on
+CUDA tensors `block` must be a multiple of 8 and `stacked`, `base` and
+the output 16-byte aligned, else the wrapper raises. `hist_plan` sizes
+B4's launch.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ def _check_inputs(stacked, base) -> None:
 
 
 def _check_vectors(block: int, *tensors) -> None:
-    """B3 and B4 on CUDA read 8 adjacent columns in 16-byte loads."""
+    """B3-B5 on CUDA read 8 adjacent columns in 16-byte loads."""
     if block % 8:
         raise ValueError(f"block must be a multiple of 8, got {block}")
     if any(t.data_ptr() % 16 for t in tensors):
@@ -234,6 +237,7 @@ def ties_block(stacked, base, thr_meta, block: int) -> torch.Tensor:
     if build.on_host(stacked, base, thr_meta):
         return ties_block_plain(stacked, base, thr_meta, block)
     out = torch.empty_like(base)
+    _check_vectors(block, stacked, base, out)
     _launch(f"ties_block_{_suffix(stacked)}", stacked.data_ptr(),
             base.data_ptr(), thr_meta.data_ptr(), out.data_ptr(), k,
             stacked.shape[1], block, _stream(stacked))

@@ -9,6 +9,11 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
   B1, B3-B5    nary_accum, block_amax, block_hist, ties_block: fp32 and
                bf16, k in {1, 4, 16}, leaves around the tile edge; a NaN
                stays in its tile
+  B5           k in {1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 40} (every
+               instance and every boundary between them), blocks of
+               2048, 1000 and 4104, a tile of NaN, +-0, ties, |tau| at
+               its threshold and +-inf, bit for bit; a stack 2 bytes
+               into its buffer, or a block not a multiple of 8, raises
   B3, B4       k in {1, 4, 5, 16, 17}, bins in {512, 100, 4096, 30}, a
                Gaussian and a concentrated input (nearly every count in
                the first bins), tiles of 1 valid column and an all-zero
@@ -375,6 +380,83 @@ def test_cuda_block_amax_hist_refuse_unaligned(dtype):
                 BINS, block)
     assert (histogram.block_amax.launches,
             histogram.block_hist.launches) == before
+
+
+def _ties_batch(k, dtype, block, seed=0):
+    """(stacked, base, thr_meta) on the card over LENGTHS at `block`:
+    Gaussian rows, per-tile thresholds around |tau|'s median, and tile 1
+    (from column `block`; its thresholds all 0.5) holding the values
+    whose arithmetic is delicate: a NaN in one row, tau = +0 and -0 in
+    every row, |tau| exactly equal to the threshold, a k-sum of exactly
+    0 (k >= 2), and +-inf."""
+    leaf_id, _, npad = batch_layout(LENGTHS, block)
+    starts = np.cumsum([0] + [padded_len(n, block) for n in LENGTHS])
+    rng = np.random.default_rng(seed)
+    x = np.zeros((k, npad), np.float32)
+    base = np.zeros(npad, np.float32)
+    for n, off in zip(LENGTHS, starts):
+        x[:, off:off + n] = rng.standard_normal((k, n))
+        base[off:off + n] = rng.standard_normal(n) * 0.5
+    thr = (rng.random((len(leaf_id), k)) * 1.2).astype(np.float32)
+    c = block
+    thr[1] = 0.5
+    x[k // 2, c] = np.nan
+    base[c + 1] = 0.25
+    x[:, c + 1] = 0.25                        # tau = +0
+    base[c + 2:c + 5] = 0.0
+    x[:, c + 2] = -0.0                        # tau = -0
+    # |tau| = 0.5, the threshold: kept; one row in three negative
+    x[:, c + 3] = 0.5 * np.where(np.arange(k) % 3 == 1, -1.0, 1.0)
+    x[:, c + 4] = 0.0
+    if k >= 2:
+        x[0, c + 4], x[1, c + 4] = 1.0, -1.0  # a k-sum of exactly 0
+        x[0, c + 5], x[1, c + 5] = np.inf, -np.inf
+    x[0, c + 6] = np.inf
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).cuda()
+    return tx, torch.from_numpy(base).cuda(), torch.from_numpy(thr).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [2048, 1000, 4104])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 8, 9, 12, 16, 17, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ties_block_equals_plain(dtype, k, block):
+    """B5 bit for bit its plain version at every instance and every
+    boundary between them (exact k up to 16, 4 columns a thread from 9,
+    any k above), over the tile edge, in tiles narrower (1000) and wider
+    (4104) than one thread a vector, and on a tile of NaN, +-0, ties,
+    |tau| at its threshold and +-inf."""
+    tx, tb, thr = _ties_batch(k, dtype, block)
+    before = histogram.ties_block.launches
+    got = histogram.ties_block(tx, tb, thr, block)
+    assert histogram.ties_block.launches == before + 1
+    want = histogram.ties_block_plain(tx, tb, thr, block)
+    assert torch.equal(_bits(got), _bits(want))
+    c = block
+    assert bool(torch.isnan(got[c])) and float(got[c + 1]) == float(tb[c + 1])
+    # kept at the threshold: the positive rows outnumber the negative
+    # ones but at k = 2, a tie
+    assert float(got[c + 3]) == (0.0 if k == 2 else 0.5)
+    assert float(got[c + 4]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ties_block_refuses_unaligned(dtype):
+    """B5's 16-byte loads: a stack 2 bytes into its buffer and a block
+    that is not a multiple of 8 raise, and nothing launches."""
+    k, np_ = 4, 6000
+    buf = torch.zeros(k * np_ + 1, dtype=getattr(torch, dtype),
+                      device="cuda")
+    off = buf[1:].view(k, np_)
+    ok = torch.zeros((k, np_), dtype=getattr(torch, dtype), device="cuda")
+    base = torch.zeros(np_, device="cuda")
+    before = histogram.ties_block.launches
+    for x, block in ((off, 2000), (ok, 1500)):
+        thr = torch.ones((np_ // block, k), device="cuda")
+        with pytest.raises(ValueError, match="16-byte|multiple of 8"):
+            histogram.ties_block(x, base, thr, block)
+    assert histogram.ties_block.launches == before
 
 
 # ------------------------------------------------------------ B7, B8
