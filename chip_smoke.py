@@ -41,10 +41,10 @@ before it and read just after:
           dense contributions and S: B1 and B3-B5 launch on fused groups
           of K + 1 rows (attention) and K rows (the rest) in one merge.
 
-The consortium (`[gossip]`, full width) runs after the main paths: 8
-gossip nodes on the card with delta gossip, an attention update each and
-the main path's first two fine-tunes on nodes 0 and 1 (every payload one
-tensor shared by all stores); partitioned in two halves a round leaves 2
+The consortium (`[gossip]`, full width, 16 of the 32 layers) runs after
+the main paths: 8 gossip nodes on the card with delta gossip, an
+attention update each and a dense fine-tune on nodes 0 and 1 (every
+payload one tensor shared by all stores); partitioned in two halves a round leaves 2
 roots, healed 1; every node resolves weight_average to node 0's bytes,
 and nodes 0 and 7 histogram TIES to each other's. Last, the paper's
 Tables 6-9 (benchmarks/bench_gossip.py --full: 100 nodes at 512^2 over
@@ -52,9 +52,10 @@ Tables 6-9 (benchmarks/bench_gossip.py --full: 100 nodes at 512^2 over
 2-50 nodes and epidemic gossip) on the card, every node's output
 byte-identical; no merge kernel runs there, as in the reference.
 
-The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 16 of
-its 32 layers, fp32 (five fp32 models at 32 layers would take 76.4 GB;
-bf16 SVD raises in both packages): replica A contributes K models in
+The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 8 of
+its 32 layers, fp32 (five fp32 models at 32 layers would take 76.4 GB,
+and 8 rather than 16 keeps the script inside its time limit; bf16 SVD
+raises in both packages): replica A contributes K models in
 order, replica B the same models in reverse order under A's eids; each
 resolves star, svd_knot_tying, adarank, evolutionary_merge and
 genetic_merge (`MergeSpec(name, base_ref=...)`) and the two trees must
@@ -157,9 +158,10 @@ FLASH_F32_ATOL = 1e-5
 # one attention output a bf16 ulp apart moves the logits by a few bf16
 # ulps; fp32: summation order only
 SERVE_LOGIT_LIMIT = {"bfloat16": 0.35, "float32": 1.2e-4}
-# the whole-model slice: 16 of Phi-3-mini's 32 layers in fp32 (five
-# models, 40.2 GB)
-WHOLE_LAYERS = 16
+# the whole-model slice: 8 of Phi-3-mini's 32 layers in fp32 (five
+# models, 22.1 GB). Memory allows 16 (40.2 GB); 8 keeps the script
+# inside its time limit beside the [durable] phase
+WHOLE_LAYERS = 8
 WHOLE = ("star", "svd_knot_tying", "adarank", "evolutionary_merge",
          "genetic_merge")
 SEARCH = ("genetic_merge", "evolutionary_merge")
@@ -725,8 +727,8 @@ def phase_flash_kernel(rows: dict, cfg, g) -> None:
         **cases}
 
 
-def make_models(cfg, device, dtype=torch.bfloat16):
-    """A base and K contributions of the form base + small delta, from
+def make_models(cfg, device, dtype=torch.bfloat16, k: int = K):
+    """A base and k contributions of the form base + small delta, from
     seeded generators on the device (bf16 unless `dtype` says)."""
     from repro_torch import pytree
     from repro_torch.models.model import Model
@@ -734,7 +736,7 @@ def make_models(cfg, device, dtype=torch.bfloat16):
     schema = Model(cfg).schema()
     base = init_from_schema(schema, seed=SEED, device=device, dtype=dtype)
     contribs = []
-    for j in range(K):
+    for j in range(k):
         delta = init_from_schema(schema, seed=SEED + 1 + j, device=device,
                                  dtype=dtype)
         contribs.append(pytree.tree_map(
@@ -774,11 +776,21 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "sparse": ("nary_accum", "block_amax", "block_hist",
                            "ties_block"),
                 "gossip": (),
-                "serve": ("flash_attention",)}
+                "serve": ("flash_attention",),
+                "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
 SPARSE_LEAVES = tuple(f"['blocks']['sub0']['attn']['{w}']"
                       for w in ("wk", "wo", "wq", "wv"))
+
+
+def int8_eid(eid: str) -> str:
+    """The element id of the int8 payload compressed from the fine-tune
+    named `eid`: a hex name derived from that content id. An int8
+    payload needs one (`Replica.contribute` asks for `element_id`), and
+    the compression is deterministic, so every replica that compresses
+    the same fine-tune derives the same name."""
+    return hashlib.sha256(f"int8 payload of {eid}".encode()).hexdigest()
 
 
 def sparse_eid(layers: int) -> str:
@@ -793,11 +805,13 @@ def sparse_eid(layers: int) -> str:
 # the re-resolve's cache holds every leaf's output and fp32 fold
 # accumulator: 3.82e9 parameters x (2 + 4) bytes, and S's four leaves
 SPARSE_CACHE_BYTES = 40 * 10 ** 9
-# the consortium: nodes, and each node's update under a fixed eid
+# the consortium: nodes, and each node's update under a fixed eid; 16
+# of Phi-3-mini's 32 layers keep the script inside its time limit
 CONSORTIUM = 8
+CONSORTIUM_LAYERS = 16
 
 
-def consortium_eid(i: int) -> str:
+def consortium_eid(i) -> str:
     return hashlib.sha256(f"consortium update {i}".encode()).hexdigest()
 
 
@@ -964,7 +978,7 @@ def phase_main_path(cfg) -> dict:
     for c in contribs:
         rep.contribute(c)
     t_hash = time.perf_counter() - t0
-    del contribs
+    del contribs, c
     root = rep.merkle_root()
     seed = seed_from_root(root)
     ref = rep.register_base(base)
@@ -1017,11 +1031,9 @@ def phase_main_path(cfg) -> dict:
     log(f"[main] compress x{K} to int8 on the card: "
         f"{time.perf_counter() - t0:.1f} s "
         f"({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads)")
-    # the consortium reuses the base and the first two fine-tunes
-    keep = {"base": base, "dense": ordered[:2], "eids": order[:2]}
     del ordered, rep
     torch.cuda.empty_cache()
-    qids = ["int8:" + e for e in order]
+    qids = [int8_eid(e) for e in order]
     qcache = engine.EngineCache()
     # the first int8 merge pays for planning: digests of the four
     # payloads, dequantized one leaf at a time
@@ -1049,11 +1061,14 @@ def phase_main_path(cfg) -> dict:
     if "quant_nary" not in paths["int8"]["grown"]:
         raise AssertionError("kernel_dispatch_total{kernel=quant_nary} "
                              "did not grow")
+    t0 = time.perf_counter()
+    paths["durable"] = phase_durable(cts, qids, base)
+    log(f"[time] phase_durable: {time.perf_counter() - t0:.0f} s")
     del cts, base
     torch.cuda.empty_cache()
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in paths["bf16"]["launches"]}
-    return {"launches": launches, "keep": keep,
+    return {"launches": launches,
             "ms": {f"{p} {k}": v for p, d in paths.items()
                    for k, v in d["ms"].items()}}
 
@@ -1194,7 +1209,7 @@ def phase_exact_vs_kernels(cfg) -> None:
     # int8: merge on arrival (fp32 dequantize in registers) against the
     # exact path over the same payloads (dequantize to bf16, then fold)
     cts = [compress_tree(c) for c in ordered]
-    qids = ["int8:" + e for e in order]
+    qids = [int8_eid(e) for e in order]
     for name, cfgd, uses_base in QUANT_STRATEGIES:
         spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
         kw = dict(spec=spec, contrib_ids=qids, seed=seed,
@@ -1918,21 +1933,232 @@ def phase_gossip_tables() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_consortium(cfg, keep: dict) -> None:
-    """A consortium at Phi-3-mini's full width: CONSORTIUM gossip nodes
-    on the card, delta gossip; each node contributes its own sparse
-    attention update, nodes 0 and 1 also a dense fine-tune (the main
-    path's first two, under their eids); every payload is one tensor
-    that all stores share. Partitioned into two halves, a round leaves
-    two roots; healed, one. Then each node resolves weight_average with
-    the base, one node at a time, each tree bitwise node 0's; nodes 0
-    and 7 resolve histogram TIES, bitwise each other's."""
+def wire_transfer(payload, eid: str) -> tuple:
+    """One payload over the wire as a peer streams it: `encode_blob`, a
+    BlobManifest frame of per-chunk SHA-256 digests at the chunk budget
+    DEFAULT_MAX_FRAME allows, ChunkData frames each encoded and decoded
+    with its CRC checked, the chunks reassembled and checked against
+    the manifest, `decode_blob` onto the card. Returns (the decoded
+    payload, blob bytes, frames, encode s, decode s)."""
+    from repro_torch.net import wire
+    budget = wire.DEFAULT_MAX_FRAME - wire.CHUNK_ENVELOPE
+    t0 = time.perf_counter()
+    blob = wire.encode_blob(payload)
+    frames = [wire.encode_message(wire.BlobManifest(
+        "durable-a", 1, (wire.manifest_entry(eid, blob, budget),)))]
+    view = memoryview(blob)
+    for i, start in enumerate(range(0, len(blob), budget)):
+        frames.append(wire.encode_message(wire.ChunkData(
+            "durable-a", 1, eid, i, view[start:start + budget])))
+    t_enc = time.perf_counter() - t0
+    nbytes = len(blob)
+    del view, blob
+    t0 = time.perf_counter()
+    entry = wire.decode_message(frames[0]).entries[0]
+    chunks = []
+    for i, frame in enumerate(frames[1:]):
+        msg = wire.decode_message(frame)
+        if (msg.eid, msg.index) != (eid, i):
+            raise AssertionError(f"chunk {i} of {eid[:12]} out of order")
+        chunks.append(msg.data)
+    whole = b"".join(chunks)
+    del chunks
+    if len(whole) != entry.total_size or wire.chunk_digests(
+            whole, entry.chunk_size) != entry.digests:
+        raise AssertionError(f"{eid[:12]}: reassembled blob does not "
+                             "match its manifest")
+    out = wire.decode_blob(whole, device=DEVICE)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    return out, nbytes, len(frames), t_enc, t_dec
+
+
+def phase_durable(cts, eids, base) -> dict:
+    """`[durable]`: the main path's K int8 payloads (compressed on the
+    card) under their eids, journaled, recovered, sent over the wire
+    and merged on arrival, at Phi-3-mini's full width and depth.
+
+    Replica A (`Replica(path=)` in a fresh temporary directory)
+    contributes them with `element_id` and registers the base; closed
+    and reopened, it must recover A's Merkle root and visible set. Each
+    payload then streams to replica B as BlobManifest + ChunkData
+    frames, and A's Layer-1 state as one StateMsg without payloads; B's
+    root must equal A's. weight_average with the kernels on the
+    recovered A and on B (payloads kept int8: B2 quant_nary), and on B
+    after `msg_to_state` decompresses on arrival (B1 nary_accum), must
+    each be byte-identical to an in-memory replica's resolve of the
+    same payloads (int8, and `decompress_tree` of them)."""
+    import shutil
+    import tempfile
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.core import engine
+    from repro_torch.core.compression import decompress_tree
+    from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.net import wire
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    path = os.path.join(workdir, "replica_a")
+    free = shutil.disk_usage(workdir).free
+    log(f"[durable] journal directory {workdir}: {free / 1e9:.1f} GB free; "
+        f"{K} int8 payloads ({sum(ct.nbytes() for ct in cts) / 1e9:.2f} "
+        "GB) under the int8 path's eids")
+    refs, rep = {}, {}
+
+    def weight_average(state, cache, to_host: bool = False,
+                       decompress: bool = False):
+        order = canonical_order(state)
+        payloads = [state.store[e] for e in order]
+        if decompress:
+            payloads = [decompress_tree(p) for p in payloads]
+        out = engine.merge(payloads, spec=MergeSpec("weight_average"),
+                           contrib_ids=order,
+                           seed=seed_from_root(state.merkle_root()),
+                           kernels=True, use_cache=False, cache=cache)
+        check_output("weight_average", out, base)
+        return pytree.tree_map(lambda t: t.cpu(), out) if to_host else out
+
+    def against(label: str, ref: str, out) -> None:
+        differ = same_bytes(refs[ref], out)
+        log(f"[durable] {label}: {differ} leaves differ from the in-memory "
+            f"replica's {ref} resolve")
+        if differ:
+            raise AssertionError(f"[durable] {label} != in-memory {ref}")
+
+    def in_memory():
+        mem = Replica("durable-mem", device=DEVICE)
+        for ct, eid in zip(cts, eids):
+            mem.contribute(ct, element_id=eid)
+        refs["int8"] = weight_average(mem.state, mem.cache, to_host=True)
+
+    def in_memory_decompressed():
+        mem = Replica("durable-mem", device=DEVICE)
+        for ct, eid in zip(cts, eids):
+            mem.contribute(ct, element_id=eid)
+        refs["decompressed"] = weight_average(mem.state, mem.cache,
+                                              to_host=True, decompress=True)
+
+    def journal():
+        a = Replica("durable-a", device=DEVICE, path=path)
+        t0 = time.perf_counter()
+        for ct, eid in zip(cts, eids):
+            a.contribute(ct, element_id=eid)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a.register_base(base)
+        t_base = time.perf_counter() - t0
+        root, visible = a.merkle_root(), a.visible()
+        a.close()
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        total = sum(sizes.values())
+        log(f"[durable] replica A: {K} contributions written through in "
+            f"{t_write:.1f} s ({total / t_write / 1e9:.2f} GB/s, encode, "
+            f"SHA-256, CRC-32, write and fsync); on disk {sizes} = "
+            f"{total / 1e9:.2f} GB; register_base {t_base:.1f} s (bases "
+            "are not journaled, as in the reference)")
+        t0 = time.perf_counter()
+        rep["a"] = Replica("durable-a", device=DEVICE, path=path)
+        torch.cuda.synchronize()
+        t_open = time.perf_counter() - t0
+        ok = rep["a"].merkle_root() == root and rep["a"].visible() == visible
+        log(f"[durable] replica A reopened: recovered in {t_open:.1f} s "
+            f"({total / t_open / 1e9:.2f} GB/s: scan and CRC-32, SHA-256 of "
+            f"each blob, decode onto the card); root "
+            f"{rep['a'].merkle_root().hex()[:16]}… equal to the root "
+            f"before the close: {ok}; visible {len(rep['a'].visible())}")
+        if not ok:
+            raise AssertionError("[durable] recovered root or visible set "
+                                 "differs from A's before the close")
+
+    def recovered_a():
+        against("recovered A, int8 kept (B2)", "int8",
+                weight_average(rep["a"].state, rep["a"].cache))
+
+    def over_the_wire():
+        a = rep.pop("a")
+        b = Replica("durable-b", device=DEVICE)
+        frames, nbytes, t_enc, t_dec = 0, 0, 0.0, 0.0
+        for eid in canonical_order(a.state):
+            got, n, f, te, td = wire_transfer(a.state.store[eid], eid)
+            b.add(got, element_id=eid)
+            frames, nbytes = frames + f, nbytes + n
+            t_enc, t_dec = t_enc + te, t_dec + td
+        t0 = time.perf_counter()
+        frame = wire.encode_message(wire.StateMsg(
+            "durable-a", a.state.adds, a.state.removes, a.state.vv, {}))
+        b.merge(wire.msg_to_state(wire.decode_message(frame),
+                                  device=DEVICE))
+        t_meta = time.perf_counter() - t0
+        ok = b.merkle_root() == a.merkle_root()
+        log(f"[durable] wire A -> B: {K} payloads, {nbytes / 1e9:.2f} GB in "
+            f"{frames} frames ({K} BlobManifest + {frames - K} ChunkData "
+            f"of <= {wire.DEFAULT_MAX_FRAME - wire.CHUNK_ENVELOPE} bytes); "
+            f"encode {t_enc:.1f} s ({nbytes / t_enc / 1e9:.2f} GB/s), "
+            f"decode onto the card {t_dec:.1f} s ({nbytes / t_dec / 1e9:.2f}"
+            f" GB/s); Layer 1 as one StateMsg of {len(frame)} bytes in "
+            f"{t_meta * 1e3:.1f} ms; B's root equal to A's: {ok}")
+        if not ok:
+            raise AssertionError("[durable] B's root != A's")
+        rep["b"] = b
+
+    def wire_b():
+        against("B over the wire, int8 kept (B2)", "int8",
+                weight_average(rep["b"].state, rep["b"].cache))
+
+    def wire_b_decompressed():
+        b = rep.pop("b")
+        msg = wire.StateMsg("durable-b", b.state.adds, b.state.removes,
+                            b.state.vv, dict(b.state.store))
+        del b
+        state = wire.msg_to_state(msg, keep_quantized=False, device=DEVICE)
+        del msg
+        against("B, decompressed on arrival by msg_to_state (B1)",
+                "decompressed",
+                weight_average(state, engine.EngineCache()))
+
+    quant = {"quant_nary": 2}
+    try:
+        out = run_path("durable", [
+            ("in-memory int8 weight_average", in_memory),
+            ("in-memory decompress_tree weight_average",
+             in_memory_decompressed),
+            ("journal, close, reopen", journal),
+            ("recovered A weight_average", recovered_a),
+            ("wire A -> B", over_the_wire),
+            ("B weight_average", wire_b),
+            ("B msg_to_state weight_average", wire_b_decompressed)],
+            expect={"in-memory int8 weight_average": quant,
+                    "in-memory decompress_tree weight_average":
+                        {"nary_accum": 2},
+                    "journal, close, reopen": {},
+                    "recovered A weight_average": quant,
+                    "wire A -> B": {},
+                    "B weight_average": quant,
+                    "B msg_to_state weight_average": {"nary_accum": 2}})
+    finally:
+        rep.clear()
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_consortium(cfg) -> None:
+    """A consortium at Phi-3-mini's full width and CONSORTIUM_LAYERS of
+    its layers: CONSORTIUM gossip nodes on the card, delta gossip; each
+    node contributes its own sparse attention update, nodes 0 and 1
+    also a dense fine-tune (`make_models`' first two, under fixed
+    eids); every payload is one tensor that all stores share.
+    Partitioned into two halves, a round leaves two roots; healed, one.
+    Then each node resolves weight_average with the base, one node at a
+    time, each tree bitwise node 0's; nodes 0 and 7 resolve histogram
+    TIES, bitwise each other's."""
     from repro_torch import pytree
     from repro_torch.api import MergeSpec
     from repro_torch.core.gossip import GossipNetwork
-    base, dense, eids = keep["base"], keep["dense"], keep["eids"]
-    keep.clear()
     t0 = time.perf_counter()
+    cfg = cfg.replace(n_layers=CONSORTIUM_LAYERS)
+    base, dense = make_models(cfg, DEVICE, k=2)
+    eids = [consortium_eid(f"dense {j}") for j in range(len(dense))]
     net = GossipNetwork(CONSORTIUM, seed=SEED, use_deltas=True,
                         device=DEVICE)
     for i, node in enumerate(net.nodes):
@@ -2043,8 +2269,8 @@ def svd_drivers(x: torch.Tensor) -> None:
 
 
 def phase_whole(cfg) -> None:
-    """The five whole-model strategies at Phi-3-mini's full width, 16 of
-    its 32 layers, fp32, through two replicas: A contributes in order,
+    """The five whole-model strategies at Phi-3-mini's full width,
+    WHOLE_LAYERS of its 32 layers, fp32, through two replicas: A contributes in order,
     B in reverse order under A's eids; each replica resolves each
     strategy and the trees must be byte-identical. A's tree waits in
     host memory while B resolves. A second resolve on A must hit A's
@@ -2183,19 +2409,26 @@ def main() -> int:
     from repro_torch.configs import get_config
     cfg = get_config("phi3-mini-3.8b")
     t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.0f} s")
+        return out
+
     dev = phase_device()
-    phase_build()
+    timed(phase_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = phase_kernels(cfg)
-    main = phase_main_path(cfg)
-    phase_consortium(cfg, main.pop("keep"))
-    phase_exact_vs_kernels(cfg)
-    serve = phase_serve(cfg)
-    phase_serve_vs_plain(cfg)
-    phase_whole(cfg)
-    phase_audits()
-    phase_gossip_tables()
+    rows = timed(phase_kernels, cfg)
+    main = timed(phase_main_path, cfg)
+    timed(phase_consortium, cfg)
+    timed(phase_exact_vs_kernels, cfg)
+    serve = timed(phase_serve, cfg)
+    timed(phase_serve_vs_plain, cfg)
+    timed(phase_whole, cfg)
+    timed(phase_audits)
+    timed(phase_gossip_tables)
     for name, row in rows.items():
         row["launches"] = main["launches"][name] \
             + serve["launches"][name]

@@ -1,5 +1,5 @@
 """Replica — one object owning a replica's merge lifecycle
-(`repro.api.replica`, local part).
+(`repro.api.replica`, without the sync node).
 
     rep = Replica("inst-a")                # tensors live on "cuda"
     eid = rep.contribute(fine_tune)
@@ -11,12 +11,21 @@
 A replica owns its Layer-1 state with the payload store, a per-replica
 `EngineCache`, its trust evidence (`core.trust.TrustState`, a grow-only
 CRDT joined by `merge`) and its registered bases. Contributions and bases are
-moved to the replica's device. The device is CUDA unless the caller
-asks for the CPU: without CUDA, `Replica()` raises rather than run on
-the host.
+moved to the replica's device, an int8 payload's `q` and `scale` too.
+The device is CUDA unless the caller asks for the CPU: without CUDA,
+`Replica()` raises rather than run on the host.
 
-Durability (`path=`), `attach` to a sync node and fetch-on-resolve
-wait for ROADMAP A6.
+`Replica(path=...)` makes the replica durable (`core.journal`): the
+directory's blob log + Layer-1 WAL replay on open — a restart recovers
+the exact pre-crash Merkle root and every locally held blob, decoded
+onto the replica's device — and every later state change is recorded
+before it is acknowledged. `close()` flushes and releases the storage
+(idempotent); `with Replica(path=...) as rep:` scopes it. A directory
+written by the reference's `Replica(path=...)` opens here, and the
+reverse.
+
+`attach` / `detach` / `node` (a sync node owning the state) and
+fetch-on-resolve wait for the sync stack (ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.api.spec import MergeSpec
+from repro_torch.core.compression import (
+    CompressedLeaf, CompressedTree, to_device)
 from repro_torch.core.engine import CacheInfo, EngineCache
 from repro_torch.core.hashing import pytree_digest
 from repro_torch.core.state import CRDTMergeState
@@ -33,6 +44,8 @@ from repro_torch.core.trust import TrustState
 from repro_torch.obs import MetricsRegistry
 
 __all__ = ["Replica"]
+
+_A6B = "waits for the sync stack (ROADMAP A6b)"
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -52,20 +65,51 @@ class Replica:
                  state: Optional[CRDTMergeState] = None,
                  trust: Optional[TrustState] = None,
                  cache: Optional[EngineCache] = None,
-                 obs: Optional[MetricsRegistry] = None):
+                 obs: Optional[MetricsRegistry] = None,
+                 path: Optional[str] = None):
         self.node_id = node_id
         self.device = resolve_device(device)
-        self.state = state if state is not None else CRDTMergeState()
+        self._state = state if state is not None else CRDTMergeState()
         self.trust = trust
+        # a fresh cache shares the replica's registry, so engine
+        # counters surface through metrics(); an injected cache keeps
+        # its own (metrics() merges both)
         self.obs = obs if obs is not None else MetricsRegistry()
         self.cache = cache if cache is not None else EngineCache(
             obs=self.obs)
         self._bases: Dict[str, Any] = {}
+        self._storage = None               # core.journal.DurableStore
+        self._closed = False
+        if path is not None:
+            from repro_torch.core.journal import DurableStore
+            self._storage = DurableStore(path, obs=self.obs,
+                                         device=self.device)
+            recovered = self._storage.load()
+            merged = recovered.merge(self._state)
+            if merged != recovered \
+                    or merged.store.keys() != recovered.store.keys():
+                self._storage.record_transition(recovered, merged)
+            self._state = merged
 
     def _to_device(self, tree: Any) -> Any:
-        return pytree.tree_map(lambda t: t.to(self.device), tree)
+        return to_device(tree, self.device)
 
     # ----------------------------------------------------------- state
+
+    @property
+    def state(self) -> CRDTMergeState:
+        return self._state
+
+    @state.setter
+    def state(self, value: CRDTMergeState) -> None:
+        self._set_state(value)
+
+    def _set_state(self, value: CRDTMergeState) -> None:
+        """The one write path: durable write-through when a storage
+        directory is open."""
+        if self._storage is not None and value is not self._state:
+            self._storage.record_transition(self._state, value)
+        self._state = value
 
     def contribute(self, contribution: Any,
                    element_id: Optional[str] = None, *,
@@ -75,11 +119,23 @@ class Replica:
         sparse contribution: the pytree carries exactly those leaves
         (canonical keystr paths); a resolve merges each leaf over the
         contributions covering it, and a leaf none covers inherits the
-        base."""
+        base.
+
+        An int8 payload (`CompressedTree`) needs `element_id`: its
+        content id is the digest of its dequantized tensors, and the
+        reference's `pytree_digest` of a `CompressedTree` is no content
+        hash (it differs from call to call), so neither package can
+        name one by itself."""
+        if element_id is None and _holds_int8(contribution):
+            raise TypeError(
+                "an int8 payload (CompressedTree / CompressedLeaf) needs "
+                "element_id=...: its content id is the digest of the "
+                "dequantized tensors, e.g. pytree_digest("
+                "decompress_tree(ct)).hex()")
         contribution = self._to_device(contribution)
         eid = element_id or pytree_digest(contribution).hex()
-        self.state = self.state.add(contribution, self.node_id,
-                                    element_id=eid, leaf_paths=leaves)
+        self._set_state(self._state.add(contribution, self.node_id,
+                                        element_id=eid, leaf_paths=leaves))
         return eid
 
     def add(self, contribution: Any, *,
@@ -90,7 +146,7 @@ class Replica:
 
     def retract(self, element_id: str) -> None:
         """OR-Set remove: tombstone every observed tag of the element."""
-        self.state = self.state.remove(element_id, self.node_id)
+        self._set_state(self._state.remove(element_id, self.node_id))
 
     def merge(self, other: Any) -> "Replica":
         """CRDT join with another Replica or a raw CRDTMergeState. Trust
@@ -101,7 +157,7 @@ class Replica:
             state, trust = other, None
         else:
             raise TypeError(f"cannot merge {type(other).__name__}")
-        self.state = self.state.merge(state)
+        self._set_state(self._state.merge(state))
         if trust is not None:
             self.trust = trust if self.trust is None \
                 else self.trust.merge(trust)
@@ -164,6 +220,42 @@ class Replica:
                             cache=self.cache, use_cache=use_cache,
                             verify_base=verify_base)
 
+    # ------------------------------------------------------------ sync
+
+    def attach(self, node: Any) -> "Replica":
+        raise NotImplementedError(f"Replica.attach {_A6B}")
+
+    def detach(self) -> "Replica":
+        raise NotImplementedError(f"Replica.detach {_A6B}")
+
+    @property
+    def node(self):
+        raise NotImplementedError(f"Replica.node {_A6B}")
+
+    # ------------------------------------------------------- lifecycle
+
+    def close(self) -> None:
+        """Flush and release the durable storage. Idempotent; the
+        replica stays readable (state / merkle_root) but must not be
+        written again when durable. Reopen with `Replica(path=...)` to
+        resume."""
+        if self._closed:
+            return
+        if self._storage is not None:
+            self._storage.close()
+            self._storage = None
+        self._closed = True
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def __enter__(self) -> "Replica":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     # ----------------------------------------------------------- cache
 
     def set_cache_limit(self, entries: Optional[int] = None, *,
@@ -177,7 +269,46 @@ class Replica:
     def clear_cache(self) -> None:
         self.cache.clear()
 
+    # --------------------------------------------------- observability
+
+    def metrics(self, *, deterministic_only: bool = False
+                ) -> Dict[str, float]:
+        """Snapshot of every metric series in this replica's scope: its
+        own registry and its engine cache's. With `deterministic_only`,
+        just the aggregates that are a pure function of the converged
+        contribution set (identical across replicas and delivery
+        orders)."""
+        scopes = [self.obs]
+        if self.cache.obs is not self.obs:
+            scopes.append(self.cache.obs)
+        if deterministic_only:
+            out: Dict[str, float] = {}
+            for s in scopes:
+                out.update(s.aggregate())
+            return out
+        return scopes[0].merged(*scopes[1:])
+
+    def trace_to(self, path: str) -> int:
+        """Export this replica's telemetry as JSONL: one meta header,
+        the process tracer's finished spans (if tracing is on), then
+        every metric series from metrics(). Returns lines written."""
+        from repro_torch.obs import (
+            current_tracer, NULL_TRACER, to_events, write_jsonl)
+        tracer = current_tracer()
+        events = to_events(
+            tracer=None if tracer is NULL_TRACER else tracer,
+            meta={"node": self.node_id})
+        for name, value in sorted(self.metrics().items()):
+            events.append({"kind": "metric", "name": name,
+                           "value": value})
+        return write_jsonl(path, events)
+
     def __repr__(self) -> str:
         return (f"Replica({self.node_id!r}, device={self.device}, "
-                f"visible={len(self.state.visible())}, "
+                f"visible={len(self._state.visible())}, "
                 f"cache={self.cache.info().entries})")
+
+
+def _holds_int8(tree: Any) -> bool:
+    return any(isinstance(leaf, (CompressedTree, CompressedLeaf))
+               for leaf in pytree.leaves(tree))

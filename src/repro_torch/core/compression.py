@@ -73,6 +73,24 @@ def decompress_tree(ct: CompressedTree) -> Any:
                                  for leaf in ct.leaves])
 
 
+def to_device(tree: Any, device: Any) -> Any:
+    """`tree` with every tensor on `device`: plain leaves, and each
+    `CompressedLeaf`'s `q` and `scale` (a `CompressedTree` is one leaf
+    of the port's pytree). Tensors already there are not copied; other
+    leaves pass through."""
+    def move(x: Any) -> Any:
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        if isinstance(x, CompressedLeaf):
+            return CompressedLeaf(x.q.to(device), x.scale.to(device),
+                                  x.shape, x.dtype)
+        if isinstance(x, CompressedTree):
+            return CompressedTree([move(leaf) for leaf in x.leaves],
+                                  x.treedef)
+        return x
+    return pytree.tree_map(move, tree)
+
+
 def compressed_tree_to_structure(ct: CompressedTree) -> Any:
     """Container tree (dict/list/tuple nesting) with CompressedLeaf
     leaves."""

@@ -1,10 +1,8 @@
 """Metrics registry — deterministic, catalog-declared, per-replica.
 
 A copy of `repro.obs.metrics` (which imports no JAX, but the port
-imports nothing of `repro`) without its process-default registry and
-enable switch: every series is recorded into a registry its owner
-holds. The catalog is the reference's, name for name: kinds, labels,
-buckets and deterministic flags.
+imports nothing of `repro`). The catalog is the reference's, name for
+name: kinds, labels, buckets and deterministic flags.
 
 Three metric kinds over labeled series:
 
@@ -20,9 +18,11 @@ Every metric name must be declared in `CATALOG` before use. Each
 function of the converged contribution set (equal visible sets yield
 equal values on every replica, regardless of delivery order).
 
-Every component that owns counters (`EngineCache`, `Replica`) owns a
-private registry, so two replicas in one process never alias each
-other's series.
+Every component that owns counters (`EngineCache`, `Replica`,
+`DurableStore`) owns a private registry, so two replicas in one process
+never alias each other's series. A process-default registry
+(`default_registry`) serves the module-level helpers; `set_enabled(False)`
+swaps it for a shared `NullRegistry` whose handles do nothing.
 
 >>> reg = MetricsRegistry()
 >>> reg.counter("engine_events_total").inc(2, event="hits")
@@ -36,8 +36,9 @@ from collections.abc import MutableMapping
 from typing import Any, Dict, Iterable, Iterator, List, NamedTuple, Tuple
 
 __all__ = [
-    "CATALOG", "MetricSpec", "MetricsRegistry", "Counter", "Gauge",
-    "Histogram", "CounterView",
+    "CATALOG", "MetricSpec", "MetricsRegistry", "NullRegistry",
+    "NULL_REGISTRY", "Counter", "Gauge", "Histogram", "CounterView",
+    "declare", "default_registry", "set_enabled", "enabled",
 ]
 
 LabelKey = Tuple[Tuple[str, str], ...]
@@ -385,6 +386,66 @@ class MetricsRegistry:
         for m in self._metrics.values():
             m.clear()
 
+    # ------------------------------------------------------------ snapshots
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat, deterministically-keyed view of every series:
+        `name{k=v,...}` -> value. Histograms contribute `_count`,
+        `_sum`, and per-boundary `_bucket{le=...}` entries."""
+        out: Dict[str, float] = {}
+        for m in self.metrics():
+            name = m.spec.name
+            if isinstance(m, Histogram):
+                for key, s in sorted(m.series().items()):
+                    base = _fmt(name, key)
+                    out[base + "_count"] = float(s.count)
+                    out[base + "_sum"] = s.sum
+                    for b, c in zip(m.buckets, s.bucket_counts):
+                        out[_fmt(name + "_bucket",
+                                 key + (("le", repr(b)),))] = float(c)
+            else:
+                for key, v in sorted(m.series().items()):
+                    out[_fmt(name, key)] = v
+        return out
+
+    def aggregate(self) -> Dict[str, float]:
+        """The deterministic slice of the snapshot: only metrics whose
+        CATALOG entry is flagged deterministic — the aggregates that
+        must be identical on every replica that converged on the same
+        contribution set, regardless of delivery order."""
+        return {k: v for k, v in self.snapshot().items()
+                if CATALOG[_base_name(k)].deterministic}
+
+    def merged(self, *others: "MetricsRegistry") -> Dict[str, float]:
+        """Union snapshot across registries (counter/count values sum,
+        gauges take the max)."""
+        out = dict(self.snapshot())
+        for other in others:
+            for k, v in other.snapshot().items():
+                if k in out:
+                    spec = CATALOG[_base_name(k)]
+                    out[k] = max(out[k], v) if spec.kind == "gauge" \
+                        else out[k] + v
+                else:
+                    out[k] = v
+        return out
+
+
+def _fmt(name: str, key: LabelKey) -> str:
+    if not key:
+        return name
+    return name + "{" + ",".join(f"{k}={v}" for k, v in key) + "}"
+
+
+def _base_name(sample_key: str) -> str:
+    name = sample_key.split("{", 1)[0]
+    for suffix in ("_bucket", "_count", "_sum"):
+        if name.endswith(suffix) and name not in CATALOG:
+            trimmed = name[: -len(suffix)]
+            if trimmed in CATALOG:
+                return trimmed
+    return name
+
 
 # ---------------------------------------------------------------------------
 # Counter-backed mapping view (stats-dict compatibility)
@@ -434,3 +495,72 @@ class CounterView(MutableMapping):
 
     def __repr__(self) -> str:
         return f"CounterView({dict(self)!r})"
+
+
+# ---------------------------------------------------------------------------
+# Null objects + process default (the zero-cost disabled path)
+# ---------------------------------------------------------------------------
+
+
+class _NullMetric:
+    __slots__ = ()
+
+    def inc(self, *a, **k): pass
+    def dec(self, *a, **k): pass
+    def set(self, *a, **k): pass
+    def set_max(self, *a, **k): pass
+    def observe(self, *a, **k): pass
+
+    def value(self, **k): return 0.0
+    def count(self, **k): return 0
+    def sum(self, **k): return 0.0
+    def series(self): return {}
+    def clear(self): pass
+
+
+_NULL_METRIC = _NullMetric()
+
+
+class NullRegistry:
+    """Registry whose every handle is a shared do-nothing metric: the
+    disabled fast path. Call sites keep their shape, and a call costs
+    one attribute lookup plus an empty method."""
+
+    __slots__ = ()
+
+    def counter(self, name: str) -> Any: return _NULL_METRIC
+    def gauge(self, name: str) -> Any: return _NULL_METRIC
+    def histogram(self, name: str) -> Any: return _NULL_METRIC
+    def metrics(self): return []
+    def clear(self): pass
+    def snapshot(self): return {}
+    def aggregate(self): return {}
+    def merged(self, *others): return {}
+
+
+NULL_REGISTRY = NullRegistry()
+
+_DEFAULT = MetricsRegistry()
+_ENABLED = True
+
+
+def default_registry() -> Any:
+    """The process-default registry, or the shared NullRegistry when
+    observability is disabled (`set_enabled(False)`)."""
+    return _DEFAULT if _ENABLED else NULL_REGISTRY
+
+
+def set_enabled(flag: bool) -> bool:
+    """Toggle process-level instrumentation (the default registry and
+    the module-level span helper). Component-owned registries
+    (`EngineCache.obs`, `Replica.obs`, ...) are unaffected: their
+    counters are API surface, not optional telemetry. Returns the
+    previous value."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(flag)
+    return prev
+
+
+def enabled() -> bool:
+    return _ENABLED

@@ -1,53 +1,97 @@
-"""CRDT-specific probes (`repro.obs.probes`, the Layer-1 overhead and
-convergence parts).
+"""CRDT-specific probes (`repro.obs.probes`): Layer-1 overhead,
+convergence, wire phases.
 
-  * `layer1_timer` feeds `resolve_layer1_overhead_ms`. Layer-1 work is
-    the CRDT-side slice of a resolve: canonical ordering, Merkle root,
-    seed derivation — everything *except* the strategy math. The paper
-    claims this stays under 0.5 ms.
+  * `layer1_timer` / `observe_layer1` feed `resolve_layer1_overhead_ms`.
+    Layer-1 work is the CRDT-side slice of a resolve: canonical
+    ordering, Merkle root, seed derivation — everything *except* the
+    strategy math. The paper claims this stays under 0.5 ms.
   * `ConvergenceProbe` watches a fleet's Merkle roots:
     `probe_root_divergence` is (#distinct roots − 1), so 0 means the
     fleet agrees; `probe_replica_diverged{node=...}` flags stragglers;
     `probe_convergence_seconds` times each divergence episode on the
     clock the caller gives (a round counter under simulation, so the
     number is a property of the schedule, not the host).
-
-`wire_phase` waits for the wire (ROADMAP A6).
+  * `wire_phase` maps a wire message type to its anti-entropy session
+    phase (digest exchange -> manifest/plan -> chunk transfer -> close),
+    the label on `sync_wire_bytes_total` / `sync_wire_frames_total`.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
-from .metrics import MetricsRegistry
+from .metrics import default_registry, enabled, MetricsRegistry
 
-__all__ = ["layer1_timer", "ConvergenceProbe"]
+__all__ = ["wire_phase", "WIRE_PHASES", "observe_layer1", "layer1_timer",
+           "ConvergenceProbe"]
+
+
+# Anti-entropy session phases, in protocol order.
+WIRE_PHASES: Tuple[str, ...] = ("gossip", "digest", "plan", "transfer",
+                                "close", "control")
+
+_PHASE_BY_TYPE: Dict[str, str] = {
+    # full-state / delta gossip payloads
+    "StateMsg": "gossip", "DeltaMsg": "gossip",
+    # digest exchange: root comparison + bucket walk
+    "SyncReq": "digest", "BucketsMsg": "digest",
+    "BucketItemsMsg": "digest",
+    "HaveReq": "digest", "HaveMap": "digest",
+    # transfer planning: what exists, where, in which chunks
+    "BlobManifest": "plan",
+    # bulk payload movement
+    "BlobReq": "transfer", "BlobResp": "transfer",
+    "ChunkReq": "transfer", "ChunkData": "transfer",
+    # session close + out-of-band control
+    "SyncDone": "close", "ResolveSpecMsg": "control",
+}
+
+
+def wire_phase(msg_or_name: Any) -> str:
+    """Session phase for a wire message (instance or class name)."""
+    name = msg_or_name if isinstance(msg_or_name, str) \
+        else type(msg_or_name).__name__
+    return _PHASE_BY_TYPE.get(name, "control")
+
+
+# ---------------------------------------------------------------------------
+# Layer-1 overhead
+# ---------------------------------------------------------------------------
+
+
+def observe_layer1(ms: float,
+                   registry: Optional[MetricsRegistry] = None) -> None:
+    """Record one Layer-1 overhead measurement (milliseconds)."""
+    reg = registry if registry is not None else default_registry()
+    reg.histogram("resolve_layer1_overhead_ms").observe(ms)
 
 
 class layer1_timer:
     """`with layer1_timer(registry): <order+root+seed>` — times the
-    block on the wall-monotonic clock and feeds the registry's overhead
-    histogram."""
+    block on the wall-monotonic clock and feeds the overhead histogram
+    of `registry` (the process default without one). When obs is
+    disabled and no registry is given, `__enter__` skips the clock read
+    entirely."""
 
     __slots__ = ("_registry", "_t0", "ms")
 
-    def __init__(self, registry: MetricsRegistry):
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
         self._registry = registry
         self._t0: Optional[float] = None
         self.ms: Optional[float] = None
 
     def __enter__(self) -> "layer1_timer":
-        # detcheck: allow[DET001] telemetry-only; feeds obs only
-        self._t0 = time.perf_counter()
+        if self._registry is not None or enabled():
+            # detcheck: allow[DET001] telemetry-only; feeds obs only
+            self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        if exc_type is not None:
+        if self._t0 is None or exc_type is not None:
             return
         # detcheck: allow[DET001] telemetry-only; feeds obs only
         self.ms = (time.perf_counter() - self._t0) * 1e3
-        self._registry.histogram("resolve_layer1_overhead_ms").observe(
-            self.ms)
+        observe_layer1(self.ms, self._registry)
 
 
 class ConvergenceProbe:

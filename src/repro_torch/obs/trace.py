@@ -12,10 +12,11 @@ write as JSONL. The clock is injected, not assumed:
 Span identity is also deterministic: ids are sequential per tracer
 (`s1`, `s2`, …), never random.
 
-There is one process-default tracer slot (`set_tracer`). The
-module-level `span()` helper is the zero-cost path: when no tracer is
-installed it returns a shared no-op context manager without
-allocating.
+There is one process-default tracer slot (`set_tracer` /
+`current_tracer`). The module-level `span()` helper is the zero-cost
+path: when no tracer is installed — or observability is disabled via
+`obs.metrics.set_enabled(False)` — it returns a shared no-op context
+manager without allocating.
 
 >>> tr = Tracer(clock=iter(range(10)).__next__)   # fake clock: 0,1,2,...
 >>> with tr.span("resolve", strategy="slerp") as sp:
@@ -29,7 +30,10 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "set_tracer", "span"]
+from .metrics import enabled
+
+__all__ = ["Span", "Tracer", "NULL_TRACER", "set_tracer",
+           "current_tracer", "span"]
 
 
 class Span:
@@ -148,6 +152,23 @@ class _NullSpanHandle:
 _NULL_SPAN = _NullSpanHandle()
 
 
+class _NullTracer:
+    __slots__ = ()
+    spans: List[Span] = []
+    meta: Dict[str, Any] = {}
+
+    def span(self, name: str, **attrs: Any) -> _NullSpanHandle:
+        return _NULL_SPAN
+
+    def events(self) -> List[Dict[str, Any]]:
+        return []
+
+    def clear(self) -> None:
+        pass
+
+
+NULL_TRACER = _NullTracer()
+
 _TRACER: Any = None
 
 
@@ -160,10 +181,18 @@ def set_tracer(tracer: Optional[Tracer]) -> Optional[Tracer]:
     return prev
 
 
+def current_tracer() -> Any:
+    """The installed tracer, or NULL_TRACER when tracing is off (no
+    tracer installed, or obs disabled)."""
+    if _TRACER is None or not enabled():
+        return NULL_TRACER
+    return _TRACER
+
+
 def span(name: str, **attrs: Any):
     """`with obs.span("engine.plan", leaves=n): ...` — records on the
     default tracer; a shared no-op handle when tracing is off."""
     t = _TRACER
-    if t is None:
+    if t is None or not enabled():
         return _NULL_SPAN
     return t.span(name, **attrs)

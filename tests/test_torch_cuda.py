@@ -52,6 +52,15 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                strategies on the card within `WHOLE_TOL` of the CPU's
                (the SVD runs in cuSOLVER there, in LAPACK here), and two
                runs of each SVD strategy on the card give equal bytes
+  wire/journal `decode_blob` and `msg_to_state` (kept int8 and
+               decompressed on arrival) onto the card equal the CPU
+               decode bitwise, and CUDA tensors encode to the CPU's
+               bytes; a `Replica(path=)` reopened on the card (a
+               `DurableStore` recovered there) resolves weight_average
+               with the kernels (B2) byte-identical to an in-memory
+               replica, at Phi-3-mini's width and 2 layers; C3: int8
+               payloads on the CPU contributed to a replica on the card
+               land there and resolve to the CPU replica's bytes
 """
 import numpy as np
 import pytest
@@ -815,3 +824,162 @@ def test_cuda_whole_model_strategies_near_cpu(name, shape, dtype):
     again = reference_apply(name, [c.cuda() for c in cs], base=base.cuda(),
                             seed=5)
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+
+
+# ------------------------------------------------------ wire, journal ---
+
+from repro_torch.api import MergeSpec, Replica  # noqa: E402
+from repro_torch.core.hashing import pytree_digest  # noqa: E402
+from repro_torch.core.resolve import canonical_order  # noqa: E402
+from repro_torch.core.resolve import seed_from_root  # noqa: E402
+from repro_torch.core.state import CRDTMergeState  # noqa: E402
+from repro_torch.net import wire  # noqa: E402
+
+
+def _wire_tree(seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"f32": torch.randn(3, 5, generator=g),
+            "bf16": torch.randn(4, 4, generator=g).bfloat16(),
+            "f16": torch.randn(2, 3, 2, generator=g).half(),
+            "i8": torch.randint(-127, 128, (7,), generator=g,
+                                dtype=torch.int8),
+            "i32": torch.randint(-9, 9, (2, 2), generator=g,
+                                 dtype=torch.int32),
+            "b": torch.randn(5, generator=g) > 0,
+            "s": [torch.tensor(2.5), 3, "x", None]}
+
+
+def _same_tree(a, b) -> None:
+    if isinstance(a, compression.CompressedTree):
+        a, b = (compression.compressed_tree_to_structure(x) for x in (a, b))
+    la, lb = pytree.leaves(a), pytree.leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        if isinstance(x, compression.CompressedLeaf):
+            assert (x.shape, x.dtype) == (y.shape, y.dtype)
+            x, y = (x.q, x.scale), (y.q, y.scale)
+        else:
+            x, y = (x,), (y,)
+        for u, v in zip(x, y):
+            if not isinstance(u, torch.Tensor):
+                assert u == v
+                continue
+            assert u.dtype == v.dtype and u.shape == v.shape
+            assert torch.equal(u.cpu().reshape(-1).view(torch.uint8),
+                               v.cpu().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_blob_equals_cpu_decode():
+    tree = _wire_tree(0)
+    ct = compression.compress_tree({k: tree[k] for k in ("f32", "bf16",
+                                                        "f16")})
+    for value in (tree, ct):
+        blob = wire.encode_blob(value)
+        on_cpu = wire.decode_blob(blob, device="cpu")
+        on_gpu = wire.decode_blob(blob, device="cuda")
+        _same_tree(on_cpu, on_gpu)
+        leaves = pytree.leaves(compression.compressed_tree_to_structure(
+            on_gpu) if value is ct else on_gpu)
+        assert all(x.q.is_cuda and x.scale.is_cuda
+                   if isinstance(x, compression.CompressedLeaf)
+                   else x.is_cuda for x in leaves
+                   if isinstance(x, (torch.Tensor,
+                                     compression.CompressedLeaf)))
+        assert wire.encode_blob(on_gpu) == blob
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [False, True])
+def test_cuda_msg_to_state_equals_cpu(keep):
+    ct = compression.compress_tree({"a": torch.randn(64, 33),
+                                    "b": [torch.randn(9).bfloat16()]})
+    eid = pytree_digest(compression.decompress_tree(ct)).hex()
+    s = CRDTMergeState().add(ct, "n", element_id=eid)
+    frame = wire.encode_message(wire.state_to_msg(s, "n"))
+    got = wire.msg_to_state(wire.decode_message(frame, device="cuda"),
+                            keep_quantized=keep, device="cuda")
+    want = wire.msg_to_state(wire.decode_message(frame, device="cpu"),
+                             keep_quantized=keep, device="cpu")
+    assert got.merkle_root() == want.merkle_root() == s.merkle_root()
+    assert isinstance(got.store[eid], compression.CompressedTree) == keep
+    _same_tree(got.store[eid], want.store[eid])
+
+
+def _phi3_int8(layers: int, k: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    cfg = get_config("phi3-mini-3.8b").replace(n_layers=layers)
+    schema = Model(cfg).schema()
+    base = init_from_schema(schema, seed=0, device="cuda",
+                            dtype=torch.bfloat16)
+    cts = []
+    for j in range(k):
+        delta = init_from_schema(schema, seed=1 + j, device="cuda",
+                                 dtype=torch.bfloat16)
+        cts.append(compression.compress_tree(pytree.tree_map(
+            lambda b, d: b + d * 0.1, base, delta)))
+        del delta
+    return cts
+
+
+@pytest.mark.cuda
+def test_cuda_durable_replica_resolves_like_memory(tmp_path):
+    """Four int8 Phi-3-mini contributions (full width, 2 layers) through
+    `Replica(path=)`, closed and reopened on the card: the recovered
+    root, visible set and payload bytes equal the in-memory replica's,
+    and weight_average with the kernels (B2 on the int8 payloads)
+    gives the same bytes."""
+    cts = _phi3_int8(2, 4)
+    eids = [pytree_digest(compression.decompress_tree(ct)).hex()
+            for ct in cts]
+    mem = Replica("mem", device="cuda")
+    d = str(tmp_path / "rep")
+    with Replica("disk", path=d, device="cuda") as rep:
+        for ct, e in zip(cts, eids):
+            mem.contribute(ct, element_id=e)
+            rep.contribute(ct, element_id=e)
+    back = Replica("disk", path=d, device="cuda")
+    assert back.merkle_root() == mem.merkle_root()
+    assert back.visible() == mem.visible() == set(eids)
+    for e in eids:
+        _same_tree(back.state.store[e], mem.state.store[e])
+        assert all(leaf.q.is_cuda for leaf in back.state.store[e].leaves)
+    order = canonical_order(mem.state)
+    seed = seed_from_root(mem.merkle_root())
+
+    def weight_average(rep):
+        return engine.merge([rep.state.store[e] for e in order],
+                            spec=MergeSpec("weight_average"),
+                            contrib_ids=order, seed=seed, kernels=True,
+                            use_cache=False, cache=rep.cache)
+
+    before = quant.quant_nary.launches
+    want = weight_average(mem)
+    got = weight_average(back)
+    assert quant.quant_nary.launches - before >= 2
+    _same_tree(got, want)
+    back.close()
+
+
+@pytest.mark.cuda
+def test_cuda_c3_int8_payloads_move_to_the_card():
+    g = torch.Generator().manual_seed(5)
+    cts = [compression.compress_tree({"a": torch.randn(40, 24, generator=g),
+                                      "b": torch.randn(24, generator=g)})
+           for _ in range(3)]
+    eids = [pytree_digest(compression.decompress_tree(ct)).hex()
+            for ct in cts]
+    gpu, cpu = Replica("g", device="cuda"), Replica("c", device="cpu")
+    for ct, e in zip(cts, eids):
+        gpu.contribute(ct, element_id=e)
+        cpu.contribute(ct, element_id=e)
+    assert all(leaf.q.is_cuda and leaf.scale.is_cuda
+               for e in eids for leaf in gpu.state.store[e].leaves)
+    assert gpu.merkle_root() == cpu.merkle_root()
+    with pytest.raises(TypeError, match="element_id"):
+        gpu.contribute(cts[0])
+    spec = MergeSpec("weight_average")
+    _same_tree(gpu.resolve(spec, use_cache=False),
+               cpu.resolve(spec, use_cache=False))
