@@ -41,7 +41,7 @@ before it and read just after:
           dense contributions and S: B1 and B3-B5 launch on fused groups
           of K + 1 rows (attention) and K rows (the rest) in one merge.
 
-The consortium (`[gossip]`, full width, 16 of the 32 layers) runs after
+The consortium (`[gossip]`, full width, 8 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
 attention update each and a dense fine-tune on nodes 0 and 1 (every
 payload one tensor shared by all stores); partitioned in two halves a round leaves 2
@@ -66,6 +66,21 @@ pattern of every strategy on `controlled_tensors()` against
 `TABLE3_EXPECTED`, the wrapped audit 104/104, the tier-2 slices at 128^2
 and 512^2, and the five whole-model strategies on the card against the
 CPU at 512^2.
+
+`[durable]` (inside the main paths, after int8) journals the four int8
+payloads through `Replica(path=)`, reopens it, and syncs for real: the
+recovered replica A, its storage handed to a `SyncNode`, and replica B
+on a `keep_quantized` node run an anti-entropy session over
+`PersistentLoopbackTransport` (B's root equal to A's, every chunk
+shipped once, a second session only SyncReq and SyncDone); replica C,
+a client outside the storage domain, takes Layer 1 from A and resolves
+weight_average by fetching the payloads from A and B on demand
+(multi-source), then re-resolves from its cache after `shed_blobs`
+with nothing pulled. Every resolve on arrival (B2 on the int8 payloads,
+B1 after `msg_to_state` decompresses) is byte-identical to an in-memory
+one. `[sync] fleet`, after the tables, runs bench_antientropy's and
+bench_durability's scenarios on the card: anti-entropy at least 5x
+fewer bytes than full-state push, and the four durability gates.
 
 At depth 2 it holds the kernel routes against the exact routes
 (`Replica.resolve`, and the exact path over the same int8 payloads),
@@ -169,6 +184,15 @@ SEARCH = ("genetic_merge", "evolutionary_merge")
 # output's magnitude (the card tests' limit): cuSOLVER's gesvd against
 # LAPACK, and fitness sums in another order
 WHOLE_CARD_TOL = 1e-4
+# the sync stack: pump's liveness tripwire for a full-width session
+# (each step drains every node's sockets once); C's cache holds its
+# weight_average output and fp32 fold accumulators (22.9 GB)
+PUMP_STEPS = 10_000_000
+C_CACHE_BYTES = 32 * 2 ** 30
+# [sync] fleet: benchmarks/bench_antientropy.py's defaults and
+# benchmarks/bench_durability.py's
+FLEET_NODES, FLEET_SIDE, FLEET_DISTINCT, FLEET_SEED = 100, 32, 40, 7
+DURABLE_MIB = 64.0
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -805,10 +829,11 @@ def sparse_eid(layers: int) -> str:
 # the re-resolve's cache holds every leaf's output and fp32 fold
 # accumulator: 3.82e9 parameters x (2 + 4) bytes, and S's four leaves
 SPARSE_CACHE_BYTES = 40 * 10 ** 9
-# the consortium: nodes, and each node's update under a fixed eid; 16
-# of Phi-3-mini's 32 layers keep the script inside its time limit
+# the consortium: nodes, and each node's update under a fixed eid; 8 of
+# Phi-3-mini's 32 layers (16 before the [durable] sync sessions came)
+# keep the script inside its time limit
 CONSORTIUM = 8
-CONSORTIUM_LAYERS = 16
+CONSORTIUM_LAYERS = 8
 
 
 def consortium_eid(i) -> str:
@@ -1062,9 +1087,11 @@ def phase_main_path(cfg) -> dict:
         raise AssertionError("kernel_dispatch_total{kernel=quant_nary} "
                              "did not grow")
     t0 = time.perf_counter()
-    paths["durable"] = phase_durable(cts, qids, base)
+    held = {"base": base}        # the phase frees the base, and cts
+    del base
+    paths["durable"] = phase_durable(cts, qids, held)
     log(f"[time] phase_durable: {time.perf_counter() - t0:.0f} s")
-    del cts, base
+    del cts, held
     torch.cuda.empty_cache()
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in paths["bf16"]["launches"]}
@@ -1933,89 +1960,102 @@ def phase_gossip_tables() -> None:
     torch.cuda.empty_cache()
 
 
-def wire_transfer(payload, eid: str) -> tuple:
-    """One payload over the wire as a peer streams it: `encode_blob`, a
-    BlobManifest frame of per-chunk SHA-256 digests at the chunk budget
-    DEFAULT_MAX_FRAME allows, ChunkData frames each encoded and decoded
-    with its CRC checked, the chunks reassembled and checked against
-    the manifest, `decode_blob` onto the card. Returns (the decoded
-    payload, blob bytes, frames, encode s, decode s)."""
+def peak_rss_gb() -> float:
+    """The process's peak resident set so far (Linux reports KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def frames_by_type(transport) -> dict:
+    """{message type: (frames, bytes)} from the transport's
+    `net_frames_total` / `net_bytes_total` series."""
     from repro_torch.net import wire
-    budget = wire.DEFAULT_MAX_FRAME - wire.CHUNK_ENVELOPE
-    t0 = time.perf_counter()
-    blob = wire.encode_blob(payload)
-    frames = [wire.encode_message(wire.BlobManifest(
-        "durable-a", 1, (wire.manifest_entry(eid, blob, budget),)))]
-    view = memoryview(blob)
-    for i, start in enumerate(range(0, len(blob), budget)):
-        frames.append(wire.encode_message(wire.ChunkData(
-            "durable-a", 1, eid, i, view[start:start + budget])))
-    t_enc = time.perf_counter() - t0
-    nbytes = len(blob)
-    del view, blob
-    t0 = time.perf_counter()
-    entry = wire.decode_message(frames[0]).entries[0]
-    chunks = []
-    for i, frame in enumerate(frames[1:]):
-        msg = wire.decode_message(frame)
-        if (msg.eid, msg.index) != (eid, i):
-            raise AssertionError(f"chunk {i} of {eid[:12]} out of order")
-        chunks.append(msg.data)
-    whole = b"".join(chunks)
-    del chunks
-    if len(whole) != entry.total_size or wire.chunk_digests(
-            whole, entry.chunk_size) != entry.digests:
-        raise AssertionError(f"{eid[:12]}: reassembled blob does not "
-                             "match its manifest")
-    out = wire.decode_blob(whole, device=DEVICE)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    return out, nbytes, len(frames), t_enc, t_dec
+    f = transport.obs.counter("net_frames_total")
+    b = transport.obs.counter("net_bytes_total")
+    out = {}
+    for cls in wire.MESSAGE_TYPES.values():
+        n = int(f.value(type=cls.__name__))
+        if n:
+            out[cls.__name__] = (n, int(b.value(type=cls.__name__)))
+    return out
 
 
-def phase_durable(cts, eids, base) -> dict:
+def frames_since(transport, before: dict) -> dict:
+    now = frames_by_type(transport)
+    return {k: (n - before.get(k, (0, 0))[0], nb - before.get(k, (0, 0))[1])
+            for k, (n, nb) in now.items()
+            if n != before.get(k, (0, 0))[0]}
+
+
+def sha256_gbps(chunk) -> float:
+    """One thread's SHA-256 rate over a chunk-sized buffer (the rate the
+    receiver verifies each ChunkData at)."""
+    t0 = time.perf_counter()
+    for _ in range(16):
+        hashlib.sha256(chunk).digest()
+    return 16 * len(chunk) / (time.perf_counter() - t0) / 1e9
+
+
+def phase_durable(cts: list, eids, held: dict) -> dict:
     """`[durable]`: the main path's K int8 payloads (compressed on the
-    card) under their eids, journaled, recovered, sent over the wire
-    and merged on arrival, at Phi-3-mini's full width and depth.
+    card) under their eids, journaled, recovered, synced and merged on
+    arrival, at Phi-3-mini's full width and depth.
 
-    Replica A (`Replica(path=)` in a fresh temporary directory)
-    contributes them with `element_id` and registers the base; closed
-    and reopened, it must recover A's Merkle root and visible set. Each
-    payload then streams to replica B as BlobManifest + ChunkData
-    frames, and A's Layer-1 state as one StateMsg without payloads; B's
-    root must equal A's. weight_average with the kernels on the
-    recovered A and on B (payloads kept int8: B2 quant_nary), and on B
-    after `msg_to_state` decompresses on arrival (B1 nary_accum), must
-    each be byte-identical to an in-memory replica's resolve of the
-    same payloads (int8, and `decompress_tree` of them)."""
+    An in-memory replica resolves weight_average with the kernels over
+    them (B2) and over `decompress_tree` of them (B1), and on the exact
+    path (`Replica.resolve`, the fetch-on-resolve reference). Replica A
+    (`Replica(path=)` in a fresh temporary directory) contributes them
+    with `element_id` and registers the base; closed and reopened, it
+    must recover A's Merkle root and visible set (`cts` is emptied then:
+    its tensors are freed). A, its DurableStore handed to
+    `SyncNode("durable-a")`, and replica B on a `keep_quantized` node
+    meet on one `PersistentLoopbackTransport`: B's session with A must
+    bring B to A's root with the four payloads int8 on the card, every
+    chunk shipped once; a second session only SyncReq and SyncDone.
+    Replica C, a client outside the storage domain (placement over A and
+    B, r = 2), takes Layer 1 from A with no blob frame, then resolves
+    weight_average through a fetch hook that pulls the payloads from A
+    and B by multi-source chunk fetch (`resolve_blob_pulls` 4), byte-
+    identical to the in-memory exact resolve; with the kernels over C's
+    store (B2); after `shed_blobs` a second resolve is a cache hit that
+    pulls and ships nothing. The base goes before C's step (`held` holds
+    the last reference; bases are not journaled, so the reopened A has
+    none): weight_average needs none. Last, B's payloads
+    decompressed on arrival by `msg_to_state` (B1). Each kernel resolve
+    must be byte-identical to the in-memory one."""
     import shutil
     import tempfile
     from repro_torch import pytree
     from repro_torch.api import MergeSpec, Replica
     from repro_torch.core import engine
-    from repro_torch.core.compression import decompress_tree
+    from repro_torch.core.compression import CompressedTree, decompress_tree
     from repro_torch.core.resolve import canonical_order, seed_from_root
-    from repro_torch.net import wire
+    from repro_torch.net import (
+        PersistentLoopbackTransport, Placement, pump, SyncNode, wire)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_durable_")
     path = os.path.join(workdir, "replica_a")
     free = shutil.disk_usage(workdir).free
+    shapes = pytree.tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), held["base"])
     log(f"[durable] journal directory {workdir}: {free / 1e9:.1f} GB free; "
         f"{K} int8 payloads ({sum(ct.nbytes() for ct in cts) / 1e9:.2f} "
         "GB) under the int8 path's eids")
-    refs, rep = {}, {}
+    refs, rep, net = {}, {}, {}
+    spec = MergeSpec("weight_average")
 
-    def weight_average(state, cache, to_host: bool = False,
-                       decompress: bool = False):
+    def to_host(tree):
+        return pytree.tree_map(lambda t: t.cpu(), tree)
+
+    def weight_average(state, cache, decompress: bool = False):
         order = canonical_order(state)
         payloads = [state.store[e] for e in order]
         if decompress:
             payloads = [decompress_tree(p) for p in payloads]
-        out = engine.merge(payloads, spec=MergeSpec("weight_average"),
-                           contrib_ids=order,
+        out = engine.merge(payloads, spec=spec, contrib_ids=order,
                            seed=seed_from_root(state.merkle_root()),
                            kernels=True, use_cache=False, cache=cache)
-        check_output("weight_average", out, base)
-        return pytree.tree_map(lambda t: t.cpu(), out) if to_host else out
+        check_output("weight_average", out, shapes)
+        return out
 
     def against(label: str, ref: str, out) -> None:
         differ = same_bytes(refs[ref], out)
@@ -2028,14 +2068,23 @@ def phase_durable(cts, eids, base) -> dict:
         mem = Replica("durable-mem", device=DEVICE)
         for ct, eid in zip(cts, eids):
             mem.contribute(ct, element_id=eid)
-        refs["int8"] = weight_average(mem.state, mem.cache, to_host=True)
+        refs["int8"] = to_host(weight_average(mem.state, mem.cache))
+        t0 = time.perf_counter()
+        exact = mem.resolve(spec, use_cache=False)
+        torch.cuda.synchronize()
+        t_exact = time.perf_counter() - t0
+        check_output("weight_average", exact, shapes)
+        refs["exact"] = to_host(exact)
+        log(f"[durable] in-memory Replica.resolve(MergeSpec("
+            f"'weight_average')) on the exact path (C's reference): "
+            f"{t_exact:.1f} s")
 
     def in_memory_decompressed():
         mem = Replica("durable-mem", device=DEVICE)
         for ct, eid in zip(cts, eids):
             mem.contribute(ct, element_id=eid)
-        refs["decompressed"] = weight_average(mem.state, mem.cache,
-                                              to_host=True, decompress=True)
+        refs["decompressed"] = to_host(weight_average(
+            mem.state, mem.cache, decompress=True))
 
     def journal():
         a = Replica("durable-a", device=DEVICE, path=path)
@@ -2044,10 +2093,13 @@ def phase_durable(cts, eids, base) -> dict:
             a.contribute(ct, element_id=eid)
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
-        a.register_base(base)
+        a.register_base(held["base"])
         t_base = time.perf_counter() - t0
         root, visible = a.merkle_root(), a.visible()
         a.close()
+        del a
+        cts.clear()          # the recovered replica decodes its own
+        torch.cuda.empty_cache()
         sizes = {f: os.path.getsize(os.path.join(path, f))
                  for f in sorted(os.listdir(path))}
         total = sum(sizes.values())
@@ -2064,8 +2116,9 @@ def phase_durable(cts, eids, base) -> dict:
         log(f"[durable] replica A reopened: recovered in {t_open:.1f} s "
             f"({total / t_open / 1e9:.2f} GB/s: scan and CRC-32, SHA-256 of "
             f"each blob, decode onto the card); root "
-            f"{rep['a'].merkle_root().hex()[:16]}… equal to the root "
-            f"before the close: {ok}; visible {len(rep['a'].visible())}")
+            f"{rep['a'].merkle_root().hex()[:16]}… "
+            f"equal to the root before the close: {ok}; visible "
+            f"{len(rep['a'].visible())}")
         if not ok:
             raise AssertionError("[durable] recovered root or visible set "
                                  "differs from A's before the close")
@@ -2074,41 +2127,176 @@ def phase_durable(cts, eids, base) -> dict:
         against("recovered A, int8 kept (B2)", "int8",
                 weight_average(rep["a"].state, rep["a"].cache))
 
-    def over_the_wire():
-        a = rep.pop("a")
-        b = Replica("durable-b", device=DEVICE)
-        frames, nbytes, t_enc, t_dec = 0, 0, 0.0, 0.0
-        for eid in canonical_order(a.state):
-            got, n, f, te, td = wire_transfer(a.state.store[eid], eid)
-            b.add(got, element_id=eid)
-            frames, nbytes = frames + f, nbytes + n
-            t_enc, t_dec = t_enc + te, t_dec + td
+    def session(t, nodes, src, dst) -> float:
         t0 = time.perf_counter()
-        frame = wire.encode_message(wire.StateMsg(
-            "durable-a", a.state.adds, a.state.removes, a.state.vv, {}))
-        b.merge(wire.msg_to_state(wire.decode_message(frame),
-                                  device=DEVICE))
-        t_meta = time.perf_counter() - t0
-        ok = b.merkle_root() == a.merkle_root()
-        log(f"[durable] wire A -> B: {K} payloads, {nbytes / 1e9:.2f} GB in "
-            f"{frames} frames ({K} BlobManifest + {frames - K} ChunkData "
-            f"of <= {wire.DEFAULT_MAX_FRAME - wire.CHUNK_ENVELOPE} bytes); "
-            f"encode {t_enc:.1f} s ({nbytes / t_enc / 1e9:.2f} GB/s), "
-            f"decode onto the card {t_dec:.1f} s ({nbytes / t_dec / 1e9:.2f}"
-            f" GB/s); Layer 1 as one StateMsg of {len(frame)} bytes in "
-            f"{t_meta * 1e3:.1f} ms; B's root equal to A's: {ok}")
-        if not ok:
-            raise AssertionError("[durable] B's root != A's")
+        t.send(src.node_id, dst.node_id, src.begin_sync(dst.node_id))
+        pump(nodes, t, max_steps=PUMP_STEPS)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def int8_on_card(node) -> bool:
+        dev = torch.device(DEVICE).type
+        return all(isinstance(node.state.store.get(e), CompressedTree)
+                   and all(leaf.q.device.type == leaf.scale.device.type
+                           == dev for leaf in node.state.store[e].leaves)
+                   for e in eids)
+
+    def sync_a_to_b():
+        a = rep["a"]
+        na = SyncNode("durable-a", device=DEVICE)
+        a.attach(na)
+        b = Replica("durable-b", device=DEVICE)
+        nb = SyncNode("durable-b", device=DEVICE, keep_quantized=True)
+        b.attach(nb)
+        t = PersistentLoopbackTransport(device=DEVICE)
+        net["t"] = t
+        nodes = net["nodes"] = {na.node_id: na, nb.node_id: nb}
+        for n in nodes.values():
+            t.register(n.node_id)
+        secs = session(t, nodes, nb, na)
+        fr = frames_by_type(t)
+        chunks = sum(-(-len(na._enc_cache[e]) // na._chunk_payload)
+                     for e in eids)
+        net["chunks"] = chunks
+        data = fr.get("ChunkData", (0, 0))
+        rate = sha256_gbps(na._enc_cache[eids[0]][:na._chunk_payload])
+        log(f"[durable] sync A -> B (PersistentLoopbackTransport, B "
+            f"initiates): {secs:.1f} s, {data[1] / secs / 1e9:.3f} GB/s of "
+            f"ChunkData; frames and bytes by type {fr}; connections_opened "
+            f"{t.connections_opened}; the manifests' chunks {chunks}; "
+            f"B's chunks verified {nb.stats['chunks_verified']}, redundant "
+            f"{nb.stats['chunks_redundant']}; per-chunk SHA-256 verify on "
+            f"one thread at {rate:.2f} GB/s, {data[1] / rate / 1e9:.1f} s "
+            f"of the session (timed apart); host peak RSS "
+            f"{peak_rss_gb():.1f} GB")
+        if nb.root() != na.root():
+            raise AssertionError("[durable] B's root != A's after the "
+                                 "session")
+        if not int8_on_card(nb):
+            raise AssertionError("[durable] B's payloads are not int8 "
+                                 "CompressedTrees on the card")
+        if data[0] != chunks or nb.stats["chunks_redundant"] \
+                or nb.stats["chunks_verified"] != chunks:
+            raise AssertionError(f"[durable] {data[0]} ChunkData frames for "
+                                 f"{chunks} chunks")
+        before = frames_by_type(t)
+        secs2 = session(t, nodes, nb, na)
+        second = frames_since(t, before)
+        log(f"[durable] second session A -> B: {secs2 * 1e3:.1f} ms, frames "
+            f"{second}")
+        if set(second) != {"SyncReq", "SyncDone"}:
+            raise AssertionError(f"[durable] a second session sent {second}")
         rep["b"] = b
 
     def wire_b():
-        against("B over the wire, int8 kept (B2)", "int8",
+        against("B synced, int8 kept (B2)", "int8",
                 weight_average(rep["b"].state, rep["b"].cache))
 
-    def wire_b_decompressed():
+    def fetch_on_resolve_c():
+        t, nodes = net["t"], net["nodes"]
+        na, nb = nodes["durable-a"], nodes["durable-b"]
+        # weight_average needs no base: `held` holds the last reference
+        held.clear()
+        torch.cuda.empty_cache()
+        c = Replica("durable-c", device=DEVICE)
+        c.set_cache_limit(bytes=C_CACHE_BYTES)
+        nc = SyncNode("durable-c", device=DEVICE,
+                      placement=Placement(["durable-a", "durable-b"], r=2),
+                      keep_quantized=True, chunk_timeout=30.0)
+        c.attach(nc)
+        t.register(nc.node_id)
+        nodes[nc.node_id] = nc
+        before = frames_by_type(t)
+        secs = session(t, nodes, nc, na)
+        layer1 = frames_since(t, before)
+        blob = {k: v for k, v in layer1.items()
+                if k in ("BlobReq", "BlobResp", "BlobManifest", "ChunkReq",
+                         "ChunkData", "HaveReq", "HaveMap")}
+        log(f"[durable] C's session with A: {secs * 1e3:.1f} ms, frames "
+            f"{layer1}; C's root equal to A's: {nc.root() == na.root()}; "
+            f"C holds {len(nc.state.store)} payloads")
+        if nc.root() != na.root() or blob or nc.state.store:
+            raise AssertionError("[durable] C's Layer-1 session shipped "
+                                 f"blob frames {blob} or missed A's root")
+
+        def fetch(node, want):
+            want = tuple(e for e in want if e not in node.state.store)
+            node.want_blobs(want)
+            try:
+                for peer, msg in node.query_holders(want):
+                    t.send(node.node_id, peer, msg)
+                pump(nodes, t, max_steps=PUMP_STEPS)
+            finally:
+                node.unwant_blobs(want)
+            return {e: node.state.store[e] for e in want
+                    if e in node.state.store}
+
+        nc.fetch_hook = fetch
+        served = (na.stats["chunks_served"], nb.stats["chunks_served"])
+        before = frames_by_type(t)
+        t0 = time.perf_counter()
+        out = c.resolve(spec)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fr = frames_since(t, before)
+        by_a = na.stats["chunks_served"] - served[0]
+        by_b = nb.stats["chunks_served"] - served[1]
+        pulls = nc.stats["resolve_blob_pulls"]
+        check_output("weight_average", out, shapes)
+        data = fr.get("ChunkData", (0, 0))
+        log(f"[durable] fetch-on-resolve C: C.resolve(MergeSpec("
+            f"'weight_average')) {secs:.1f} s (fetch and the exact path), "
+            f"resolve_blob_pulls {pulls}; ChunkData from A {by_a}, from B "
+            f"{by_b} (the manifests' chunks {net['chunks']}), "
+            f"{data[1] / secs / 1e9:.3f} GB/s over the resolve; frames "
+            f"{fr}; chunks redundant {nc.stats['chunks_redundant']}; "
+            f"connections_opened {t.connections_opened}; host peak RSS "
+            f"{peak_rss_gb():.1f} GB")
+        if pulls != K or not by_a or not by_b \
+                or by_a + by_b != net["chunks"] or data[0] != net["chunks"] \
+                or nc.stats["chunks_redundant"]:
+            raise AssertionError("[durable] C's fetch: pulls or chunks off")
+        if not int8_on_card(nc):
+            raise AssertionError("[durable] C's payloads are not int8 "
+                                 "CompressedTrees on the card")
+        against("fetch-on-resolve C, exact path", "exact", out)
+        # A served its last chunk: released (its storage closes with it)
+        rep.pop("a").close()
+        del nodes["durable-a"], na
+        torch.cuda.empty_cache()
+        against("C's store with the kernels (B2)", "int8",
+                weight_average(c.state, c.cache))
+        dropped = nc.shed_blobs()
+        before = frames_by_type(t)
+        hits, misses = c.cache.stats["hits"], c.cache.stats["misses"]
+        t0 = time.perf_counter()
+        again = c.resolve(spec)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fr = frames_since(t, before)
+        hits = c.cache.stats["hits"] - hits
+        misses = c.cache.stats["misses"] - misses
+        log(f"[durable] C shed {len(dropped)} payloads ({len(c.state.store)}"
+            f" left); second C.resolve {secs:.2f} s: resolve_blob_pulls "
+            f"{nc.stats['resolve_blob_pulls']}, frames {fr}, leaf cache "
+            f"hits {hits}, misses {misses}")
+        if len(dropped) != K or c.state.store or fr or misses or not hits \
+                or nc.stats["resolve_blob_pulls"] != K:
+            raise AssertionError("[durable] the warm re-resolve after "
+                                 "shed_blobs pulled, shipped or missed")
+        against("second C.resolve, from the cache", "exact", again)
+        del out, again
+        c.close()
+        c.clear_cache()
+        del nodes["durable-c"]
+        torch.cuda.empty_cache()
+
+    def b_decompressed():
         b = rep.pop("b")
+        net.pop("t").close()
         msg = wire.StateMsg("durable-b", b.state.adds, b.state.removes,
                             b.state.vv, dict(b.state.store))
+        b.close()
         del b
         state = wire.msg_to_state(msg, keep_quantized=False, device=DEVICE)
         del msg
@@ -2124,22 +2312,124 @@ def phase_durable(cts, eids, base) -> dict:
              in_memory_decompressed),
             ("journal, close, reopen", journal),
             ("recovered A weight_average", recovered_a),
-            ("wire A -> B", over_the_wire),
+            ("sync A -> B", sync_a_to_b),
             ("B weight_average", wire_b),
-            ("B msg_to_state weight_average", wire_b_decompressed)],
+            ("fetch-on-resolve C", fetch_on_resolve_c),
+            ("B msg_to_state weight_average", b_decompressed)],
             expect={"in-memory int8 weight_average": quant,
                     "in-memory decompress_tree weight_average":
                         {"nary_accum": 2},
                     "journal, close, reopen": {},
                     "recovered A weight_average": quant,
-                    "wire A -> B": {},
+                    "sync A -> B": {},
                     "B weight_average": quant,
+                    "fetch-on-resolve C": quant,
                     "B msg_to_state weight_average": {"nary_accum": 2}})
     finally:
+        for r in rep.values():
+            r.close()
         rep.clear()
+        if "t" in net:
+            net.pop("t").close()
+        net.clear()
         shutil.rmtree(workdir, ignore_errors=True)
         torch.cuda.empty_cache()
+    log(f"[durable] host peak RSS after the phase {peak_rss_gb():.1f} GB")
     return out
+
+
+def phase_sync_fleet() -> None:
+    """`[sync] fleet`: benchmarks/bench_antientropy.py's scenario (100
+    nodes, 40 distinct 32x32 fp32 contributions, fanout 3, seed 7) in
+    the state, delta and antientropy modes, and
+    benchmarks/bench_durability.py's (4 nodes, 64 MiB of fp32, seed 7:
+    kill and restart warm, then cold), on the card through the port's
+    `SimGossipNetwork(device="cuda")`. Gates: anti-entropy ships at least
+    5x fewer bytes than full-state push; warm_zero_bytes, exact_root,
+    bounded_replay (30 s) and cold_refetch."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.net import SimGossipNetwork
+    res = {}
+    for mode in ("state", "delta", "antientropy"):
+        rng = np.random.default_rng(FLEET_SEED)
+        pool = [{"w": torch.from_numpy(rng.standard_normal(
+            (FLEET_SIDE, FLEET_SIDE)).astype(np.float32)).to(DEVICE)}
+            for _ in range(FLEET_DISTINCT)]
+        pick = rng.integers(0, FLEET_DISTINCT, size=FLEET_NODES)
+        g = SimGossipNetwork(FLEET_NODES, seed=FLEET_SEED, mode=mode,
+                             device=DEVICE)
+        g.contribute_all(lambda i: pool[pick[i]])
+        t0 = time.perf_counter()
+        rounds = g.run_epidemic(fanout=3, require_blobs=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not g.converged(require_blobs=True) or len(set(g.roots())) != 1:
+            raise AssertionError(f"[sync] fleet {mode}: not converged")
+        res[mode] = (rounds, g.bytes_sent, g.net.msgs_sent, secs)
+        log(f"[sync] fleet bench_antientropy {mode}: {FLEET_NODES} nodes, "
+            f"{rounds} rounds, {g.bytes_sent} bytes in {g.net.msgs_sent} "
+            f"frames, {secs:.1f} s")
+        del g, pool
+    ratio = res["state"][1] / res["antientropy"][1]
+    log(f"[sync] fleet bench_antientropy: full-state / anti-entropy bytes "
+        f"{ratio:.2f}x (gate >= 5)")
+    if ratio < 5.0:
+        raise AssertionError(f"[sync] fleet: anti-entropy ratio {ratio:.2f}")
+
+    victim = "node001"
+    dirname = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        g = SimGossipNetwork(4, seed=FLEET_SEED, mode="antientropy",
+                             device=DEVICE)
+        side = int(round((DURABLE_MIB / 4 * 2 ** 20 / 4) ** 0.5))
+        rng = np.random.default_rng(FLEET_SEED)
+        pl = [{"w": torch.from_numpy(rng.standard_normal(
+            (side, side)).astype(np.float32)).to(DEVICE)} for _ in range(4)]
+        g.contribute_all(lambda i: pl[i])
+        g.attach_storage(dirname)
+        g.run_epidemic(fanout=3, require_blobs=True)
+
+        def blob_bytes():
+            c = g.net.obs.counter("net_bytes_total")
+            return sum(c.value(type=ty) for ty in
+                       ("BlobResp", "ChunkData", "BlobManifest"))
+
+        pre = g.by_id[victim].state.merkle_root()
+        n_blobs = len(g.by_id[victim].state.store)
+        g.crash_node(victim)
+        before = blob_bytes()
+        t0 = time.perf_counter()
+        node = g.restart_node(victim)
+        torch.cuda.synchronize()
+        replay = time.perf_counter() - t0
+        exact = node.state.merkle_root() == pre \
+            and len(node.state.store) == n_blobs
+        g.run_epidemic(fanout=3, require_blobs=True)
+        warm = blob_bytes() - before
+        reconverged = g.converged(require_blobs=True)
+        g.crash_node(victim)
+        shutil.rmtree(os.path.join(dirname, victim))
+        before = blob_bytes()
+        g.restart_node(victim)
+        g.run_epidemic(fanout=3, require_blobs=True)
+        cold = blob_bytes() - before
+        cold_ok = g.converged(require_blobs=True) \
+            and g.by_id[victim].state.merkle_root() == pre
+        gates = {"warm_zero_bytes": warm == 0 and reconverged,
+                 "exact_root": exact,
+                 "bounded_replay": replay <= 30.0,
+                 "cold_refetch": cold > 0 and cold_ok}
+        log(f"[sync] fleet bench_durability: {DURABLE_MIB:.0f} MiB over 4 "
+            f"nodes, {n_blobs} blobs held by {victim}; replay {replay:.3f} "
+            f"s; warm blob-phase bytes {warm:.0f}; cold {cold:.0f}; gates "
+            f"{gates}")
+        if not all(gates.values()):
+            raise AssertionError(f"[sync] fleet durability gates {gates}")
+    finally:
+        shutil.rmtree(dirname, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def phase_consortium(cfg) -> None:
@@ -2429,6 +2719,7 @@ def main() -> int:
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
+    timed(phase_sync_fleet)
     for name, row in rows.items():
         row["launches"] = main["launches"][name] \
             + serve["launches"][name]

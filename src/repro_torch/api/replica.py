@@ -1,5 +1,5 @@
 """Replica — one object owning a replica's merge lifecycle
-(`repro.api.replica`, without the sync node).
+(`repro.api.replica`).
 
     rep = Replica("inst-a")                # tensors live on "cuda"
     eid = rep.contribute(fine_tune)
@@ -24,8 +24,12 @@ before it is acknowledged. `close()` flushes and releases the storage
 written by the reference's `Replica(path=...)` opens here, and the
 reverse.
 
-`attach` / `detach` / `node` (a sync node owning the state) and
-fetch-on-resolve wait for the sync stack (ROADMAP A6b).
+`attach(sync_node)` hands state ownership to a `net.SyncNode`:
+contributions, retractions and merges flow through the node (so its
+partial-blob bookkeeping stays coherent), a durable replica's storage
+goes with the state, and resolves pull non-resident payloads through
+the node's fetch hook — the facade over a sharded, anti-entropy-synced
+deployment. `detach()` takes state and storage back.
 """
 from __future__ import annotations
 
@@ -45,8 +49,6 @@ from repro_torch.obs import MetricsRegistry
 
 __all__ = ["Replica"]
 
-_A6B = "waits for the sync stack (ROADMAP A6b)"
-
 
 def resolve_device(device: Any = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
@@ -59,7 +61,7 @@ def resolve_device(device: Any = None) -> torch.device:
 
 
 class Replica:
-    """Facade over state + store + per-replica cache + trust."""
+    """Facade over state + store + per-replica cache + trust + sync."""
 
     def __init__(self, node_id: str = "local", *, device: Any = None,
                  state: Optional[CRDTMergeState] = None,
@@ -78,6 +80,7 @@ class Replica:
         self.cache = cache if cache is not None else EngineCache(
             obs=self.obs)
         self._bases: Dict[str, Any] = {}
+        self._node = None                  # attached net.SyncNode
         self._storage = None               # core.journal.DurableStore
         self._closed = False
         if path is not None:
@@ -98,15 +101,18 @@ class Replica:
 
     @property
     def state(self) -> CRDTMergeState:
-        return self._state
+        return self._node.state if self._node is not None else self._state
 
     @state.setter
     def state(self, value: CRDTMergeState) -> None:
-        self._set_state(value)
+        if self._node is not None:
+            self._node.state = value
+        else:
+            self._set_state(value)
 
     def _set_state(self, value: CRDTMergeState) -> None:
-        """The one write path: durable write-through when a storage
-        directory is open."""
+        """Unattached write path: durable write-through when a storage
+        directory is open (attached, the node's own setter records)."""
         if self._storage is not None and value is not self._state:
             self._storage.record_transition(self._state, value)
         self._state = value
@@ -134,8 +140,13 @@ class Replica:
                 "decompress_tree(ct)).hex()")
         contribution = self._to_device(contribution)
         eid = element_id or pytree_digest(contribution).hex()
-        self._set_state(self._state.add(contribution, self.node_id,
-                                        element_id=eid, leaf_paths=leaves))
+        if self._node is not None:
+            self._node.contribute(contribution, element_id=eid,
+                                  leaves=leaves)
+        else:
+            self._set_state(self._state.add(contribution, self.node_id,
+                                            element_id=eid,
+                                            leaf_paths=leaves))
         return eid
 
     def add(self, contribution: Any, *,
@@ -146,18 +157,25 @@ class Replica:
 
     def retract(self, element_id: str) -> None:
         """OR-Set remove: tombstone every observed tag of the element."""
-        self._set_state(self._state.remove(element_id, self.node_id))
+        if self._node is not None:
+            self._node.retract(element_id)
+        else:
+            self._set_state(self._state.remove(element_id, self.node_id))
 
     def merge(self, other: Any) -> "Replica":
-        """CRDT join with another Replica or a raw CRDTMergeState. Trust
-        evidence joins too (it is itself a grow-only CRDT)."""
+        """CRDT join with another Replica (attached or not) or a raw
+        CRDTMergeState. Trust evidence joins too (it is itself a
+        grow-only CRDT)."""
         if isinstance(other, Replica):
             state, trust = other.state, other.trust
         elif isinstance(other, CRDTMergeState):
             state, trust = other, None
         else:
             raise TypeError(f"cannot merge {type(other).__name__}")
-        self._set_state(self._state.merge(state))
+        if self._node is not None:
+            self._node.join(state)
+        else:
+            self._set_state(self._state.merge(state))
         if trust is not None:
             self.trust = trust if self.trust is None \
                 else self.trust.merge(trust)
@@ -197,7 +215,9 @@ class Replica:
                 use_cache: bool = True) -> Any:
         """Layer-2 resolve of `spec` over this replica's visible set,
         through the engine's exact path with this replica's cache, gated
-        by this replica's trust evidence when the spec asks."""
+        by this replica's trust evidence when the spec asks, fetching
+        non-resident payloads through the attached node's hook
+        (leaf-granular: warm re-resolves fetch nothing)."""
         if not isinstance(spec, MergeSpec):
             raise TypeError(
                 "Replica.resolve() takes a MergeSpec — e.g. "
@@ -217,30 +237,70 @@ class Replica:
         elif base is not None:
             base = self._to_device(base)
         return resolve_spec(self.state, spec, base=base, trust=self.trust,
-                            cache=self.cache, use_cache=use_cache,
-                            verify_base=verify_base)
+                            fetch=self._fetch_hook(), cache=self.cache,
+                            use_cache=use_cache, verify_base=verify_base)
+
+    def _fetch_hook(self):
+        # the node's counted wrapper, so Replica-routed and node-routed
+        # resolves account blob pulls identically
+        return self._node._counted_fetch() if self._node is not None \
+            else None
 
     # ------------------------------------------------------------ sync
 
     def attach(self, node: Any) -> "Replica":
-        raise NotImplementedError(f"Replica.attach {_A6B}")
+        """Hand state ownership to a `net.SyncNode`: the node's state
+        absorbs this replica's, and from here on contribute / retract /
+        merge / resolve all operate through the node (blob bookkeeping,
+        placement filtering, fetch-on-resolve). A durable replica's
+        storage follows the state into the node."""
+        if self._node is not None:
+            raise RuntimeError("already attached; detach() first")
+        if self._storage is not None and hasattr(node, "attach_storage"):
+            # the node's write-through takes over recording. Every state
+            # of this replica was recorded, so its state is what the
+            # store replays: handed over instead of decoding every blob
+            # a second time, and node.join below is a no-op on disk
+            storage, self._storage = self._storage, None
+            node.attach_storage(storage, recovered=self._state)
+        node.join(self._state)
+        self._node = node
+        # the node owns the state now: no second reference to payloads
+        # it may later shed
+        self._state = CRDTMergeState()
+        return self
 
     def detach(self) -> "Replica":
-        raise NotImplementedError(f"Replica.detach {_A6B}")
+        """Take the state (and any durable storage handed over by
+        attach) back from the attached node."""
+        if self._node is None:
+            raise RuntimeError("not attached")
+        self._state = self._node.state
+        if self._storage is None and getattr(self._node, "storage", None) \
+                is not None:
+            self._storage = self._node.release_storage()
+        self._node = None
+        return self
 
     @property
     def node(self):
-        raise NotImplementedError(f"Replica.node {_A6B}")
+        return self._node
 
     # ------------------------------------------------------- lifecycle
 
     def close(self) -> None:
-        """Flush and release the durable storage. Idempotent; the
-        replica stays readable (state / merkle_root) but must not be
-        written again when durable. Reopen with `Replica(path=...)` to
-        resume."""
+        """Flush and release every owned resource — the durable storage
+        (held directly or handed to an attached node) and the attached
+        node's transfer bookkeeping. Idempotent; the replica stays
+        readable (state / merkle_root) but must not be written again
+        when durable. Reopen with `Replica(path=...)` to resume."""
         if self._closed:
             return
+        if self._node is not None:
+            if hasattr(self._node, "close"):
+                self._node.close()
+            self._state = self._node.state
+            self._node = None
         if self._storage is not None:
             self._storage.close()
             self._storage = None
@@ -274,13 +334,16 @@ class Replica:
     def metrics(self, *, deterministic_only: bool = False
                 ) -> Dict[str, float]:
         """Snapshot of every metric series in this replica's scope: its
-        own registry and its engine cache's. With `deterministic_only`,
-        just the aggregates that are a pure function of the converged
-        contribution set (identical across replicas and delivery
-        orders)."""
+        own registry, its engine cache's and — when attached — the sync
+        node's. With `deterministic_only`, just the aggregates that are
+        a pure function of the converged contribution set (identical
+        across replicas and delivery orders)."""
         scopes = [self.obs]
         if self.cache.obs is not self.obs:
             scopes.append(self.cache.obs)
+        node_obs = getattr(self._node, "obs", None)
+        if node_obs is not None and node_obs is not self.obs:
+            scopes.append(node_obs)
         if deterministic_only:
             out: Dict[str, float] = {}
             for s in scopes:
@@ -304,8 +367,9 @@ class Replica:
         return write_jsonl(path, events)
 
     def __repr__(self) -> str:
-        return (f"Replica({self.node_id!r}, device={self.device}, "
-                f"visible={len(self._state.visible())}, "
+        where = f" via {self._node.node_id!r}" if self._node else ""
+        return (f"Replica({self.node_id!r}{where}, device={self.device}, "
+                f"visible={len(self.state.visible())}, "
                 f"cache={self.cache.info().entries})")
 
 

@@ -75,6 +75,7 @@ from repro_torch.core.compression import (
     compressed_tree_to_structure, CompressedLeaf, CompressedTree,
     dequantize_leaf)
 from repro_torch.core.hashing import pytree_digest, tensor_digest
+from repro_torch.dtypes import BY_NAME
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
 from repro_torch.strategies.base import pairwise_fold, run_fold, \
@@ -176,10 +177,69 @@ def contrib_meta(contribution: Any, *, eid: Optional[str] = None
                         for leaf in leaves),
     )
     if eid is not None:
-        _META_MEMO[eid] = meta
-        while len(_META_MEMO) > _META_MEMO_LIMIT:
-            _META_MEMO.popitem(last=False)
+        _memoize(eid, meta)
     return meta
+
+
+def _memoize(eid: str, meta: ContribMeta) -> None:
+    _META_MEMO[eid] = meta
+    while len(_META_MEMO) > _META_MEMO_LIMIT:
+        _META_MEMO.popitem(last=False)
+
+
+def _as_dtype(d: Any) -> torch.dtype:
+    """A dtype named as the wire names it ("float32", "bfloat16", ...),
+    or a torch dtype."""
+    if isinstance(d, torch.dtype):
+        return d
+    try:
+        return BY_NAME[str(d)]
+    except KeyError:
+        raise TypeError(f"unsupported leaf dtype {d!r}") from None
+
+
+def note_meta(eid: str, paths: Sequence[str], digests: Sequence[bytes],
+              shapes: Sequence[Tuple[int, ...]],
+              dtypes: Sequence[Any],
+              scales: Optional[Sequence[Optional[float]]] = None
+              ) -> ContribMeta:
+    """Memoize planner metadata announced over the wire (SparseManifest
+    leaf refs) WITHOUT the payload being resident: the planner can then
+    key per-leaf subsets — and fully cached or fold-resumable plans can
+    execute — before (or without) fetching a single chunk. treedef stays
+    None: such metas are mapped onto the model by path.
+
+    A leaf announced with a `scale` arrives as an int8 `CompressedLeaf`
+    and is priced at one byte per element, as `contrib_meta` prices a
+    resident one."""
+    dts = tuple(_as_dtype(d) for d in dtypes)
+    if scales is None:
+        scales = (None,) * len(dts)
+    meta = ContribMeta(
+        treedef=None,
+        digests=tuple(digests),
+        shapes=tuple(tuple(s) for s in shapes),
+        dtypes=dts,
+        paths=tuple(paths),
+        itemsizes=tuple(1 if s is not None else d.itemsize
+                        for d, s in zip(dts, scales)),
+    )
+    _memoize(eid, meta)
+    return meta
+
+
+def memoized_meta(eid: str) -> Optional[ContribMeta]:
+    """Planner metadata for a content id seen before, else None. Lets
+    resolve() plan (and fully cached plans complete) without fetching
+    the payload at all."""
+    meta = _META_MEMO.get(eid)
+    if meta is not None:
+        _META_MEMO.move_to_end(eid)
+    return meta
+
+
+def clear_meta_memo() -> None:
+    _META_MEMO.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +331,10 @@ def plan_merge(metas: Sequence[ContribMeta],
         coverages = (None,) * k
     if len(coverages) != k:
         raise ValueError("coverages must parallel metas")
-    dense = [j for j, cov in enumerate(coverages) if cov is None]
+    # dense metas carrying their own treedef define the model structure;
+    # a manifest-derived meta (treedef None) maps onto it by path
+    dense = [j for j, cov in enumerate(coverages)
+             if cov is None and metas[j].treedef is not None]
     with span("engine.plan", strategy=spec.strategy, k=k,
               leaves=(metas[dense[0]].leaf_count if dense else 0)):
         frag = spec.cache_fragment(
@@ -303,11 +366,11 @@ def plan_merge(metas: Sequence[ContribMeta],
         cover: List[List[Tuple[int, bytes, int]]] = [
             [] for _ in range(n_leaves)]
         for j, (m, cov) in enumerate(zip(metas, coverages)):
-            if cov is None:
+            if cov is None and m.treedef is not None:
                 for i in range(n_leaves):
                     cover[i].append((j, m.digests[i], m.itemsizes[i]))
                 continue
-            if set(m.paths) != set(cov):
+            if cov is not None and set(m.paths) != set(cov):
                 raise ValueError(
                     f"contribution {j}: coverage descriptor does not "
                     "match its leaf paths")
@@ -645,15 +708,17 @@ def execute_plan(plan: MergePlan, contribs: Optional[Sequence[Any]], *,
 def _flatten_contribs(plan: MergePlan, contribs: Sequence[Any]
                       ) -> List[Any]:
     """Per-contribution leaf accessors: a flatten-order list for a dense
-    contribution, a path-keyed dict for a sparse one. A `CompressedTree`
-    flattens to its `CompressedLeaf` payloads, densified where they are
-    read."""
+    contribution, a path-keyed dict for a sparse one, None for a payload
+    the executor was told it will not need. A `CompressedTree` flattens
+    to its `CompressedLeaf` payloads, densified where they are read."""
     covs = plan.coverages or (None,) * plan.k
     out: List[Any] = []
     for c, cov in zip(contribs, covs):
         if isinstance(c, CompressedTree):
             c = compressed_tree_to_structure(c)
-        if cov is None:
+        if c is None:
+            out.append(None)
+        elif cov is None:
             out.append(plan.treedef.flatten_up_to(c))
         else:
             out.append({pytree.keystr(p): leaf for p, leaf in

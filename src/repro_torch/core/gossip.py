@@ -20,11 +20,17 @@ exactly as the reference draws it, so both packages shuffle and sample
 the same peers for the same seed.
 
 Contributions live on the network's device: CUDA unless the caller
-names another. Transports (`transport=`), sharded placement
-(`placement=`) and `GossipNode.receive_wire` need the wire and the
-sync stack of ROADMAP A6 and raise until then; the reference's
-`compress_payloads` and `drain`, which act on transport frames only,
-come with them.
+names another.
+
+Transports (`net.transport`): passing `transport=` routes every send
+through the versioned wire codec and a transport (in-memory queues,
+per-frame loopback TCP, or persistent per-peer TCP connections), so
+gossip is an actual byte protocol; `bytes_sent` then counts real frame
+bytes, and `compress_payloads` ships delta payloads as int8. Received
+frames decode onto the transport's device and land on the receiving
+node's. With `placement=` (`net.store.Placement`) pushes carry the full
+Layer-1 metadata but payloads only to their placement holders. The
+default (no transport) keeps the in-process delivery by reference.
 """
 from __future__ import annotations
 
@@ -35,13 +41,12 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, \
 from repro_torch import pytree
 from repro_torch.api.replica import resolve_device
 from repro_torch.api.spec import coerce_spec, MergeSpec
+from repro_torch.core.compression import to_device
 from repro_torch.core.delta import apply_delta, Delta, delta_since
 from repro_torch.core.resolve import resolve, resolve_spec
 from repro_torch.core.state import CRDTMergeState
 from repro_torch.core.version_vector import VersionVector
 from repro_torch.obs import MetricsRegistry
-
-_A6 = "waits for the wire and sync stack (ROADMAP A6)"
 
 
 class GossipNode:
@@ -77,7 +82,21 @@ class GossipNode:
         self.merge_calls += 1
 
     def receive_wire(self, msg) -> None:
-        raise NotImplementedError(f"GossipNode.receive_wire {_A6}")
+        """Apply a decoded wire message (StateMsg or DeltaMsg); its
+        payloads land on the node's device."""
+        from repro_torch.net.wire import (
+            DeltaMsg, msg_to_delta, msg_to_state, StateMsg)
+        if isinstance(msg, StateMsg):
+            self.receive_state(msg_to_state(msg, device=self.device))
+        elif isinstance(msg, DeltaMsg):
+            d = msg_to_delta(msg)
+            self.receive_delta(Delta(
+                d.adds, d.removes, d.vv,
+                {e: to_device(p, self.device) for e, p in d.payloads.items()},
+                d.compressed))
+        else:
+            raise TypeError(f"GossipNode cannot apply {type(msg)}; "
+                            "sync messages need net.SyncNode")
 
     def root(self) -> bytes:
         return self.state.merkle_root()
@@ -99,19 +118,25 @@ class GossipNode:
 
 class GossipNetwork:
     def __init__(self, n: int, seed: int = 0, use_deltas: bool = False,
-                 transport=None, placement=None,
-                 obs: Optional[MetricsRegistry] = None,
+                 transport=None, compress_payloads: bool = False,
+                 placement=None, obs: Optional[MetricsRegistry] = None,
                  device: Any = None):
-        if transport is not None:
-            raise NotImplementedError(f"GossipNetwork(transport=) {_A6}")
-        if placement is not None:
-            raise NotImplementedError(f"GossipNetwork(placement=) {_A6}")
         self.obs = obs if obs is not None else MetricsRegistry()
         self.device = resolve_device(device)
         self.nodes = [GossipNode(f"node{i:03d}", self.device)
                       for i in range(n)]
         self.rng = random.Random(seed)
         self.use_deltas = use_deltas
+        self.compress_payloads = compress_payloads
+        # sharded store (net.store.Placement): pushes still carry the
+        # full Layer-1 metadata, but payloads ship only to their
+        # placement holders. Each node additionally keeps the payloads
+        # it contributed (merge unions stores; filtering is sender-side).
+        self.placement = placement
+        self.transport = transport
+        if transport is not None:
+            for node in self.nodes:
+                transport.register(node.node_id)
         self.partitions: Optional[List[Set[int]]] = None
         self.bytes_sent = 0
 
@@ -130,21 +155,86 @@ class GossipNetwork:
 
     # ------------------------------------------------------------ delivery
 
+    def _placed_payloads(self, dst_id: str, payloads: Dict) -> Dict:
+        """Payloads `dst_id` should receive under the placement (all of
+        them when no placement is configured)."""
+        if self.placement is None:
+            self.obs.counter("gossip_payloads_shipped_total").inc(
+                len(payloads))
+            return payloads
+        placed = {eid: p for eid, p in payloads.items()
+                  if self.placement.is_holder(dst_id, eid)}
+        self.obs.counter("gossip_payloads_shipped_total").inc(len(placed))
+        self.obs.counter("gossip_payloads_filtered_total").inc(
+            len(payloads) - len(placed))
+        return placed
+
     def _send(self, i: int, j: int) -> None:
         self.obs.counter("gossip_sends_total").inc()
         src, dst = self.nodes[i], self.nodes[j]
-        if self.use_deltas:
+        if self.transport is not None:
+            self._send_wire(src, dst)
+        elif self.use_deltas:
             seen = VersionVector(src.known.get(dst.node_id, {}))
             d = delta_since(src.state, seen)
-            self.obs.counter("gossip_payloads_shipped_total").inc(
-                len(d.payloads))
+            d = Delta(d.adds, d.removes, d.vv,
+                      self._placed_payloads(dst.node_id, d.payloads),
+                      d.compressed)
             dst.receive_delta(d)
             self.bytes_sent += d.approx_bytes()
             src.known[dst.node_id] = src.state.vv.to_dict()
         else:
             # full-state pushes count no payloads, as in the reference
             # (it counts them only where a placement filters them)
-            dst.receive_state(src.state)
+            s = src.state
+            if self.placement is not None:
+                s = CRDTMergeState(s.adds, s.removes, s.vv,
+                                   self._placed_payloads(dst.node_id,
+                                                         s.store))
+            dst.receive_state(s)
+
+    def _send_wire(self, src: GossipNode, dst: GossipNode) -> None:
+        """Serialize through the wire codec and a transport; delivery
+        stays synchronous (the rounds are the schedule)."""
+        from repro_torch.net.wire import DeltaMsg, StateMsg
+        if self.use_deltas:
+            seen = VersionVector(src.known.get(dst.node_id, {}))
+            d = delta_since(src.state, seen,
+                            compress=self.compress_payloads)
+            msg = DeltaMsg(src.node_id, d.adds, d.removes, d.vv,
+                           self._placed_payloads(dst.node_id, d.payloads),
+                           d.compressed)
+            src.known[dst.node_id] = src.state.vv.to_dict()
+        else:
+            s = src.state
+            msg = StateMsg(src.node_id, s.adds, s.removes, s.vv,
+                           self._placed_payloads(dst.node_id,
+                                                 dict(s.store)))
+        self.bytes_sent += self.transport.send(src.node_id, dst.node_id,
+                                               msg)
+        for _peer, received in self.transport.recv_ready(dst.node_id):
+            dst.receive_wire(received)
+
+    def drain(self, max_iters: int = 10_000) -> None:
+        """Deliver every in-flight transport frame (socket transports may
+        lag a send by a kernel round trip; queues drain in order).
+        Spooling transports (persistent connections) are flushed each
+        pass so bytes the kernel deferred keep moving."""
+        if self.transport is None:
+            return
+        import time
+        for _ in range(max_iters):
+            progressed = False
+            for node in self.nodes:
+                for _src, msg in self.transport.recv_ready(node.node_id):
+                    node.receive_wire(msg)
+                    progressed = True
+            if not progressed:
+                self.transport.flush()
+                if self.transport.pending() == 0:
+                    return
+                time.sleep(0.001)
+        raise RuntimeError("transport did not drain")
 
     def all_pairs_round(self, order: Optional[List[Tuple[int, int]]] = None
                         ) -> None:
@@ -159,6 +249,7 @@ class GossipNetwork:
         for i, j in pairs:
             if self._can_send(i, j):
                 self._send(i, j)
+        self.drain()
 
     def epidemic_round(self, fanout: int = 3) -> None:
         self.obs.counter("gossip_rounds_total").inc(protocol="epidemic")
@@ -169,6 +260,7 @@ class GossipNetwork:
                 continue
             for j in self.rng.sample(peers, min(fanout, len(peers))):
                 self._send(i, j)
+        self.drain()
 
     def run_epidemic(self, fanout: int = 3, max_rounds: int = 64) -> int:
         """Gossip until all (reachable) roots agree; returns rounds used."""

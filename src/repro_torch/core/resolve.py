@@ -17,13 +17,21 @@ leaf inherits the base; `sparse_reference_apply` is the engine-free
 definition); whole-model strategies probe their cache entry before
 touching a payload. Also `IncrementalMean` (O(p) running weight
 average) and the deprecated `resolve(state, name, **cfg)` shim, which
-the gossip nodes' string form calls. Fetch-on-resolve over a sharded
-store waits for ROADMAP A6: an absent payload raises.
+the gossip nodes' string form calls.
+
+Fetch-on-resolve: under a sharded blob store (`net.store`) a replica's
+store holds only the payloads placed on it, so a resolve takes a
+`fetch` hook that pulls the missing visible payloads on demand —
+determinism is unaffected because payloads are content-addressed. The
+hook is leaf-granular: a plan whose every leaf task hits the cache
+(planner metadata is memoized by content id, `engine.memoized_meta`)
+completes without fetching any payload, and payloads are pulled only
+when some leaf has to recompute.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,10 +42,11 @@ from repro_torch.core.engine import EngineCache
 from repro_torch.core.hashing import pytree_digest
 from repro_torch.core.merkle import merkle_root
 from repro_torch.core.state import CRDTMergeState
-from repro_torch.obs import layer1_timer
+from repro_torch.obs import layer1_timer, span
 from repro_torch.strategies import get_strategy
 from repro_torch.strategies.base import pairwise_fold
 
+FetchHook = Callable[[Tuple[str, ...]], Dict[str, Any]]
 
 def seed_from_root(root: bytes) -> int:
     """Strategy RNG seed derived from the Merkle root (paper Def. 6).
@@ -59,25 +68,39 @@ def _warn_shim(old: str, new: str) -> None:
                   DeprecationWarning, stacklevel=3)
 
 
-def _absent(store: Dict[str, Any], ids: List[str]) -> None:
-    absent = [i for i in ids if i not in store]
-    if absent:
-        raise KeyError(f"store lacks payloads for {absent}; fetch-on-"
-                       "resolve waits for ROADMAP A6")
+def _fetch_into(store: Dict[str, Any], absent: List[str],
+                fetch: Optional[FetchHook]) -> Dict[str, Any]:
+    """Pull `absent` payloads through the fetch hook into a copied store.
+    Raises KeyError without a hook: silently merging a subset would be a
+    wrong answer with no signal."""
+    if fetch is None:
+        raise KeyError(f"store lacks payloads for {list(absent)}; "
+                       "sync blobs first or pass a fetch hook")
+    store = dict(store)
+    with span("engine.fetch", n=len(absent)):
+        store.update(fetch(tuple(absent)))
+    still = [i for i in absent if i not in store]
+    if still:
+        raise KeyError(f"fetch hook could not obtain {still}")
+    return store
 
 
 Coverages = Optional[Dict[str, Optional[Tuple[str, ...]]]]
 
 
 def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
-               seed: int, *, base: Any, cache: Optional[EngineCache],
-               use_cache: bool, base_digest: Optional[bytes] = None,
-               coverages: Coverages = None) -> Any:
-    """Merge the ordered id list through the planner/executor engine. A
-    whole-model strategy probes its cache entry first, keyed from the
+               seed: int, *, base: Any, fetch: Optional[FetchHook],
+               cache: Optional[EngineCache], use_cache: bool,
+               base_digest: Optional[bytes] = None,
+               coverages: Coverages = None) -> Tuple[Any, Dict[str, Any]]:
+    """Merge the ordered id list through the planner/executor engine.
+    Returns (merged, store) — the store may have grown by fetched
+    payloads, which grouped resolves reuse.
+
+    A whole-model strategy probes its cache entry first, keyed from the
     eids alone (a sparse payload's content hash and the base determine
-    its densified form), so a warm resolve touches no payload.
-    `coverages` maps sparse element ids to their leaf coverage
+    its densified form), so a warm resolve touches — and fetches — no
+    payload. `coverages` maps sparse element ids to their leaf coverage
     descriptors; ids absent from it (or mapped to None) are dense."""
     covs = None
     if coverages and any(coverages.get(i) is not None for i in ids):
@@ -90,40 +113,80 @@ def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
                                    base_digest=base_digest)
             hit = engine.cache_lookup(key, cache)
             if hit is not None:
-                return hit
-        _absent(store, ids)
-        return engine.merge([store[i] for i in ids], contrib_ids=tuple(ids),
-                            base=base, seed=seed, use_cache=use_cache,
-                            spec=spec, cache=cache, key=key,
-                            coverages=covs)
-    _absent(store, ids)
-    metas = [engine.contrib_meta(store[i], eid=i) for i in ids]
-    plan = engine.plan_merge(metas, base=base, seed=seed, spec=spec,
-                             coverages=covs)
-    return engine.execute_plan(plan, [store[i] for i in ids], base=base,
-                               use_cache=use_cache, cache=cache)
+                return hit, store
+        absent = [i for i in ids if i not in store]
+        if absent:
+            store = _fetch_into(store, absent, fetch)
+        out = engine.merge([store[i] for i in ids], contrib_ids=tuple(ids),
+                           base=base, seed=seed, use_cache=use_cache,
+                           spec=spec, cache=cache, key=key, coverages=covs)
+        return out, store
+    # plan from resident payloads + memoized digests
+    metas = {}
+    unknown = []
+    for i in ids:
+        if i in store:
+            metas[i] = engine.contrib_meta(store[i], eid=i)
+        else:
+            m = engine.memoized_meta(i)
+            if m is None:
+                unknown.append(i)
+            else:
+                metas[i] = m
+    if unknown:
+        # never-seen contributions must be pulled just to plan. With the
+        # cache on, pull ONLY those: the other absent payloads may turn
+        # out not to be needed at all. With it off, every absent payload
+        # is needed — one hook round trip for both pulls.
+        need = unknown if use_cache else [i for i in ids if i not in store]
+        store = _fetch_into(store, need, fetch)
+        for i in unknown:
+            metas[i] = engine.contrib_meta(store[i], eid=i)
+    plan = engine.plan_merge([metas[i] for i in ids], base=base, seed=seed,
+                             spec=spec, coverages=covs)
+    absent = [i for i in ids if i not in store]
+    if absent:
+        if use_cache:
+            # leaf-granular and fold-aware: pull only the payloads some
+            # cache-missed task consumes — an all-cached plan pulls none
+            needed = engine.plan_needed_ids(plan, cache)
+            pull = [ids[j] for j in needed if ids[j] not in store]
+        else:
+            pull = absent
+        if pull:
+            store = _fetch_into(store, pull, fetch)
+    out = engine.execute_plan(plan, [store.get(i) for i in ids], base=base,
+                              use_cache=use_cache, cache=cache)
+    return out, store
 
 
 def _grouped_resolve(store: Dict[str, Any], ids: List[str],
                      spec: MergeSpec, seed: int, *, base: Any,
+                     fetch: Optional[FetchHook],
                      cache: Optional[EngineCache], use_cache: bool,
                      base_digest: Optional[bytes] = None,
                      coverages: Coverages = None) -> Any:
     """Two-level resolve (paper §7.2 L3 mitigation 2): sub-groups of
     `spec.group_size` over the canonical order resolve first; a second
     pass merges the sub-group outputs with seed + 1. Both passes run
-    through the engine. Sub-group outputs are dense whatever their
-    inputs' coverage, so the second pass never sees sparsity."""
-    firsts = [_merge_ids(store, ids[i:i + spec.group_size], spec, seed,
-                         base=base, cache=cache, use_cache=use_cache,
-                         base_digest=base_digest, coverages=coverages)
-              for i in range(0, len(ids), spec.group_size)]
+    through the engine, and missing payloads fetch leaf-granularly per
+    group. Sub-group outputs are dense whatever their inputs' coverage,
+    so the second pass never sees sparsity."""
+    firsts = []
+    for i in range(0, len(ids), spec.group_size):
+        out, store = _merge_ids(store, ids[i:i + spec.group_size], spec,
+                                seed, base=base, fetch=fetch, cache=cache,
+                                use_cache=use_cache,
+                                base_digest=base_digest,
+                                coverages=coverages)
+        firsts.append(out)
     return engine.merge(firsts, base=base, seed=seed + 1,
                         use_cache=use_cache, spec=spec, cache=cache)
 
 
 def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
                  base: Any = None, trust: Any = None,
+                 fetch: Optional[FetchHook] = None,
                  cache: Optional[EngineCache] = None,
                  use_cache: bool = True, verify_base: bool = True) -> Any:
     """Compute the merged model the spec describes, over the state's
@@ -132,7 +195,14 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
 
     `trust` is a `core.trust.TrustState`; a spec with `trust_threshold`
     gates the visible set by it (evidence is a CRDT, so honest replicas
-    gate alike) and seeds from the Merkle root of the gated ids."""
+    gate alike) and seeds from the Merkle root of the gated ids.
+
+    `fetch` is the sharded-store hook: called with the visible eids
+    whose payloads are needed and locally absent, it returns them (a
+    `net.SyncNode` pulls them over the network). Payloads are needed
+    only for leaf tasks that miss the cache: a warm re-resolve on a
+    replica that has shed its blobs fetches nothing. Without a hook, a
+    needed but missing payload raises KeyError."""
     if not isinstance(spec, MergeSpec):
         raise TypeError(f"resolve_spec() requires a MergeSpec, got "
                         f"{type(spec).__name__}")
@@ -172,16 +242,19 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
         coverages = state.coverage()
     if spec.group_size is not None:
         return _grouped_resolve(state.store, ids, spec, seed, base=base,
-                                cache=cache, use_cache=use_cache,
+                                fetch=fetch, cache=cache,
+                                use_cache=use_cache,
                                 base_digest=base_digest,
                                 coverages=coverages)
-    return _merge_ids(state.store, ids, spec, seed, base=base, cache=cache,
-                      use_cache=use_cache, base_digest=base_digest,
-                      coverages=coverages)
+    out, _ = _merge_ids(state.store, ids, spec, seed, base=base,
+                        fetch=fetch, cache=cache, use_cache=use_cache,
+                        base_digest=base_digest, coverages=coverages)
+    return out
 
 
 def resolve(state: CRDTMergeState, spec: Any, base: Any = None, *,
             reduction: Optional[str] = None, use_cache: bool = True,
+            fetch: Optional[FetchHook] = None,
             cache: Optional[EngineCache] = None, trust: Any = None,
             **cfg) -> Any:
     """Resolve the state. `spec` is a `MergeSpec`.
@@ -192,18 +265,19 @@ def resolve(state: CRDTMergeState, spec: Any, base: Any = None, *,
     if isinstance(spec, MergeSpec):
         return resolve_spec(state, coerce_spec(spec, cfg,
                                                reduction=reduction),
-                            base=base, trust=trust, cache=cache,
-                            use_cache=use_cache)
+                            base=base, trust=trust, fetch=fetch,
+                            cache=cache, use_cache=use_cache)
     _warn_shim("resolve(state, strategy_name, **cfg)",
                "resolve(state, MergeSpec(strategy, cfg)) or "
                "Replica.resolve(spec)")
     lenient = coerce_spec(spec, cfg, reduction=reduction, lenient=True)
     return resolve_spec(state, lenient, base=base, trust=trust,
-                        cache=cache, use_cache=use_cache)
+                        fetch=fetch, cache=cache, use_cache=use_cache)
 
 
 def hierarchical_resolve(states: List[CRDTMergeState], spec: MergeSpec,
                          group_size: int = 8, base: Any = None, *,
+                         fetch: Optional[FetchHook] = None,
                          cache: Optional[EngineCache] = None,
                          use_cache: bool = True) -> Any:
     """Two-level resolve over the join of `states` (paper §7.2 L3
@@ -220,7 +294,7 @@ def hierarchical_resolve(states: List[CRDTMergeState], spec: MergeSpec,
     merged = states[0]
     for s in states[1:]:
         merged = merged.merge(s)
-    return resolve_spec(merged, spec, base=base, cache=cache,
+    return resolve_spec(merged, spec, base=base, fetch=fetch, cache=cache,
                         use_cache=use_cache)
 
 

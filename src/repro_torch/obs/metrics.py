@@ -122,7 +122,7 @@ declare("resolve_layer1_overhead_ms", "histogram",
         buckets=_MS_BUCKETS)
 # The gossip network and ConvergenceProbe record the gossip_* and probe_*
 # series; the sync, net, journal, store and repair series are declared
-# for the anti-entropy, transport and durability modules (ROADMAP A6).
+# for the anti-entropy, transport and durability modules.
 declare("sync_events_total", "counter",
         "SyncNode protocol events (per node; the former stats dict)",
         labels=("event",))

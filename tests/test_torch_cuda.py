@@ -61,6 +61,14 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                replica, at Phi-3-mini's width and 2 layers; C3: int8
                payloads on the CPU contributed to a replica on the card
                land there and resolve to the CPU replica's bytes
+  sync         a two-node anti-entropy session over
+               `PersistentLoopbackTransport(device="cuda")` lands every
+               payload on the card, bitwise the CPU session's; int8
+               payloads kept quantized on arrival merge through B2
+               byte-identical to the CPU's plain merge; a
+               `SimGossipNetwork(device="cuda")` epidemic delivers the
+               CPU run's frames at the same virtual times and reaches
+               its roots
 """
 import numpy as np
 import pytest
@@ -983,3 +991,95 @@ def test_cuda_c3_int8_payloads_move_to_the_card():
     spec = MergeSpec("weight_average")
     _same_tree(gpu.resolve(spec, use_cache=False),
                cpu.resolve(spec, use_cache=False))
+
+
+# ------------------------------------------------------------------ sync
+
+
+def _sync_pair(device, transport_cls, *, compress=False, keep=False,
+               frame=None):
+    from repro_torch.net import pump, SyncNode
+    g = torch.Generator().manual_seed(11)
+    kw = {} if frame is None else {"max_frame_bytes": frame}
+    a = SyncNode("a", device=device, compress_blobs=compress, **kw)
+    b = SyncNode("b", device=device, keep_quantized=keep, **kw)
+    for _ in range(3):
+        a.contribute({"w": torch.randn(300, 40, generator=g),
+                      "u": torch.randn(20, 30, generator=g),
+                      "v": [torch.randn(40, generator=g).bfloat16(),
+                            torch.randn(33, 8, generator=g)]})
+    t = transport_cls(device=device)
+    try:
+        for n in (a, b):
+            t.register(n.node_id)
+        t.send("b", "a", b.begin_sync("a"))
+        pump({"a": a, "b": b}, t, max_steps=20_000)
+    finally:
+        t.close()
+    return a, b
+
+
+@pytest.mark.cuda
+def test_cuda_sync_session_lands_payloads_on_the_card():
+    from repro_torch.net import PersistentLoopbackTransport
+    ga, gb = _sync_pair("cuda", PersistentLoopbackTransport, frame=4096)
+    ca, cb = _sync_pair("cpu", PersistentLoopbackTransport, frame=4096)
+    assert ga.root() == gb.root() == ca.root() == cb.root()
+    assert set(gb.state.store) == set(cb.state.store) == set(ga.state.store)
+    for e in cb.state.store:
+        _same_tree(gb.state.store[e], cb.state.store[e])
+        assert all(x.is_cuda for x in pytree.leaves(gb.state.store[e]))
+    assert dict(gb.stats) == dict(cb.stats)
+    assert gb.stats["blobs_assembled"] > 0       # the chunk path ran
+
+
+@pytest.mark.cuda
+def test_cuda_keep_quantized_merges_on_arrival_through_b2():
+    from repro_torch.net import InMemoryTransport
+    _, gb = _sync_pair("cuda", InMemoryTransport, compress=True, keep=True)
+    _, cb = _sync_pair("cpu", InMemoryTransport, compress=True, keep=True)
+    order = canonical_order(gb.state)
+    for e in order:
+        ct = gb.state.store[e]
+        assert isinstance(ct, compression.CompressedTree)
+        assert all(leaf.q.is_cuda and leaf.scale.is_cuda
+                   for leaf in ct.leaves)
+    seed = seed_from_root(gb.root())
+
+    def merge(node):
+        return engine.merge([node.state.store[e] for e in order],
+                            spec=MergeSpec("weight_average"),
+                            contrib_ids=order, seed=seed, kernels=True,
+                            use_cache=False, cache=engine.EngineCache())
+
+    before = quant.quant_nary.launches
+    got = merge(gb)
+    assert quant.quant_nary.launches > before
+    _same_tree(got, merge(cb))
+
+
+@pytest.mark.cuda
+def test_cuda_sim_epidemic_equals_cpu():
+    from repro_torch.net import LinkSpec, SimGossipNetwork, wire
+
+    def run(device):
+        g = SimGossipNetwork(8, seed=4, mode="antientropy", device=device,
+                             max_frame_bytes=4096,
+                             link=LinkSpec(loss=0.1, duplicate=0.1,
+                                           reorder=0.2, jitter=0.002))
+        log = []
+        for k, h in list(g.net.handlers.items()):
+            def traced(n, dst, src, msg, h=h):
+                log.append((n.clock, src, dst, wire.encode_message(msg)))
+                return h(n, dst, src, msg)
+            g.net.handlers[k] = traced
+        gen = torch.Generator().manual_seed(4)
+        pl = [{"w": torch.randn(40, 40, generator=gen)} for _ in range(8)]
+        g.contribute_all(lambda i: pl[i])
+        rounds = g.run_epidemic(fanout=3, max_rounds=40, require_blobs=True)
+        assert g.converged(require_blobs=True)
+        assert all(x.state.store[e]["w"].device.type == device
+                   for x in g.nodes for e in x.state.store)
+        return rounds, g.roots(), log, g.bytes_sent
+
+    assert run("cuda") == run("cpu")

@@ -280,17 +280,105 @@ def test_gc_then_resolve_identical_across_nodes():
     _close("ties", outs[0], jnet.resolve_all("ties", use_cache=False)[0])
 
 
-# ----------------------------------------------------------- A6 paths ---
+# --------------------------------------------- transports, placement ---
 
 
 def test_transport_placement_and_wire_wait_for_a6():
-    with pytest.raises(NotImplementedError, match="A6"):
-        GossipNetwork(2, transport=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        GossipNetwork(2, placement=object(), device="cpu")
-    net = GossipNetwork(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        net.nodes[0].receive_wire(object())
+    """Since the sync stack landed these no longer raise: a transport is
+    registered for every node, a placement is kept, and `receive_wire`
+    applies a StateMsg / DeltaMsg and refuses sync frames as the
+    reference does."""
+    from repro_torch.net import InMemoryTransport, Placement, wire
+    t = InMemoryTransport(device="cpu")
+    pl = Placement(["node000", "node001"], r=1)
+    net = GossipNetwork(2, transport=t, placement=pl, device="cpu")
+    assert net.transport is t and net.placement is pl
+    assert set(t._queues) == {"node000", "node001"}
+    src = GossipNetwork(1, device="cpu").nodes[0]
+    src.contribute(torch.ones(3))
+    net.nodes[0].receive_wire(wire.state_to_msg(src.state, "x"))
+    assert net.nodes[0].root() == src.root()
+    with pytest.raises(TypeError, match="SyncNode"):
+        net.nodes[0].receive_wire(wire.SyncDone("x", 1, src.state.vv))
+
+
+def _wired(kind, use_deltas, compress, seed=1, n=5):
+    """Port and reference networks over the same transport kind, one
+    contribution a node from the same numpy draws."""
+    import repro.net.transport as jtr
+    from repro_torch.net import transport as ttr
+    ts = {"mem": (ttr.InMemoryTransport, jtr.InMemoryTransport),
+          "loopback": (ttr.LoopbackSocketTransport,
+                       jtr.LoopbackSocketTransport),
+          "persistent": (ttr.PersistentLoopbackTransport,
+                         jtr.PersistentLoopbackTransport)}[kind]
+    t, jt = ts[0](device="cpu"), ts[1]()
+    net = GossipNetwork(n, seed=seed, use_deltas=use_deltas, transport=t,
+                        compress_payloads=compress, device="cpu")
+    jnet = JNet(n, seed=seed, use_deltas=use_deltas, transport=jt,
+                compress_payloads=compress)
+    rng = np.random.default_rng(seed)
+    for node, jnode in zip(net.nodes, jnet.nodes):
+        a = rng.standard_normal((6, 6)).astype(np.float32) * 3
+        node.contribute(torch.from_numpy(a))
+        jnode.contribute(jnp.asarray(a))
+    return net, jnet, (t, jt)
+
+
+@pytest.mark.parametrize("kind", ["mem", "loopback", "persistent"])
+@pytest.mark.parametrize("use_deltas,compress", [(False, False),
+                                                 (True, False),
+                                                 (True, True)])
+def test_gossip_over_transports_matches_reference(kind, use_deltas,
+                                                  compress):
+    """Roots after every round, `bytes_sent` (real frame bytes) and the
+    gossip counters equal the reference's over the same transport; the
+    wire-delivered outputs are bitwise the in-process network's (int8
+    payloads, as the reference's, once quantized)."""
+    net, jnet, ts = _wired(kind, use_deltas, compress)
+    try:
+        for rnd in range(2):
+            if rnd == 0:
+                net.all_pairs_round()
+                jnet.all_pairs_round()
+            else:
+                net.epidemic_round(fanout=2)
+                jnet.epidemic_round(fanout=2)
+            _same_roots(net, jnet)
+            _same_counters(net, jnet)
+        assert net.converged() and net.bytes_sent > 0
+        assert ts[0].bytes_by_type == ts[1].bytes_by_type
+        outs = net.resolve_all("weight_average")
+        assert _identical(outs)
+        _close("weight_average", outs[0],
+               jnet.resolve_all("weight_average")[0])
+    finally:
+        for t in ts:
+            t.close()
+
+
+def test_gossip_placement_and_drain_match_reference():
+    from repro.net.store import Placement as JPlacement
+    from repro_torch.net import Placement
+    ids = [f"node{i:03d}" for i in range(4)]
+    for transport in (False, True):
+        net, jnet, ts = _wired("mem", True, False, seed=31, n=4)
+        if not transport:
+            net.transport = jnet.transport = None
+        net.placement, jnet.placement = Placement(ids, 2), \
+            JPlacement(ids, 2)
+        for _ in range(3):
+            net.all_pairs_round()
+            jnet.all_pairs_round()
+            _same_roots(net, jnet)
+            _same_counters(net, jnet)
+            assert [sorted(n.state.store) for n in net.nodes] == \
+                [sorted(n.state.store) for n in jnet.nodes]
+        assert net.obs.counter("gossip_payloads_filtered_total").value() \
+            == jnet.obs.counter("gossip_payloads_filtered_total").value() \
+            > 0
+    net.drain()                          # nothing in flight: returns
+    GossipNetwork(2, device="cpu").drain()
 
 
 def test_network_without_a_device_needs_cuda():

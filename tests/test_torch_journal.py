@@ -20,6 +20,12 @@ Bitwise throughout (bytes on disk, Merkle roots, payload bytes):
     retraction inside a partition, converge to one root equal to 20
     shuffled merge orders of the op set, and resolve byte-identical
     trees;
+  * the SyncNode cases of tests/test_durability.py on both packages: a
+    warm restart re-fetching zero blob bytes, `Replica.attach` handing
+    the storage to the node and `detach` taking it back, `close`
+    through an attached node, `repair_membership` restoring the
+    replication factor, budgeted shedding (largest backup first, never
+    a primary or a pin) and an idempotent `SyncNode.close`;
   * C3: int8 contributions through `Replica.contribute(...,
     element_id=)` give the reference's roots and its weight_average
     resolve, bit for bit; without `element_id` the port raises
@@ -447,10 +453,7 @@ def test_replica_close_idempotent_and_context_manager(tmp_path):
     assert _bytes_equal(rep2.state.store[eid], _payload(1))
     rep2.close()
     rep2.close()
-    with pytest.raises(NotImplementedError, match="A6b"):
-        rep2.attach(object())
-    with pytest.raises(NotImplementedError, match="A6b"):
-        rep2.node
+    assert rep2.node is None
 
 
 def test_replica_state_setter_writes_through(tmp_path):
@@ -589,3 +592,191 @@ def test_c3_int8_without_element_id_raises():
     with pytest.raises(TypeError, match="element_id"):
         rep.add({"x": ct_t.leaves[0]})
     assert not rep.visible()
+
+
+# ------------------------------------------------------------ SyncNode
+
+
+def _sim(pkg: str, n: int, seed: int, **kw):
+    if pkg == "port":
+        from repro_torch.net import SimGossipNetwork
+        return SimGossipNetwork(n, seed=seed, mode="antientropy",
+                                device="cpu", **kw), _payload
+    from repro.net.simulator import SimGossipNetwork as JSim
+    return JSim(n, seed=seed, mode="antientropy", **kw), _np_payload
+
+
+def _warm_restart(pkg: str, tmp: str):
+    g, pay = _sim(pkg, 4, 3)
+    g.contribute_all(lambda i: pay(i))
+    g.attach_storage(tmp)
+    g.run_epidemic(fanout=3, require_blobs=True)
+
+    def blob_bytes():
+        c = g.net.obs.counter("net_bytes_total")
+        return sum(c.value(type=t) for t in
+                   ("BlobResp", "ChunkData", "BlobManifest"))
+
+    pre = g.by_id["node001"].state.merkle_root()
+    before = blob_bytes()
+    g.crash_node("node001")
+    node = g.restart_node("node001")
+    out = [node.state.merkle_root() == pre, node.missing_blobs()]
+    g.run_epidemic(fanout=3, require_blobs=True)
+    return out + [blob_bytes() - before, node.stats["blobs_received"],
+                  g.converged(require_blobs=True), g.bytes_sent,
+                  node.state.merkle_root()]
+
+
+def test_warm_restart_fetches_zero_network_bytes(tmp_path):
+    got = _warm_restart("port", str(tmp_path / "p"))
+    assert got == _warm_restart("ref", str(tmp_path / "r"))
+    assert got[:5] == [True, (), 0, 0, True]
+
+
+def test_replica_attach_hands_storage_to_node_and_detach_reclaims(
+        tmp_path):
+    from repro_torch.net import SyncNode
+    d = str(tmp_path / "rep")
+    rep = Replica("b", path=d, device="cpu")
+    node = SyncNode("b", device="cpu")
+    rep.attach(node)
+    assert node.storage is not None and rep._storage is None
+    eid = rep.contribute(_payload(3))          # write-through via the node
+    root = rep.merkle_root()
+    rep.detach()
+    assert rep._storage is not None and node.storage is None
+    rep.close()
+    with Replica("b", path=d, device="cpu") as rep2:
+        assert rep2.merkle_root() == root and eid in rep2.state.store
+    # a directory the port wrote through a node recovers on the reference
+    with JReplica("b", path=d) as jrep:
+        assert jrep.merkle_root() == root
+        assert _bytes(jrep.state.store[eid]["emb"]) == \
+            _bytes(_payload(3)["emb"])
+
+
+def test_replica_attach_hands_over_without_a_second_replay(tmp_path):
+    """The node adopts the replica's recovered payloads as they are:
+    the store is not decoded a second time."""
+    from repro_torch.net import SyncNode
+    d = str(tmp_path / "rep")
+    with Replica("b", path=d, device="cpu") as rep:
+        rep.contribute(_payload(1))
+    rep = Replica("b", path=d, device="cpu")
+    held = dict(rep.state.store)
+    node = SyncNode("b", device="cpu")
+    rep.attach(node)
+    assert all(node.state.store[e] is p for e, p in held.items())
+    rep.close()
+
+
+def test_replica_close_through_attached_node(tmp_path):
+    from repro_torch.net import SyncNode
+    d = str(tmp_path / "rep")
+    rep = Replica("c", path=d, device="cpu")
+    node = SyncNode("c", device="cpu")
+    rep.attach(node)
+    rep.contribute(_payload(5))
+    root = rep.merkle_root()
+    rep.close()
+    assert rep.closed and node.storage is None and rep.node is None
+    with Replica("c", path=d, device="cpu") as rep2:
+        assert rep2.merkle_root() == root
+
+
+def _repair(pkg: str):
+    g, pay = _sim(pkg, 5, 11, replication=2)
+    g.contribute_all(lambda i: pay(i))
+    g.run_epidemic(fanout=3, require_blobs=True)
+    for x in g.nodes:
+        x.shed_blobs()
+    dead = "node004"
+    g.crash_node(dead)
+    frames = []
+    for x in g.nodes:
+        frames.extend((x.node_id, peer, msg)
+                      for peer, msg in x.repair_membership(dead))
+    sent = [(s, d, type(m).__name__) for s, d, m in frames]
+    for src, peer, msg in frames:
+        g.net.send(src, peer, msg)
+    g.net.run()
+    pl = g.nodes[0].placement
+    placed = all(eid in g.by_id[h].state.store
+                 for eid in g.nodes[0].state.visible()
+                 for h in pl.holders(eid))
+    again = g.nodes[0].repair_membership(dead)
+    return (sent, placed, again, pl.nodes, g.bytes_sent,
+            [sorted(x.state.store) for x in g.nodes],
+            [x.obs.counter("repair_events_total").value(
+                event="replaced_eid") for x in g.nodes])
+
+
+def test_repair_membership_restores_replication():
+    got = _repair("port")
+    assert got == _repair("ref")
+    assert got[0] and got[1] and got[2] == []
+    assert got[3] == tuple(f"node{i:03d}" for i in range(4))
+
+
+def _budget(pkg: str):
+    if pkg == "port":
+        from repro_torch.net import Placement, SyncNode
+        from repro_torch.net.store import payload_nbytes
+        mk = lambda n: {"w": torch.zeros(n)}  # noqa: E731
+        node_of = lambda i, st, pl: SyncNode(  # noqa: E731
+            i, state=st, placement=pl, device="cpu")
+        state = CRDTMergeState()
+    else:
+        from repro.net.antientropy import SyncNode as JNode
+        from repro.net.store import payload_nbytes, Placement
+        mk = lambda n: {"w": np.zeros(n, np.float32)}  # noqa: E731
+        node_of = lambda i, st, pl: JNode(  # noqa: E731
+            i, state=st, placement=pl)
+        state = JState()
+    payloads = {f"e{i}": mk(2 ** (8 + i)) for i in range(4)}
+    for eid, p in payloads.items():
+        state = state.add(p, "origin", element_id=eid)
+    pl = Placement(["a", "b"], r=2)
+    a = node_of("a", state, pl)
+    out = [a.shed_blobs()]
+    sizes = {e: payload_nbytes(p) for e, p in payloads.items()}
+    primaries = {e for e in payloads if pl.holders(e)[0] == "a"}
+    backups = sorted(set(payloads) - primaries, key=lambda e: -sizes[e])
+    budget = sum(sizes.values()) - sizes[backups[0]]
+    out.append(a.shed_blobs(budget_bytes=budget))
+    out.append(backups[0])
+    out.append(primaries <= set(a.state.store))
+    b = node_of("b", state, pl)
+    out.append(b.shed_blobs(budget_bytes=0))
+    out.append(sorted(b.state.store))
+    out.append(a.obs.counter("repair_events_total").value(
+        event="budget_shed"))
+    c = node_of("a", state.add(mk(1024), "o", element_id="pinned"), pl)
+    c.want_blobs(["pinned"])
+    c.shed_blobs(budget_bytes=0)
+    out.append("pinned" in c.state.store)
+    return out
+
+
+def test_shed_blobs_budget_drops_largest_backups_first():
+    got = _budget("port")
+    assert got == _budget("ref")
+    assert got[0] == () and got[1] == (got[2],) and got[3]
+    assert got[7]                               # a pin is never shed
+
+
+def test_syncnode_close_idempotent(tmp_path):
+    from repro_torch.net import SyncNode
+    node = SyncNode("z", device="cpu")
+    store = P.DurableStore(str(tmp_path / "z"), device="cpu")
+    node.attach_storage(store)
+    node.contribute(_payload(4))
+    root = node.state.merkle_root()
+    node.close()
+    node.close()
+    assert node.storage is None
+    with P.DurableStore(str(tmp_path / "z"), device="cpu") as reopened:
+        assert reopened.load().merkle_root() == root
+    with J.DurableStore(str(tmp_path / "z")) as jreopened:
+        assert jreopened.load().merkle_root() == root

@@ -161,14 +161,15 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20
     rel = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
            if "repro_torch" in f.parts}
-    # slice 3's, slice 7's and slice 8's modules are among the files
-    # checked
+    # slice 3's, slice 7's, slice 8's and slice 11's modules are among
+    # the files checked
     assert {"kernels/ties.py", "kernels/slerp.py", "kernels/ops.py",
             "kernels/quantile.py", "strategies/catalog.py",
             "core/engine.py", "core/trust.py", "core/properties.py",
             "core/resolve.py", "random.py", "core/delta.py",
             "core/dotted_vv.py", "core/gossip.py", "core/hashing.py",
-            "obs/probes.py", "obs/metrics.py"} <= rel
+            "obs/probes.py", "obs/metrics.py", "net/antientropy.py",
+            "net/transport.py", "net/store.py", "net/simulator.py"} <= rel
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

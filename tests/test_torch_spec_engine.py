@@ -217,7 +217,8 @@ def test_kernel_outputs_never_enter_the_cache():
 
 
 def test_unported_paths_raise():
-    """What still raises: an absent payload (fetch-on-resolve, A6).
+    """What still raises: an absent payload with no fetch hook to pull
+    it (fetch-on-resolve needs a `net.SyncNode` or a hook).
     Sparse contributions (A4) resolve since slice 8, on the plain, gated
     and hierarchical paths alike: bitwise equal to the port's
     `sparse_reference_apply` (the gated one over the gated ids with
@@ -233,7 +234,7 @@ def test_unported_paths_raise():
         rep.contribute(c)
     stored = dict(rep.state.store)
     rep.state.store.pop(sorted(stored)[0])
-    with pytest.raises(KeyError, match="A6"):
+    with pytest.raises(KeyError, match="fetch hook"):
         rep.resolve(MergeSpec("svd_knot_tying"))
     rep.state.store.update(stored)
     ref = rep.register_base(convert.from_numpy_tree(base, "cpu"))

@@ -401,7 +401,8 @@ def test_whole_model_route_on_pytrees_with_base(name):
 
 def test_whole_model_resolve_probes_the_cache_before_payloads():
     """A warm whole-model resolve touches no payload: it succeeds on a
-    replica whose store lost them, where a cold one raises naming A6."""
+    replica whose store lost them, where a cold one without a fetch
+    hook raises."""
     rng = np.random.default_rng(9)
     rep = Replica("w", device="cpu")
     for _ in range(3):
@@ -416,6 +417,6 @@ def test_whole_model_resolve_probes_the_cache_before_payloads():
     assert rep.resolve(spec) is first
     assert rep.cache.stats["whole_model_dispatches"] == dispatches
     rep.clear_cache()
-    with pytest.raises(KeyError, match="A6"):
+    with pytest.raises(KeyError, match="fetch hook"):
         rep.resolve(spec)
     rep.state.store.update(stored)
