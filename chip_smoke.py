@@ -93,6 +93,20 @@ path's threefry draw on the card against the CPU's, and the served
 forward with B9 against the same forward with B9's plain version on the
 card (bf16 and fp32 compute).
 
+The training slice runs last. `[train]` trains Phi-3-mini at full width
+and depth (fp32 parameters and AdamW moments, bf16 compute, each layer
+under remat) for 3 steps of batch 4 x 4096 in microbatches of 2, every
+attention call on B9's forward (with its log-sum-exp) and B9's gradient
+(`csrc/flash_attention_bwd.cuh`), and traces the last step. At 2 layers
+(`[train-d2]`) a step with B9 is held against the same step with B9's
+plain forward and backward, a run resumed from a checkpoint against an
+uninterrupted one (bitwise), and `python -m repro_torch.launch.merge`
+over two branch checkpoints against an in-process resolve (byte-
+identical; the CLI runs beside `[btm]`). `[btm]` runs the reference
+test's Branch-Train-Merge scenario at full width, 2 layers: a round,
+a branch killed, a straggler, an elastic join, every alive branch
+byte-identical after each merge.
+
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code 1).
@@ -102,6 +116,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -112,6 +127,9 @@ from pathlib import Path
 # (every leaf's output and fp32 fold accumulator, 23 GB) beside the five
 # models left 9 GB of a segmented pool in fragments and ran out
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# the train step runs under torch's deterministic mode, which asks for
+# cuBLAS's workspace setting before cuBLAS starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 
@@ -193,6 +211,32 @@ C_CACHE_BYTES = 32 * 2 ** 30
 # benchmarks/bench_durability.py's
 FLEET_NODES, FLEET_SIDE, FLEET_DISTINCT, FLEET_SEED = 100, 32, 40, 7
 DURABLE_MIB = 64.0
+# training (slice 12): TRAIN_4K's sequence, batch 4 in microbatches of
+# 2 (the reference's TRAIN_4K is batch 256); full width and depth, fp32
+# parameters and moments, bf16 compute, remat "full" (the config's
+# defaults)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 4096, 2, 3
+# the depth-2 checks: one train step with B9 against the same step with
+# B9's plain forward and backward. bf16 compute: B9's outputs and
+# gradients one bf16 ulp from the plain version's move the rest through
+# the projections, as the port's bf16 gradients against JAX's (CPU,
+# 1.4e-2 of a leaf's magnitude): each gradient leaf within
+# TRAIN_GRAD_TOL of its largest magnitude, the loss within 1e-4
+# relative, and after Adam's first step (each element moves by about
+# +-lr, the other way where a near-zero gradient changed sign) no
+# parameter beyond TRAIN_PARAM_LRS times that step's learning rate
+TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_LRS = 5e-2, 1e-4, 2.5
+# [btm]: the reference test's scenario (tests/test_checkpoint_btm.py:
+# 88-127) at full width, 2 of 32 layers
+BTM_LAYERS, BTM_BRANCHES, BTM_MERGE_EVERY = 2, 3, 2
+BTM_BATCH, BTM_SEQ = 4, 512
+# B9's gradient against its plain version (three fp32 sums in other
+# orders, each output rounded once): fp32 within 1e-5 + 1e-4 |plain|;
+# bf16 no element beyond one bf16 ulp of |plain| + 1e-4 max |plain|
+# (equal fp32 values up to summation order, which near-zero entries,
+# the small differences of large terms, carry in absolute terms)
+FLASH_BWD_F32 = (1e-5, 1e-4)
+FLASH_BWD_BF16_ATOL = 1e-4
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -566,6 +610,7 @@ def phase_kernels(cfg) -> dict:
     torch.cuda.empty_cache()
     phase_perleaf_kernels(rows, g)
     phase_flash_kernel(rows, cfg, g)
+    phase_flash_backward(rows, cfg, g)
     return rows
 
 
@@ -703,6 +748,120 @@ def flash_case(q, k, v, q_offset: int) -> dict:
         f"{out['plain_ms']:.2f} ms; library (sdpa) {out['library_ms']:.3f} "
         "ms")
     return out
+
+
+def flash_bwd_case(q, k, v, dout) -> dict:
+    """B9's gradient at one shape (q_offset 0, causal): the LSE forward
+    held bitwise against the served forward, the backward against its
+    plain version (FLASH_BWD_*), then timed, the kernel and the
+    backward of `scaled_dot_product_attention` (`torch.autograd.grad`
+    on an SDPA output over [B, H, S, D] copies, forward excluded) over
+    10 CUDA-event-timed calls, the plain version over 3. Bound: five
+    causal matrix products (S, dP, dV, dK, dQ: 2 D flops per visible
+    pair each) at the peak rate of q's type, against each input (q, k,
+    v, o, dO, the LSE) read and each output (dq, dk, dv) written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_lse)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    out, lse = flash_attention_lse(q, k, v)
+    if not torch.equal(bits(out), bits(flash_attention(q, k, v))):
+        raise AssertionError("B9's LSE forward differs from the served "
+                             "forward")
+
+    def kern():
+        return flash_attention_backward(q, k, v, out, lse, dout)
+
+    def plain():
+        return flash_attention_backward_plain(q, k, v, out, lse, dout)
+
+    got, want = kern(), plain()
+    again = kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again)):
+        raise AssertionError("B9's backward: two launches differ")
+    max_err, beyond = 0.0, 0
+    for x, y in zip(got, want):
+        x, y = x.float(), y.float()
+        err = (x - y).abs()
+        max_err = max(max_err, float(err.max()))
+        if q.dtype == torch.float32:
+            lim = FLASH_BWD_F32[0] + FLASH_BWD_F32[1] * y.abs()
+        else:
+            lim = 2.0 ** -7 * y.abs() + FLASH_BWD_BF16_ATOL \
+                * float(y.abs().max())
+        beyond += int((err > lim).sum())
+    rule = (f"{beyond} elements beyond "
+            + ("1e-5 + 1e-4 |plain|" if q.dtype == torch.float32 else
+               "one bf16 ulp + 1e-4 max |plain|"))
+    if beyond:
+        raise AssertionError(f"flash_attention_backward {tuple(q.shape)} "
+                             f"{q.dtype}: kernel vs plain outside "
+                             f"tolerance ({rule}, max abs err {max_err:.3e})")
+    del got, want, again
+    pairs = sum(min(sk, i + 1) for i in range(sq))
+    ops = 5 * 2.0 * d * b * h * pairs
+    nbytes = ((3 * b * sq * h * d + 2 * b * sk * hk * d) * q.element_size()
+              + b * h * sq * 4 + (b * sq * h * d + 2 * b * sk * hk * d)
+              * q.element_size())
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gt = dout.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
+
+    res = {"max_abs_err": max_err, "ms": cuda_ms(kern, 10),
+           "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": cuda_ms(library, 10), "rule": rule}
+    del ot, qt, kt, vt
+    log(f"[kernels] flash_attention_backward q, k, v [{b}, {sq}, {h}, {d}] "
+        f"{str(q.dtype)[6:]}, causal: {rule}, max abs err {max_err:.3e}; "
+        f"{res['ms']:.3f} ms (bound {res['bound_ms']:.3f} ms by "
+        f"{res['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
+        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
+        f"{res['plain_ms']:.2f} ms; library (sdpa backward) "
+        f"{res['library_ms']:.3f} ms")
+    return res
+
+
+def phase_flash_backward(rows: dict, cfg, g) -> None:
+    """B9's gradient at the train step's shape: q, k, v, dO [2, 4096, 32,
+    96] (a microbatch of TRAIN_4K), bf16 as the training forward runs it
+    and fp32 (its second instance)."""
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    cases = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        x = [torch.randn((mb, TRAIN_SEQ, n, d), generator=g,
+                         device=dev).to(dtype) for n in (h, hk, hk, h)]
+        cases[label] = flash_bwd_case(*x)
+        del x
+    torch.cuda.empty_cache()
+    main = cases.pop("bf16")
+    rows["flash_attention_backward"] = {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": f"q, k, v, dO [{mb}, {TRAIN_SEQ}, {h}, {d}] bf16, causal; "
+                 f"tolerance: {main['rule']}",
+        "library": "torch.autograd.grad of "
+                   "torch.nn.functional.scaled_dot_product_attention",
+        "note": "B9's gradient (dQ, dK, dV); the reference's Pallas B9 has "
+                "none: its model trains through XLA's autodiff of "
+                "chunked_attention (src/repro/models/layers.py:149)",
+        **cases}
 
 
 def phase_flash_kernel(rows: dict, cfg, g) -> None:
@@ -1384,22 +1543,26 @@ def check_served(label: str, tokens, logits, cfg) -> None:
                              "the vocabulary")
 
 
-def trace_device(label: str, fn) -> None:
+def trace_device(label: str, fn, tag: str = "serve",
+                 host: bool = True) -> None:
     """One warm call of `fn` under `torch.profiler`: its wall time (host
     clock to a synchronize, profiler on), the device time of its kernels
-    by group (B9, matrix products, the rest) and its three costliest
-    kernels, the share of the wall time the device was idle, and the
-    host's three costliest CUDA runtime calls."""
+    by group (B9, B9's gradient where it ran, matrix products, the rest)
+    and its three costliest kernels, the share of the wall time the
+    device was idle, and (with `host`) the host's three costliest CUDA
+    runtime calls. Without `host` only the device is traced: a train
+    step launches ~23,000 kernels from ~100,000 host ops, and recording
+    those took 12 s of a 3.5 s step on an H100 80GB HBM3)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups = {"B9": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"B9": 0.0, "B9 bwd": 0.0, "matmul": 0.0, "other": 0.0}
     runtime: dict = {}
     kernels: dict = {}
     n = 0
@@ -1412,6 +1575,8 @@ def trace_device(label: str, fn) -> None:
         name = ev.name.lower()
         # cuBLAS's Hopper kernels are named nvjet_*, its older ones *gemm*
         key = "B9" if "flash_kernel" in name else (
+            "B9 bwd" if any(w in name for w in ("bwd_dkdv", "bwd_dq",
+                                                "bwd_dot")) else
             "matmul" if any(w in name for w in ("nvjet", "gemm", "gemv",
                                                 "cutlass", "xmma")) else
             "other")
@@ -1420,7 +1585,7 @@ def trace_device(label: str, fn) -> None:
         kernels[ev.name[:40]] = kernels.get(ev.name[:40], 0.0) + ms
         n += 1
     if not n:
-        log(f"[serve] {label}, traced: the profiler recorded no device "
+        log(f"[{tag}] {label}, traced: the profiler recorded no device "
             "time (device split not measured)")
         return
     busy = sum(groups.values())
@@ -1428,11 +1593,13 @@ def trace_device(label: str, fn) -> None:
         return ", ".join(f"{k} {v:.2f} ms" for k, v in
                          sorted(d.items(), key=lambda kv: -kv[1])[:3])
 
-    log(f"[serve] {label}, traced: wall {wall:.2f} ms; {n} kernels, device "
-        f"busy {busy:.2f} ms (B9 {groups['B9']:.2f}, matmuls "
+    bwd = f", B9 bwd {groups['B9 bwd']:.2f}" if groups["B9 bwd"] else ""
+    log(f"[{tag}] {label}, traced: wall {wall:.2f} ms; {n} kernels, device "
+        f"busy {busy:.2f} ms (B9 {groups['B9']:.2f}{bwd}, matmuls "
         f"{groups['matmul']:.2f}, other {groups['other']:.2f}); device idle "
         f"{max(0.0, 1 - busy / wall):.3f} of the wall time; costliest "
-        f"kernels {top(kernels)}; host runtime calls {top(runtime)}")
+        f"kernels {top(kernels)}; host runtime calls "
+        + (top(runtime) if host else "not traced"))
 
 
 def phase_serve(cfg) -> dict:
@@ -2692,6 +2859,387 @@ def phase_audits() -> None:
     log(f"[audit] {time.perf_counter() - t0:.1f} s")
 
 
+def leaf_samples(tree) -> list:
+    """A strided sample of every leaf (one element in 101), to tell
+    later whether the leaf changed without a copy of the model."""
+    from repro_torch import pytree
+    return [t.detach().reshape(-1)[::101].clone() for t in
+            pytree.leaves(tree)]
+
+
+def phase_train(cfg) -> dict:
+    """[train], the main path of the training slice: Phi-3-mini at full
+    width and depth (32 layers, 3,821,079,552 fp32 parameters, fp32
+    AdamW moments, bf16 compute, each layer under remat) from
+    `init_from_schema` (the threefry init draws on the host), then
+    TRAIN_STEPS steps of `make_train_step` at batch TRAIN_BATCH x
+    TRAIN_SEQ in microbatches of TRAIN_BATCH / TRAIN_ACCUM on
+    `SyntheticTask` batches. Per step: loss, grad norm, seconds, tokens
+    per second, peak device memory; the last step traced (device busy
+    time by kernel group, idle share). Every loss and norm finite, every
+    parameter leaf changed, the step counter TRAIN_STEPS, and B9's
+    forward and backward launched exactly as many times as the layers,
+    microbatches and remat ask."""
+    import gc
+    from repro_torch import kernels, pytree
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import SyntheticTask
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import init_train_state, make_train_step
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    state = init_train_state(model, params=init_from_schema(
+        model.schema(), seed=SEED, device=DEVICE), device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(state["params"]))
+    log(f"[train] {cfg.name} {cfg.n_layers} layers, {n:,} parameters "
+        f"{cfg.param_dtype}, moments {cfg.opt_state_dtype}, compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat}: state in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    before = leaf_samples(state["params"])
+    step_fn = make_train_step(model, total_steps=TRAIN_STEPS,
+                              grad_accum=TRAIN_ACCUM)
+    task = SyntheticTask(cfg.vocab_size, TRAIN_SEQ, task_id=0)
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(task.batch(i, TRAIN_BATCH),
+                                           device=DEVICE)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+
+        def step(batch=batch, out=out):
+            out["state"], out["mets"] = step_fn(state, batch)
+            torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            trace_device(f"train step {i + 1}", step, tag="train",
+                         host=False)
+        else:
+            step()
+        dt = time.perf_counter() - t0
+        loss = float(out["mets"]["loss"])
+        gnorm = float(out["mets"]["grad_norm"])
+        log(f"[train] step {i + 1}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{dt:.2f} s{' (traced)' if i == TRAIN_STEPS - 1 else ''}, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / dt:.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"train step {i + 1}: loss {loss}, grad "
+                                 f"norm {gnorm}")
+    counts = kernels.launch_counts()
+    after = leaf_samples(state["params"])
+    shares = [float((a != b).float().mean()) for a, b in zip(before, after)]
+    if min(shares) == 0.0:
+        raise AssertionError(f"a parameter leaf did not change: {shares}")
+    if int(state["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"step counter {int(state['step'])}")
+    micro = TRAIN_STEPS * TRAIN_ACCUM * cfg.n_layers
+    want = {"flash_attention": micro * (2 if cfg.remat != "none" else 1),
+            "flash_attention_backward": micro}
+    got = {k: counts[k] for k in want}
+    log(f"[train] launches {got} (expected {want}: {cfg.n_layers} layers x "
+        f"{TRAIN_ACCUM} microbatches x {TRAIN_STEPS} steps, the forward "
+        f"again in each remat); every parameter leaf changed (shares of "
+        f"sampled elements changed {min(shares):.4f}-{max(shares):.4f}); "
+        f"step counter {int(state['step'])}")
+    if got != want:
+        raise AssertionError(f"train launches {got} != {want}")
+    del state, out, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
+def clone_tree(tree):
+    from repro_torch import pytree
+    return pytree.tree_map(lambda t: t.clone(), tree)
+
+
+def phase_train_depth2(cfg) -> dict:
+    """At full width, 2 layers: (1) the loss and every gradient leaf, and
+    one train step, with B9 against the same with B9's plain forward and
+    backward (TRAIN_*_TOL); (2) 4 steps straight against 2 steps +
+    `save_checkpoint` + `restore_checkpoint` + 2 steps: parameters,
+    moments and step bitwise; (3) two branch checkpoints (task 0 after 4
+    steps, task 1 after 2) and the base's handed to `python -m
+    repro_torch.launch.merge --strategy ties --base ...`, started in a
+    process of its own as soon as they are written, and the in-process
+    `Replica.resolve(MergeSpec("ties"), base=...)` over the same
+    parameters, which `phase_merge_cli` compares with the CLI's output
+    once [btm] is done."""
+    import shutil
+    import tempfile
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data.synthetic import SyntheticTask
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_grad_plain)
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.optim.adamw import lr_schedule
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        train_state_shapes)
+    c2 = cfg.replace(n_layers=2)
+    models = {"B9": Model(c2),
+              "plain": Model(c2, attention=flash_attention_grad_plain)}
+    model = models["B9"]
+    params0 = init_from_schema(model.schema(), seed=SEED, device=DEVICE)
+
+    def batch(i, task_id=0):
+        return {"tokens": torch.as_tensor(SyntheticTask(
+            c2.vocab_size, TRAIN_SEQ, task_id).batch(i, TRAIN_BATCH),
+            device=DEVICE)}
+
+    def fresh():
+        return init_train_state(model, params=clone_tree(params0),
+                                device=DEVICE)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # the branches: task 0 for 4 steps (also the uninterrupted run
+        # of (2)), task 1 for 2; the base; their checkpoints go to the
+        # merge CLI at once
+        step = make_train_step(model, total_steps=4, grad_accum=TRAIN_ACCUM)
+        a = fresh()
+        t0 = time.perf_counter()
+        for i in range(4):
+            a, _ = step(a, batch(i))
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        st2 = fresh()
+        for i in range(2):
+            st2, _ = step(st2, batch(i, task_id=1))
+        base = fresh()
+        t0 = time.perf_counter()
+        pa = save_checkpoint(os.path.join(tmp, "a"), a, 4,
+                             metadata={"data_step": 4})
+        pb = save_checkpoint(os.path.join(tmp, "b"), st2, 2,
+                             metadata={"data_step": 2})
+        pbase = save_checkpoint(os.path.join(tmp, "base"), base, 0,
+                                metadata={"data_step": 0})
+        log(f"[train-d2] 3 checkpoints for the merge CLI written in "
+            f"{time.perf_counter() - t0:.1f} s; the CLI starts now and "
+            "runs beside the rest of this phase and [btm]")
+        out_dir = os.path.join(tmp, "merged")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.merge", "--arch",
+             cfg.name, "--strategy", "ties", "--base", pbase, "--inputs",
+             pa, pb, "--out", out_dir], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        pending = {"cli": cli, "t0": time.perf_counter(), "tmp": tmp,
+                   "out": out_dir, "model": model}
+
+        # (1) B9 against its plain version: loss, gradients, one step
+        mb = {"tokens": batch(0)["tokens"][:TRAIN_BATCH // TRAIN_ACCUM]}
+        res = {}
+        for label, m in models.items():
+            p = pytree.tree_map(lambda t: t.clone().requires_grad_(),
+                                params0)
+            loss, _ = m.loss(p, mb)
+            loss.backward()
+            res[label] = (float(loss.detach()),
+                          [t.grad for t in pytree.leaves(p)])
+            del p, loss
+        (lk, gk), (lp, gp) = res["B9"], res["plain"]
+        worst = max(float((x - y).abs().max())
+                    / max(float(y.abs().max()), 1e-30)
+                    for x, y in zip(gk, gp))
+        ok = abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp) and \
+            worst <= TRAIN_GRAD_TOL
+        log(f"[train-d2] loss and gradients, B9 vs its plain version "
+            f"({c2.name} 2 layers, microbatch [{TRAIN_BATCH // TRAIN_ACCUM}"
+            f", {TRAIN_SEQ}]): loss {lk:.6f} vs {lp:.6f}; worst gradient "
+            f"leaf {worst:.3e} of its largest magnitude (limit "
+            f"{TRAIN_GRAD_TOL}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train: B9 vs plain loss or gradients")
+        del res, gk, gp
+        after = {}
+        for label, m in models.items():
+            st = init_train_state(m, params=clone_tree(params0),
+                                  device=DEVICE)
+            st, mets = make_train_step(m, total_steps=TRAIN_STEPS,
+                                       grad_accum=TRAIN_ACCUM)(st, batch(0))
+            after[label] = (float(mets["loss"]), st["params"])
+            del st
+        lr0 = float(lr_schedule(0, cfg, TRAIN_STEPS))
+        pdiff = max(float((x - y).abs().max()) for x, y in zip(
+            pytree.leaves(after["B9"][1]), pytree.leaves(after["plain"][1])))
+        ok = pdiff <= TRAIN_PARAM_LRS * lr0 and \
+            abs(after["B9"][0] - after["plain"][0]) <= \
+            TRAIN_LOSS_RTOL * abs(after["plain"][0])
+        log(f"[train-d2] one train step, B9 vs plain: loss "
+            f"{after['B9'][0]:.6f} vs {after['plain'][0]:.6f}; updated "
+            f"parameters max abs diff {pdiff:.3e} (limit {TRAIN_PARAM_LRS} "
+            f"x lr {lr0:.3e}): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train: B9 vs plain updated parameters")
+        del after
+        torch.cuda.empty_cache()
+
+        # (2) resume against uninterrupted, bitwise
+        b = fresh()
+        for i in range(2):
+            b, _ = step(b, batch(i))
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "resume"), b, 2,
+                               metadata={"data_step": 2})
+        t_save = time.perf_counter() - t0
+        del b
+        t0 = time.perf_counter()
+        b, meta = restore_checkpoint(path, train_state_shapes(model),
+                                     device=DEVICE)
+        t_restore = time.perf_counter() - t0
+        for i in range(int(meta["data_step"]), 4):
+            b, _ = step(b, batch(i))
+        flat_a, flat_b = pytree.leaves(a), pytree.leaves(b)
+        same = sum(torch.equal(bits(x), bits(y))
+                   for x, y in zip(flat_a, flat_b))
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        log(f"[train-d2] resume: 4 steps straight vs 2 + save "
+            f"({size / 1e9:.2f} GB, {t_save:.1f} s) + restore "
+            f"({t_restore:.1f} s) + 2: {same} of {len(flat_a)} leaves "
+            f"(params, m, v, step) bitwise equal; 4 steps {t_steps:.1f} s")
+        if same != len(flat_a):
+            raise AssertionError("resume differs from the uninterrupted run")
+        del b, flat_a, flat_b
+
+        # (3) the in-process resolve the CLI's output is held against
+        r = Replica("in-process", device=DEVICE)
+        r.contribute(a["params"])
+        r.contribute(st2["params"])
+        t0 = time.perf_counter()
+        pending["want"] = r.resolve(MergeSpec("ties"), base=base["params"])
+        pending["root"] = r.merkle_root().hex()
+        log(f"[train-d2] in-process resolve (ties over the 2 branches, "
+            f"base): {time.perf_counter() - t0:.1f} s")
+        r.close()
+        del a, st2, base, r
+    except BaseException:
+        if "pending" in locals() and pending["cli"].poll() is None:
+            pending["cli"].kill()
+            pending["cli"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    del params0
+    torch.cuda.empty_cache()
+    return pending
+
+
+def phase_merge_cli(pending: dict) -> None:
+    """The merge CLI started in `phase_train_depth2`: its output
+    checkpoint's parameters byte-identical to the in-process resolve,
+    and its Merkle root the in-process replica's."""
+    import shutil
+    from repro_torch import pytree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.train.step import train_state_shapes
+    try:
+        out, err = pending["cli"].communicate(timeout=900)
+        t_cli = time.perf_counter() - pending["t0"]
+        if pending["cli"].returncode:
+            raise AssertionError(f"merge CLI failed: {err[-2000:]}")
+        for line in out.strip().splitlines():
+            log(f"[train-d2] merge CLI: {line}")
+        got, meta = restore_checkpoint(
+            os.path.join(pending["out"], "step_00000000"),
+            train_state_shapes(pending["model"]), device=DEVICE)
+        want = pending.pop("want")
+        same = sum(torch.equal(bits(x), bits(y)) for x, y in
+                   zip(pytree.leaves(got["params"]), pytree.leaves(want)))
+        n = len(pytree.leaves(want))
+        log(f"[train-d2] merge CLI (ties over 2 branch checkpoints, base; "
+            f"{t_cli:.1f} s from its start to its exit): {same} of {n} "
+            f"leaves byte-identical to the in-process resolve; root "
+            f"{meta['merkle_root'][:16]} vs {pending['root'][:16]}")
+        if same != n or meta["merkle_root"] != pending["root"]:
+            raise AssertionError("merge CLI output != in-process resolve")
+        del got, want
+    finally:
+        if pending["cli"].poll() is None:
+            pending["cli"].kill()
+            pending["cli"].wait()
+        shutil.rmtree(pending["tmp"], ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_btm(cfg) -> dict:
+    """[btm]: `BranchTrainMerge` at full width, BTM_LAYERS of 32 layers,
+    BTM_BRANCHES branches, weight_average, merge_every BTM_MERGE_EVERY,
+    batch BTM_BATCH x BTM_SEQ, all-pairs full-state gossip: the
+    reference test's scenario (a round; branch 2 killed; a straggler
+    included the round after; an elastic join). After every round the
+    alive branches' parameters are byte-identical and gossip has
+    converged."""
+    from repro_torch import kernels, pytree
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.btm import BranchTrainMerge
+    bc = cfg.replace(n_layers=BTM_LAYERS, grad_accum=TRAIN_ACCUM)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    btm = BranchTrainMerge(
+        bc, n_branches=BTM_BRANCHES, strategy="weight_average",
+        merge_every=BTM_MERGE_EVERY, batch_size=BTM_BATCH, seq_len=BTM_SEQ,
+        device=DEVICE, params=init_from_schema(Model(bc).schema(),
+                                               seed=SEED, device=DEVICE))
+    log(f"[btm] {BTM_BRANCHES} branches of {bc.name} at {BTM_LAYERS} "
+        f"layers: set up in {time.perf_counter() - t0:.1f} s")
+
+    def round_(label):
+        t0 = time.perf_counter()
+        rec = btm.train_round()
+        dt = time.perf_counter() - t0
+        alive = [b for b in btm.branches if b.alive]
+        first = pytree.leaves(alive[0].state["params"])
+        same = all(all(torch.equal(bits(x), bits(y)) for x, y in
+                       zip(first, pytree.leaves(b.state["params"])))
+                   for b in alive[1:])
+        conv = btm.net.converged()
+        vis = len(btm.net.nodes[0].state.visible())
+        log(f"[btm] round {rec['round']} ({label}): {dt:.1f} s; losses "
+            + ", ".join(f"{i}: {v:.4f}" for i, v in
+                        sorted(rec["losses"].items()))
+            + f"; {len(alive)} alive branches byte-identical: {same}; "
+            f"gossip converged: {conv}; {vis} visible contributions")
+        if not (same and conv):
+            raise AssertionError(f"btm round {rec['round']}: identical "
+                                 f"{same}, converged {conv}")
+        return rec, vis
+
+    round_("all branches")
+    btm.kill_branch(2)
+    rec, _ = round_("branch 2 killed")
+    if 2 in rec["losses"]:
+        raise AssertionError("a killed branch trained")
+    btm.mark_straggler(1, rounds=1)
+    _, n_before = round_("branch 1 straggles")
+    _, n_after = round_("the straggler's add lands")
+    if n_after <= n_before:
+        raise AssertionError("the straggler's contribution did not land")
+    idx = btm.add_branch()
+    rec, _ = round_(f"branch {idx} joined")
+    if idx not in rec["losses"] or btm.net.nodes[idx].state.visible() != \
+            btm.net.nodes[0].state.visible():
+        raise AssertionError("the joining branch did not train or sync")
+    counts = kernels.launch_counts()
+    log(f"[btm] launches: flash_attention {counts['flash_attention']}, "
+        f"flash_attention_backward {counts['flash_attention_backward']}")
+    del btm
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2720,9 +3268,13 @@ def main() -> int:
     timed(phase_audits)
     timed(phase_gossip_tables)
     timed(phase_sync_fleet)
+    train = timed(phase_train, cfg)
+    pending = timed(phase_train_depth2, cfg)
+    btm = timed(phase_btm, cfg)
+    timed(phase_merge_cli, pending)
     for name, row in rows.items():
-        row["launches"] = main["launches"][name] \
-            + serve["launches"][name]
+        row["launches"] = sum(p["launches"][name]
+                              for p in (main, serve, train, btm))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

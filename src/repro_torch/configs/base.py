@@ -4,8 +4,8 @@ port needs).
 Every architecture is a `ModelConfig` and every workload cell a
 `ShapeSpec`, plain frozen dataclasses copied field for field from the
 reference so the two describe the same model and the same batch. The
-port registers the configurations it can run (the dense family:
-Phi-3-mini); the rest arrive with ROADMAP A7.
+port registers the configurations it can run (the plain dense family:
+Phi-3-mini, MiniCPM-2B, Minitron-8B); the rest arrive with ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -166,7 +166,8 @@ def list_archs() -> list:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from repro_torch.configs import phi3_mini_3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        minicpm_2b, minitron_8b, phi3_mini_3_8b)
 
 
 # ---------------------------------------------------------------------------

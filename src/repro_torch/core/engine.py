@@ -74,7 +74,8 @@ from repro_torch.api.spec import coerce_spec, MergeSpec
 from repro_torch.core.compression import (
     compressed_tree_to_structure, CompressedLeaf, CompressedTree,
     dequantize_leaf)
-from repro_torch.core.hashing import pytree_digest, tensor_digest
+from repro_torch.core.hashing import (pytree_digest, tensor_digest,
+                                     tensor_digests)
 from repro_torch.dtypes import BY_NAME
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
@@ -136,10 +137,16 @@ class ContribMeta:
     # per-leaf bytes per element as the payload holds it: 1 for an int8
     # `CompressedLeaf`, else the dtype's itemsize (batch pricing)
     itemsizes: Tuple[int, ...] = ()
+    # per-leaf int8 dequantization scale of an int8 `CompressedLeaf`
+    # (None for a dense leaf); None when no leaf is int8
+    scales: Optional[Tuple[Optional[float], ...]] = None
 
     @property
     def leaf_count(self) -> int:
         return len(self.digests)
+
+    def scale_of(self, local: int) -> Optional[float]:
+        return self.scales[local] if self.scales is not None else None
 
 
 _META_MEMO: "OrderedDict[str, ContribMeta]" = OrderedDict()
@@ -168,17 +175,28 @@ def contrib_meta(contribution: Any, *, eid: Optional[str] = None
                 "torch.Tensor and CompressedLeaf leaves only")
     meta = ContribMeta(
         treedef=treedef,
-        digests=tuple(tensor_digest(_dense_leaf(leaf, obs=None))
-                      for leaf in leaves),
+        # int8 leaves one at a time (each a transient dequantization on
+        # the device); dense ones on the hashing threads
+        digests=(tuple(tensor_digest(_dense_leaf(leaf, obs=None))
+                       for leaf in leaves)
+                 if any(_is_qleaf(leaf) for leaf in leaves)
+                 else tuple(tensor_digests(leaves))),
         shapes=tuple(tuple(leaf.shape) for leaf in leaves),
         dtypes=tuple(leaf.dtype for leaf in leaves),
         paths=tuple(pytree.keystr(p) for p, _ in flat),
         itemsizes=tuple(1 if _is_qleaf(leaf) else leaf.dtype.itemsize
                         for leaf in leaves),
+        scales=_scales([float(leaf.scale) if _is_qleaf(leaf) else None
+                        for leaf in leaves]),
     )
     if eid is not None:
         _memoize(eid, meta)
     return meta
+
+
+def _scales(scales: Sequence[Optional[float]]
+            ) -> Optional[Tuple[Optional[float], ...]]:
+    return tuple(scales) if any(s is not None for s in scales) else None
 
 
 def _memoize(eid: str, meta: ContribMeta) -> None:
@@ -223,6 +241,7 @@ def note_meta(eid: str, paths: Sequence[str], digests: Sequence[bytes],
         paths=tuple(paths),
         itemsizes=tuple(1 if s is not None else d.itemsize
                         for d, s in zip(dts, scales)),
+        scales=_scales([None if s is None else float(s) for s in scales]),
     )
     _memoize(eid, meta)
     return meta
@@ -258,10 +277,19 @@ class LeafTask:
     contributors: Tuple[int, ...] = ()
     digests: Tuple[bytes, ...] = ()
     base_frag: bytes = b""
+    # per contributor, its int8 dequantization scale (None for a dense
+    # payload); None when no contributor is int8
+    scales: Optional[Tuple[Optional[float], ...]] = None
 
     @property
     def k(self) -> int:
         return len(self.contributors)
+
+    @property
+    def quantized(self) -> bool:
+        """Every contributor arrives as an int8 payload."""
+        return self.scales is not None and \
+            all(s is not None for s in self.scales)
 
 
 @dataclass(frozen=True)
@@ -362,13 +390,15 @@ def plan_merge(metas: Sequence[ContribMeta],
         n_leaves = len(paths)
         path_index = {p: i for i, p in enumerate(paths)}
         # per leaf: (contribution position, its leaf digest, its bytes
-        # per element) for every contribution covering the leaf
-        cover: List[List[Tuple[int, bytes, int]]] = [
+        # per element, its int8 scale) for every contribution covering
+        # the leaf
+        cover: List[List[Tuple[int, bytes, int, Optional[float]]]] = [
             [] for _ in range(n_leaves)]
         for j, (m, cov) in enumerate(zip(metas, coverages)):
             if cov is None and m.treedef is not None:
                 for i in range(n_leaves):
-                    cover[i].append((j, m.digests[i], m.itemsizes[i]))
+                    cover[i].append((j, m.digests[i], m.itemsizes[i],
+                                     m.scale_of(i)))
                 continue
             if cov is not None and set(m.paths) != set(cov):
                 raise ValueError(
@@ -385,12 +415,12 @@ def plan_merge(metas: Sequence[ContribMeta],
                     raise ValueError(
                         f"contribution {j}: leaf {p!r} shape/dtype "
                         "disagrees with the model structure")
-                cover[i].append((j, m.digests[local], m.itemsizes[local]))
+                cover[i].append((j, m.digests[local], m.itemsizes[local],
+                                 m.scale_of(local)))
         if base is None:
             base_frags: Sequence[bytes] = [_NO_BASE] * n_leaves
         else:
-            base_frags = [tensor_digest(bl)
-                          for bl in treedef.flatten_up_to(base)]
+            base_frags = tensor_digests(treedef.flatten_up_to(base))
         tasks = []
         base_only = []
         for i, path in enumerate(paths):
@@ -400,18 +430,19 @@ def plan_merge(metas: Sequence[ContribMeta],
                 # leaves, and it took its structure from the base.
                 base_only.append(i)
                 continue
-            digs = tuple(d for _, d, _ in cover[i])
+            digs = tuple(c[1] for c in cover[i])
             # int8 contributors stack at wire width: the merge-on-arrival
             # kernel never densifies them
-            stacked = math.prod(shapes[i]) * sum(w for _, _, w in cover[i])
+            stacked = math.prod(shapes[i]) * sum(c[2] for c in cover[i])
             tasks.append(LeafTask(
                 index=i, path=path,
                 sub_root=_leaf_subroot(frag, base_frags[i], digs,
                                        strat.needs_key, seed, i),
                 shape=shapes[i], dtype=dtypes[i],
                 stacked_nbytes=stacked,
-                contributors=tuple(j for j, _, _ in cover[i]),
-                digests=digs, base_frag=base_frags[i]))
+                contributors=tuple(c[0] for c in cover[i]),
+                digests=digs, base_frag=base_frags[i],
+                scales=_scales([c[3] for c in cover[i]])))
     any_sparse = any(c is not None for c in coverages)
     return MergePlan(strategy=spec.strategy, reduction=spec.reduction,
                      seed=seed, k=k, cfg=spec.cfg, treedef=treedef,
@@ -536,7 +567,28 @@ class EngineCache:
     def __contains__(self, key: bytes) -> bool:
         return key in self._data
 
+    def lookup(self, key: bytes) -> Optional[Any]:
+        """Fetch-free probe: the cached value (counting a hit) or None
+        (counting nothing: the caller computes through a path that
+        records the miss itself)."""
+        val = self.get(key)
+        if val is not None:
+            self.stats["hits"] += 1
+        return val
+
+    def split(self, plan: "MergePlan") -> Tuple[List["LeafTask"],
+                                                List["LeafTask"]]:
+        """(hits, misses): membership only, no recency bump, no
+        counters."""
+        hits = [t for t in plan.tasks if t.sub_root in self._data]
+        misses = [t for t in plan.tasks if t.sub_root not in self._data]
+        return hits, misses
+
     def exec_stats(self) -> Dict[str, int]:
+        """Executor counters since the last reset: `leaf_tasks`,
+        `dispatches`, `batched_leaves`, cache `hits` / `misses`, and
+        `peak_stacked_bytes`, the largest set of stacked contribution
+        slices live at once."""
         out = dict(self.stats)
         out["peak_stacked_bytes"] = self.peak_stacked
         return out
@@ -558,16 +610,56 @@ def _cache_or_default(cache: Optional[EngineCache]) -> EngineCache:
     return cache if cache is not None else _DEFAULT_CACHE
 
 
+def default_cache() -> EngineCache:
+    """The process-wide cache the module-level helpers (and every call
+    that does not pass `cache=`) operate on."""
+    return _DEFAULT_CACHE
+
+
+# Module-level helpers over the default cache, as the reference keeps
+# them for single-replica processes and the test and bench harnesses
+# (a `Replica` holds its own `EngineCache`).
+
+
+def set_cache_limit(entries: Optional[int] = None, *,
+                    bytes: Optional[int] = None) -> None:  # noqa: A002
+    """Bound the default merge-output cache (`EngineCache.set_limit`)."""
+    _DEFAULT_CACHE.set_limit(entries, bytes=bytes)
+
+
+def cache_info() -> CacheInfo:
+    """Occupancy, limits and counters of the default cache."""
+    return _DEFAULT_CACHE.info()
+
+
+def reset_cache_limits() -> None:
+    """Restore the default cache's entry and byte limits."""
+    _DEFAULT_CACHE.set_limit(_DEFAULT_ENTRY_LIMIT,
+                             bytes=_DEFAULT_BYTE_LIMIT)
+
+
+def cached(key: bytes, cache: Optional[EngineCache] = None) -> bool:
+    return key in _cache_or_default(cache)
+
+
 def cache_lookup(key: bytes,
                  cache: Optional[EngineCache] = None) -> Optional[Any]:
-    """Fetch-free probe of a whole-model key: the cached value (counting
-    a hit) or None (counting nothing; the merge that follows counts its
-    miss)."""
-    c = _cache_or_default(cache)
-    val = c.get(key)
-    if val is not None:
-        c.stats["hits"] += 1
-    return val
+    """Fetch-free probe of a whole-model key (`EngineCache.lookup`)."""
+    return _cache_or_default(cache).lookup(key)
+
+
+def plan_cached_split(plan: "MergePlan",
+                      cache: Optional[EngineCache] = None
+                      ) -> Tuple[List["LeafTask"], List["LeafTask"]]:
+    return _cache_or_default(cache).split(plan)
+
+
+def exec_stats(cache: Optional[EngineCache] = None) -> Dict[str, int]:
+    return _cache_or_default(cache).exec_stats()
+
+
+def reset_exec_stats(cache: Optional[EngineCache] = None) -> None:
+    _cache_or_default(cache).reset_exec_stats()
 
 
 def clear_cache() -> None:

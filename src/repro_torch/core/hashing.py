@@ -7,7 +7,12 @@ Two tiers:
     the paper's canonical identifiers (Assumption 11), so the port
     reproduces the reference's bytes exactly: a torch replica and a JAX
     replica name the same contribution with the same element id. A CUDA
-    tensor is copied to the host leaf by leaf to be hashed.
+    tensor is copied to the host in slices of at most 256 MiB as it is
+    hashed, and a tree's (or a list's) leaves are hashed on up to
+    _HASH_THREADS threads (`tensor_digests`): hashlib and the copies
+    release the GIL, and each digest is a pure function of its leaf's
+    bytes, so the digests are the same, in the same order, at a fraction
+    of one thread's time (host SHA-256 sets the pace of hashing a model).
   * `fingerprint2x32`: an order-independent integer fingerprint, each
     element contributing `word * mix(global_index)` under wrap-around
     uint32 arithmetic, so partial sums over any split add up to the
@@ -19,12 +24,14 @@ Two tiers:
 from __future__ import annotations
 
 import hashlib
-from typing import Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Sequence, Tuple
 
 import torch
 
 from repro_torch import pytree
-from repro_torch.dtypes import dtype_name, host_view
+from repro_torch.dtypes import dtype_name
 
 _MIX_A = 2654435761        # Knuth multiplicative
 _MIX_B = 0x9E3779B9
@@ -33,6 +40,12 @@ _MIX_D = 0xC2B2AE35
 _M32 = 0xFFFFFFFF
 # elements summed at once: 2^30 terms below 2^32 stay below 2^62
 _SUM_CHUNK = 1 << 30
+# bytes of a device tensor copied to the host at a time while hashing
+_SLICE_BYTES = 1 << 28
+# threads hashing a list of leaves; leaves below _THREAD_MIN_BYTES in all
+# are hashed on the caller's thread
+_HASH_THREADS = max(1, min(4, os.cpu_count() or 1))
+_THREAD_MIN_BYTES = 1 << 26
 
 
 def tensor_digest(t: torch.Tensor) -> bytes:
@@ -44,19 +57,43 @@ def tensor_digest(t: torch.Tensor) -> bytes:
     h.update(b"|")
     h.update(str(tuple(t.shape)).encode())
     h.update(b"|")
-    h.update(host_view(t))
+    # the row-major bytes (bf16 through an int16 view: the same bits)
+    x = t.detach()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    x = x.contiguous().reshape(-1)
+    if x.device.type == "cpu":
+        h.update(x.numpy())
+    else:
+        step = max(1, _SLICE_BYTES // max(1, x.element_size()))
+        for s in range(0, x.numel(), step):
+            h.update(x[s:s + step].cpu().numpy())
     return h.digest()
+
+
+def tensor_digests(leaves: Sequence[torch.Tensor]) -> List[bytes]:
+    """`tensor_digest` of each leaf, in order, on up to _HASH_THREADS
+    threads."""
+    leaves = list(leaves)
+    total = sum(t.numel() * t.element_size() for t in leaves
+                if isinstance(t, torch.Tensor))
+    if len(leaves) < 2 or total < _THREAD_MIN_BYTES or _HASH_THREADS < 2:
+        return [tensor_digest(t) for t in leaves]
+    with ThreadPoolExecutor(min(_HASH_THREADS, len(leaves))) as pool:
+        return list(pool.map(tensor_digest, leaves))
 
 
 def pytree_digest(tree) -> bytes:
     """SHA-256 of a parameter pytree: leaves hashed, combined in path
     order."""
     flat, _ = pytree.flatten_with_path(tree)
+    items = sorted(((pytree.keystr(p), leaf) for p, leaf in flat),
+                   key=lambda kv: kv[0])
+    digests = tensor_digests([leaf for _, leaf in items])
     h = hashlib.sha256()
-    for key, leaf in sorted(((pytree.keystr(p), leaf) for p, leaf in flat),
-                            key=lambda kv: kv[0]):
+    for (key, _), d in zip(items, digests):
         h.update(key.encode())
-        h.update(tensor_digest(leaf))
+        h.update(d)
     return h.digest()
 
 

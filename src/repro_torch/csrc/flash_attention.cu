@@ -63,6 +63,10 @@
 // combines, never what is summed) combines the chunks in chunk order,
 // divides and rounds, and resets the ticket for the next call.
 //
+// The prefill design writes each row's log-sum-exp to `lse` when the
+// gradient's forward asks for it (`flash_attention_lse_*`; the served
+// forward passes none). The gradient is csrc/flash_attention_bwd.cuh.
+//
 // Every design consumes keys in a fixed order and sums no float with
 // atomics, so every launch gives the same bits. A causal block stops at
 // the last key tile any of its rows can see; prefill launches the
@@ -71,7 +75,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "b9_common.cuh"
 
 namespace {
 
@@ -80,19 +84,6 @@ constexpr int kTX = 16;                 // lanes across keys and head dims
 constexpr int kTY = kThreads / kTX;     // row groups
 constexpr int kBK = 64;                 // keys per tile
 constexpr int kRQ = 4;                  // query rows per thread
-
-// fp32 -> bf16 bits, round to nearest even (as torch's .to(bfloat16))
-__device__ __forceinline__ uint16_t to_bf16(float f) {
-  uint32_t u = __float_as_uint(f);
-  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FC0;
-  u += 0x7FFFu + ((u >> 16) & 1u);
-  return static_cast<uint16_t>(u >> 16);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(uint16_t* p, float v) {
-  *p = to_bf16(v);
-}
 
 // ---- PTX wrappers: cp.async, ldmatrix, mma.sync (sm_80 and later)
 
@@ -203,7 +194,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              int sk, int h, int hk, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh,
              long long vsb, long long vss, long long vsh, float scale,
-             int causal, int q_offset) {
+             int causal, int q_offset, float* __restrict__ lse) {
   constexpr int BQ = kTY * kRQ;
   constexpr int DC = D / kTX;           // head dims per thread
   constexpr int U = D / 8;              // 8-element units per row
@@ -353,6 +344,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kRQ; ++i) {
     const int r = ty * kRQ + i;
+    if (lse != nullptr && tx == 0 && r < rows)
+      lse[(static_cast<long long>(b) * h + hh) * sq + q0 + r] =
+          l[i] > 0.f ? __fadd_rn(m[i], logf(l[i])) : 0.f;
     if (r < rows) {
       const float denom = fmaxf(l[i], 1e-30f);
       float* orow =
@@ -389,7 +383,7 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
                  int sq, int sk, int h, int hk, long long qsb, long long qss,
                  long long qsh, long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh, float scale,
-                 int causal, int q_offset) {
+                 int causal, int q_offset, float* __restrict__ lse) {
   constexpr int LD = mma_ld<D>();
   constexpr int U = D / 8;       // 16-byte units per row
   constexpr int KS = D / 16;     // k-steps of Q . K^T
@@ -570,6 +564,13 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
     const int r = r_lo + 8 * half;
     if (r >= rows) continue;
     const float den = half ? den_hi : den_lo;
+    if (lse != nullptr && t == 0) {
+      // m is in base-2 units: lse = (m + log2 l) ln 2
+      const float lh = half ? l_hi : l_lo, mh = half ? m_hi : m_lo;
+      lse[(static_cast<long long>(b) * h + hh) * sq + q0 + r] =
+          lh > 0.f ? __fmul_rn(__fadd_rn(mh, log2f(lh)), 0.6931471805599453f)
+                   : 0.f;
+    }
     uint32_t* orow = reinterpret_cast<uint32_t*>(
         o + ((static_cast<long long>(b) * sq + q0 + r) * h + hh) * D);
 #pragma unroll
@@ -862,20 +863,6 @@ flash_kernel_decode(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) tickets[grp] = 0;
 }
 
-// raise the dynamic shared-memory limit of `kern` to `bytes`, once per
-// device for each instance (the decode step launches it every layer)
-template <typename K>
-cudaError_t allow_smem(K kern, int bytes, bool (&done)[64]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
-}
-
 struct Args {
   const void *q, *k, *v;
   void* o;
@@ -884,6 +871,7 @@ struct Args {
   float scale;
   int causal, q_offset;
   cudaStream_t stream;
+  float* lse = nullptr;   // prefill only: per-row log-sum-exp, or none
 };
 
 template <int D>
@@ -900,7 +888,7 @@ int launch_scalar(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.sk,
       a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], a.scale, a.causal, a.q_offset);
+      st[8], a.scale, a.causal, a.q_offset, a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,7 +905,7 @@ int launch_mma(const Args& a) {
       static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
       static_cast<const uint16_t*>(a.v), static_cast<uint16_t*>(a.o), a.sq,
       a.sk, a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], a.scale, a.causal, a.q_offset);
+      st[7], st[8], a.scale, a.causal, a.q_offset, a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1017,6 +1005,16 @@ int decode_split(const void* q, const void* k, const void* v, void* o,
                    static_cast<int*>(tickets));
 }
 
+template <typename T>
+int forward_lse(const void* q, const void* k, const void* v, void* o, int b,
+                int sq, int sk, int h, int hk, int d, const long long* st,
+                float scale, int causal, void* lse, void* stream) {
+  Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, 0,
+         static_cast<cudaStream_t>(stream)};
+  a.lse = static_cast<float*>(lse);
+  return launch<T>(a, d, 0, 1, 0, nullptr, nullptr);
+}
+
 }  // namespace
 
 // q, k, v: fp32 or bf16 (raw bits) with element strides (batch, seq,
@@ -1090,4 +1088,21 @@ extern "C" int flash_attention_smem(int design, int bf16, int d, int rows) {
     case 128: return pick(std::integral_constant<int, 128>{});
     default: return -1;
   }
+}
+
+// The prefill design at any Sq (q_offset 0), also writing each row's
+// log-sum-exp of the scaled logits, natural units, to lse [b, h, sq]
+// fp32 (0 for a row that sees no key): the forward of the gradient.
+extern "C" int flash_attention_lse_f32(B9_ARGS, void* lse, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  if (q_offset != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return forward_lse<float>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
+                            causal, lse, stream);
+}
+
+extern "C" int flash_attention_lse_bf16(B9_ARGS, void* lse, void* stream) {
+  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  if (q_offset != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return forward_lse<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
+                               causal, lse, stream);
 }

@@ -36,13 +36,3 @@ def dtype_name(dtype: torch.dtype) -> str:
         return NUMPY_NAME[dtype]
     except KeyError:
         raise TypeError(f"dtype {dtype} has no canonical name") from None
-
-
-def host_view(t: torch.Tensor):
-    """A C-contiguous numpy view of the tensor's bytes on the host (one
-    device->host copy for a CUDA tensor). bf16 comes back as int16."""
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.contiguous().cpu().numpy()
-

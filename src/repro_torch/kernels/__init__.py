@@ -12,7 +12,10 @@ it (the CPU path and the oracle), and a launch count on each wrapper.
   B8 `slerp.slerp_reduce`      two-pass SLERP       csrc/slerp.cu
      `slerp.slerp_combine`
   B9 `flash_attention.flash_attention`  attention of the model's prefill
-                               and decode           csrc/flash_attention.cu
+                               and decode, and the training forward
+                               (with its log-sum-exp) csrc/flash_attention.cu
+     `flash_attention.flash_attention_backward`  its gradient (dQ, dK,
+                               dV), training's backward
 
 The per-leaf entry points over contribution pytrees, as the reference's
 `repro.kernels` exports them: `weighted_merge`, `weight_average_merge`,
@@ -42,7 +45,8 @@ WRAPPERS = {"nary_accum": _nary_accum.nary_accum,
             "ties_leaf": _ties.ties_leaf,
             "slerp_reduce": _slerp.slerp_reduce,
             "slerp_combine": _slerp.slerp_combine,
-            "flash_attention": _flash.flash_attention}
+            "flash_attention": _flash.flash_attention,
+            "flash_attention_backward": _flash.flash_attention_backward}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -25,7 +25,7 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("nary_accum", "histogram", "quant", "dare", "ties", "slerp",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
          "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -64,6 +64,19 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention_bf16": ("flash_attention",
                              [_P] * 4 + [_I] * 6 + [_L] * 9
                              + [_F, _I, _I, _P]),
+    # ... then lse [B, H, Sq] fp32 (the prefill design, q_offset 0)
+    "flash_attention_lse_f32": ("flash_attention",
+                                [_P] * 4 + [_I] * 6 + [_L] * 9
+                                + [_F, _I, _I, _P, _P]),
+    "flash_attention_lse_bf16": ("flash_attention",
+                                 [_P] * 4 + [_I] * 6 + [_L] * 9
+                                 + [_F, _I, _I, _P, _P]),
+    # B9's gradient: q, k, v, o, dout, lse, dd scratch, dq, dk, dv, B,
+    # Sq, Sk, H, HK, D, scale, causal, stream
+    "flash_attention_bwd_f32": ("flash_attention_bwd",
+                                [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
+    "flash_attention_bwd_bf16": ("flash_attention_bwd",
+                                 [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     # design, bf16, D, rows -> dynamic shared-memory bytes (reports)
     "flash_attention_smem": ("flash_attention", [_I] * 4),
     # ... then rows per block, splits, chunk, fp32 scratch, int32

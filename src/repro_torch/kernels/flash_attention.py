@@ -28,6 +28,22 @@ and plain version sum in different orders and exponentiate with
 different code, so they agree within a tolerance, not bitwise
 (`chip_smoke.py` states it). A row that sees no key gives 0 in both.
 
+The gradient. When autograd records the call (grad mode on and q, k
+or v requiring grad), `flash_attention` runs `FlashAttentionFn`: its
+forward is the prefill design at any Sq, which also writes each row's
+log-sum-exp of the scaled logits ([B, H, Sq] fp32; 0 for a row that
+sees no key); it saves q, k, v, the output and the LSE. Its backward,
+`flash_attention_backward`, computes dQ, dK and dV of causal (or full)
+GQA attention at q_offset 0, what XLA's autodiff of the reference's
+`chunked_attention` computes, with three CUDA kernels and no atomics
+(`csrc/flash_attention_bwd.cuh`, head dims BWD_HEAD_DIMS); on CPU
+tensors it runs
+`flash_attention_backward_plain`, the same quantities step by step in
+fp32. `flash_attention_grad_plain` runs the autograd function with the
+plain forward and backward on any device (the chip smoke compares a
+train step with it). The reference's Pallas kernel has no gradient:
+its model trains through `chunked_attention`.
+
 Sliding windows and logit softcapping (gemma2's local layers) raise
 `NotImplementedError`; they come with that family (ROADMAP A7).
 """
@@ -40,6 +56,7 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 96, 128)     # instantiated in the CUDA source
+BWD_HEAD_DIMS = (16, 64, 96, 128)     # the gradient's: configs and smoke
 DECODE_ROWS = 16      # queries up to which a call takes the decode design
 DECODE_TILE = 32      # keys per tile of the decode kernel
 # blocks a decode call aims at, and the fewest elements of K a chunk
@@ -139,10 +156,12 @@ def _scratch(device: torch.device, stream: int, floats: int,
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float = 0.0, q_offset: int = 0,
-                          window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          window: int = 0, softcap: float = 0.0,
+                          return_lse: bool = False):
     """The same function in fp32 torch ops, chunked over queries:
-    logits, mask, a max-subtracted softmax, p @ v, cast to q's dtype."""
+    logits, mask, a max-subtracted softmax, p @ v, cast to q's dtype.
+    With `return_lse`, also each row's log-sum-exp [B, H, Sq] fp32 (0
+    for a row that sees no key)."""
     _unsupported(window, softcap)
     _check(q, k, v, q_offset)
     b, sq, h, d = q.shape
@@ -151,8 +170,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     if scale <= 0.0:
         scale = d ** -0.5
     out = torch.zeros((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
     if sk == 0:
-        return out
+        return (out, lse) if return_lse else out
     kt = k.to(torch.float32).permute(0, 2, 3, 1).unsqueeze(2)  # B,HK,1,D,Sk
     vf = v.to(torch.float32).permute(0, 2, 1, 3).unsqueeze(2)  # B,HK,1,Sk,D
     kpos = torch.arange(sk, device=q.device)
@@ -170,17 +190,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
         p = torch.exp(logits - m)
         del logits
-        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        o = torch.matmul(p, vf) / denom                       # B,HK,G,c,D
+        total = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p, vf) / total.clamp_min(1e-30)     # B,HK,G,c,D
         out[:, s0:s0 + c] = o.permute(0, 3, 1, 2, 4).reshape(b, c, h, d) \
             .to(q.dtype)
-    return out
+        if return_lse:
+            row = torch.where(total > 0, m + torch.log(total),
+                              torch.zeros_like(m))
+            lse[:, :, s0:s0 + c] = row.reshape(b, h, c)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
                     q_offset: int = 0, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """q [B, Sq, H, D], k, v [B, Sk, HK, D] -> [B, Sq, H, D]."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _grad_supported(q, k, v, q_offset, window, softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, scale, False)
     if build.on_host(q, k, v, contiguous=False):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, window=window,
@@ -225,3 +253,185 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The gradient
+# ---------------------------------------------------------------------------
+
+
+def _grad_supported(q, k, v, q_offset: int, window: int,
+                    softcap: float) -> None:
+    _unsupported(window, softcap)
+    _check(q, k, v, q_offset)
+    if q_offset:
+        raise NotImplementedError(
+            "B9's gradient covers q_offset 0 (training's causal prefill)")
+
+
+def _kernel_args(q, scale: float, dims=HEAD_DIMS):
+    d = q.shape[3]
+    if d not in dims:
+        raise ValueError(f"head dim {d} has no kernel instance; have "
+                         f"{dims}")
+    return d, (scale if scale > 0.0 else d ** -0.5)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the prefill design at q_offset 0 for any Sq, with each
+    row's log-sum-exp [B, H, Sq] fp32. CUDA tensors launch the kernel
+    (counted in `flash_attention.launches`); CPU tensors run the plain
+    version."""
+    if build.on_host(q, k, v, contiguous=False):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     return_lse=True)
+    _check(q, k, v, 0)
+    d, scale = _kernel_args(q, scale)
+    _check_strided(q, k, v)
+    b, sq, h, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    symbol = ("flash_attention_lse_bf16" if q.dtype == torch.bfloat16
+              else "flash_attention_lse_f32")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = build.function(symbol)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), int(bool(causal)), 0, lse.data_ptr(), stream)
+    flash_attention.launches += 1
+    build.check(code, symbol)
+    return out, lse
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
+                                   causal: bool = True, scale: float = 0.0
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """(dq, dk, dv) step by step in fp32 torch ops, chunked over
+    queries: Dd = rowsum(dO * O), P = exp(q.k scale - lse) (0 where
+    masked), dP = dO V^T, dS = P (dP - Dd), dV = P^T dO, dK = dS^T Q
+    scale, dQ = dS K scale; each cast to its input's dtype."""
+    _check(q, k, v, 0)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    if scale <= 0.0:
+        scale = d ** -0.5
+    f32 = torch.float32
+    dq = torch.zeros((b, sq, h, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, hk, sk, d), dtype=f32, device=q.device)
+    dv = torch.zeros((b, hk, sk, d), dtype=f32, device=q.device)
+    if sk and sq:
+        dd = (dout.to(f32) * o.to(f32)).sum(dim=-1)            # B,Sq,H
+        kf = k.to(f32).permute(0, 2, 1, 3).unsqueeze(2)        # B,HK,1,Sk,D
+        vf = v.to(f32).permute(0, 2, 1, 3).unsqueeze(2)
+        kpos = torch.arange(sk, device=q.device)
+        chunk = max(1, _PLAIN_ELEMS // max(1, b * h * sk))
+        for s0 in range(0, sq, chunk):
+            c = min(chunk, sq - s0)
+
+            def heads(x):                                      # B,HK,G,c,D
+                return x[:, s0:s0 + c].to(f32).reshape(b, c, hk, g, d) \
+                    .permute(0, 2, 3, 1, 4)
+
+            qc, gc = heads(q), heads(dout)
+            lc = lse[:, :, s0:s0 + c].reshape(b, hk, g, c, 1)
+            p = torch.exp(torch.matmul(qc, kf.transpose(-1, -2)) * scale
+                          - lc)
+            if causal:
+                qpos = s0 + torch.arange(c, device=q.device)
+                p.masked_fill_(kpos[None, :] > qpos[:, None], 0.0)
+            ddc = dd[:, s0:s0 + c].reshape(b, c, hk, g) \
+                .permute(0, 2, 3, 1).unsqueeze(-1)
+            ds = p * (torch.matmul(gc, vf.transpose(-1, -2)) - ddc)
+            dv += torch.matmul(p.transpose(-1, -2), gc).sum(dim=2)
+            dk += torch.matmul(ds.transpose(-1, -2), qc).sum(dim=2)
+            dq[:, s0:s0 + c] = (torch.matmul(ds, kf) * scale) \
+                .permute(0, 3, 1, 2, 4).reshape(b, c, h, d)
+            del p, ds
+    dk = (dk * scale).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype), dk.to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
+                             scale: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` at q_offset 0, given its output
+    `o` and `lse` (`flash_attention_lse`) and the output's gradient.
+    CUDA tensors launch the three backward kernels (one count in
+    `flash_attention_backward.launches`); CPU tensors run the plain
+    version. The kernels read contiguous tensors: non-contiguous ones are
+    copied first."""
+    if build.on_host(q, k, v, o, lse, dout, contiguous=False):
+        return flash_attention_backward_plain(q, k, v, o, lse, dout,
+                                              causal=causal, scale=scale)
+    _check(q, k, v, 0)
+    d, scale = _kernel_args(q, scale, BWD_HEAD_DIMS)
+    b, sq, h, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    if o.shape != q.shape or dout.shape != q.shape \
+            or tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32 \
+            or o.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("o and dout must match q, lse be [B, H, Sq] fp32")
+    q, k, v, o, dout, lse = (t.contiguous() for t in (q, k, v, o, dout, lse))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    symbol = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
+              else "flash_attention_bwd_f32")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    code = build.function(symbol)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d, float(scale),
+        int(bool(causal)), stream)
+    flash_attention_backward.launches += 1
+    build.check(code, symbol)
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B9 with its gradient: forward `flash_attention_lse`, backward
+    `flash_attention_backward` (or, with `plain`, both plain versions on
+    any device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, plain: bool):
+        if plain:
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             scale=scale, return_lse=True)
+        else:
+            out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                           scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = (flash_attention_backward_plain if ctx.plain
+              else flash_attention_backward)
+        dq, dk, dv = fn(q, k, v, out, lse, dout, causal=ctx.causal,
+                        scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_grad_plain(q, k, v, *, causal: bool = True,
+                               scale: float = 0.0, q_offset: int = 0,
+                               window: int = 0,
+                               softcap: float = 0.0) -> torch.Tensor:
+    """`flash_attention`'s signature, computed by the plain forward and,
+    under autograd, the plain backward, on whatever device q lies on."""
+    _grad_supported(q, k, v, q_offset, window, softcap)
+    return FlashAttentionFn.apply(q, k, v, causal, scale, True)

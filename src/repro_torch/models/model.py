@@ -20,21 +20,34 @@ the slot and overwrites the last key (ROADMAP C, departures). Every
 attention call goes to `self.attention`, B9 (`kernels.flash_attention`)
 unless the caller passes a function of its signature.
 
-`loss` (training), and the MoE, MLA, SSM, hybrid, enc-dec and VLM
-families wait for ROADMAP A7.
+Training: `init(key)` draws the reference's parameters bit for bit
+(threefry, per leaf `fold_in(key, SHA-256(path)[:4])`); `loss` is the
+reference's training forward (no cache, no `inference_mode`) and its
+causal cross-entropy, with each layer under `torch.utils.checkpoint`
+(non-reentrant) when `cfg.remat != "none"`, the reference's
+`jax.checkpoint`. Under autograd every attention call goes to B9's
+autograd function (forward with the log-sum-exp, hand-written
+backward). `loss` takes the stacked `blocks/sub0` leaves or, as the
+train step passes them, a list of per-layer dicts (views that are
+autograd leaves of their own, so a layer's gradient lands in its slice
+of the stacked gradient without a full-size zero tensor per layer).
+
+The MoE, MLA, SSM, hybrid, enc-dec and VLM families, gemma2's windows,
+softcaps and sandwich norms wait for ROADMAP A7.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import BY_NAME
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
-from repro_torch.models.schema import PDef
+from repro_torch.models.schema import init_from_key, PDef
 
 
 def _stack(schema: Any, n: int) -> Any:
@@ -48,7 +61,7 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None):
         if cfg.family != "dense" or cfg.local_global_pattern \
-                or cfg.sandwich_norms:
+                or cfg.sandwich_norms or cfg.pad_heads_to_tp:
             raise NotImplementedError(
                 f"{cfg.name}: only the plain dense layout is ported; the "
                 "other families wait for ROADMAP A7")
@@ -77,14 +90,28 @@ class Model:
                                  scale=0.02)
         return sc
 
+    def init(self, key, *, device: Any = "cuda") -> dict:
+        """The reference's `model.init(key)`, bit for bit, on `device`;
+        `key` is a threefry key (`random.PRNGKey(seed)`)."""
+        return init_from_key(self.schema(), key, device=device)
+
+    # ------------------------------------------------------------ training
+
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "training (loss, train step, AdamW, BTM) waits for ROADMAP A7")
+        """batch: tokens [B, S]. Returns (loss, {"ce", "aux"}): the causal
+        cross-entropy of the training forward; aux is 0 (no MoE)."""
+        tokens = self._tokens(params, batch["tokens"])
+        x = self._embed(params, tokens)
+        x = self._run_stack(params, x, mode="train")
+        ce = _causal_ce(self._logits(params, x), tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------- sub-layers
 
     def _apply_mixer(self, p, x, *, mode, cache, pos):
-        """Plain attention; `mode` is "prefill" or "decode". `cache`:
+        """Plain attention; `mode` is "train", "prefill" or "decode".
+        `cache` (prefill and decode):
         this layer's (k, v) views of [B, max_len, HK, D], written in
         place. Returns the mixer's output."""
         cfg = self.cfg
@@ -103,6 +130,8 @@ class Model:
             head_dim=hd, rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap,
             q_scale=cfg.query_scale, compute_dtype=cd,
             attention=self.attention)
+        if mode == "train":
+            return out
         k, v = self._project_kv(p["attn"], x, rope=True)
         cache[0][:, :k.shape[1]] = k
         cache[1][:, :k.shape[1]] = v
@@ -139,26 +168,40 @@ class Model:
                              softcap=cfg.attn_softcap)
         return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
 
-    def _apply_sublayer(self, p, x, *, mode, cache, pos):
+    def _apply_sublayer(self, p, x, *, mode, cache=None, pos=None):
         cfg = self.cfg
+        # the scale rounded to the residual's dtype, as a weak-typed
+        # Python float meets a bf16 array in the reference
+        rs = torch.tensor(cfg.residual_scale, dtype=x.dtype).item()
         h = L.rmsnorm(p["pre_norm"], x, cfg.rms_eps)
         mix = self._apply_mixer(p, h, mode=mode, cache=cache, pos=pos)
-        x = x + cfg.residual_scale * mix
+        x = x + rs * mix
         h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
         y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
-        return x + cfg.residual_scale * y
+        return x + rs * y
 
     # ------------------------------------------------------------ drivers
 
     def _run_stack(self, params, x, *, mode, caches=None, pos=None):
         """The layer stack, one layer's views of the stacked leaves at a
-        time. `caches`: the (k, v) pair of [n_layers, ...] tensors."""
+        time. `caches`: the (k, v) pair of [n_layers, ...] tensors. In
+        training each layer runs under `checkpoint` unless `cfg.remat`
+        is "none" (its activations are recomputed in the backward)."""
         blocks = params["blocks"]["sub0"]
+        remat = mode == "train" and self.cfg.remat != "none"
         for i in range(self.cfg.n_layers):
-            bp = pytree.tree_map(lambda t: t[i], blocks)
+            bp = blocks[i] if isinstance(blocks, list) else \
+                pytree.tree_map(lambda t: t[i], blocks)
+            if remat:
+                x = checkpoint(self._train_layer, bp, x, use_reentrant=False,
+                               preserve_rng_state=False)
+                continue
             cache = None if caches is None else (caches[0][i], caches[1][i])
             x = self._apply_sublayer(bp, x, mode=mode, cache=cache, pos=pos)
         return x
+
+    def _train_layer(self, bp, x):
+        return self._apply_sublayer(bp, x, mode="train")
 
     # -------------------------------------------------------- embeddings
 
@@ -242,3 +285,15 @@ class Model:
         kw = dict(dtype=self.compute_dtype, device=device)
         return {"blocks": {"sub0": (torch.zeros(shape, **kw),
                                     torch.zeros(shape, **kw))}}
+
+
+def _causal_ce(logits, tokens):
+    """The reference's causal cross-entropy: mean over B x (S - 1) of
+    logsumexp(pred) - pred[target]. The target logit is gathered where
+    the reference sums pred * one_hot (x + 0 = x: the same value for
+    finite logits, without a [B, S, V] one-hot)."""
+    pred = logits[:, :-1].to(torch.float32)
+    tgt = tokens[:, 1:].long()
+    lse = torch.logsumexp(pred, dim=-1)
+    picked = torch.gather(pred, -1, tgt[..., None])[..., 0]
+    return torch.mean(lse - picked)

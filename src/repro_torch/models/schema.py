@@ -1,12 +1,18 @@
 """Declarative parameter schema (`repro.models.schema`).
 
 A model's parameters are described once as a pytree of `PDef`s; from it
-`init_from_schema` materializes tensors on a device. Each leaf draws
-from its own `torch.Generator`, seeded from the run seed and a hash of
-the leaf's path, so a leaf's values do not depend on which other
-leaves exist or in which order they are made. (They differ from the
-reference's `jax.random` draws: parity tests hand both packages the same
-numpy arrays instead.)
+two initialisers materialize tensors on a device:
+
+  * `init_from_key(schema, key)` is the reference's `init_from_schema`
+    bit for bit: leaf key `fold_in(key, first 4 bytes of SHA-256(path),
+    little-endian)`, then `normal * scale` in fp32 through the port's
+    threefry (`repro_torch.random`), which draws on the host: fine at
+    smoke and test sizes, slow at billions of parameters.
+  * `init_from_schema(schema, seed=)` draws each leaf from its own
+    `torch.Generator` on the device, seeded from the run seed and a hash
+    of the leaf's path, so a leaf's values do not depend on which other
+    leaves exist or in which order they are made. Its values differ
+    from the reference's: the chip smoke's random full-size models.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import pytree
+from repro_torch import random as prng
 from repro_torch.dtypes import BY_NAME
 
 
@@ -50,6 +57,33 @@ def schema_leaves(schema):
     return [(pytree.keystr(p), d) for p, d in _flatten_schema(schema)]
 
 
+def _insert(out: dict, path, leaf) -> None:
+    node = out
+    for _, key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1][1]] = leaf
+
+
+def init_from_key(schema, key: prng.Key, *, device: Any = "cuda") -> dict:
+    """The reference's `init_from_schema(schema, key)`, bit for bit."""
+    out: dict = {}
+    for path, pdef in _flatten_schema(schema):
+        dt = BY_NAME[pdef.dtype]
+        if pdef.init == "zeros":
+            leaf = torch.zeros(pdef.shape, dtype=dt, device=device)
+        elif pdef.init == "ones":
+            leaf = torch.ones(pdef.shape, dtype=dt, device=device)
+        else:
+            name = "/".join(str(k) for _, k in path)
+            fold = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4],
+                                  "little")
+            leaf = (prng.normal(prng.fold_in(key, fold), pdef.shape,
+                                torch.float32, device=device)
+                    * pdef.scale).to(dt)
+        _insert(out, path, leaf)
+    return out
+
+
 def init_from_schema(schema, *, seed: int, device: Any = "cuda",
                      dtype: Optional[torch.dtype] = None):
     """Materialize parameters from a schema (deterministic per path).
@@ -66,10 +100,18 @@ def init_from_schema(schema, *, seed: int, device: Any = "cuda",
             g.manual_seed(_leaf_seed(seed, pytree.keystr(path)))
             leaf = torch.randn(pdef.shape, generator=g, dtype=torch.float32,
                                device=device).mul_(pdef.scale).to(dt)
-        node = out
-        for _, key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1][1]] = leaf
+        _insert(out, path, leaf)
+    return out
+
+
+def meta_from_schema(schema, dtype: Optional[torch.dtype] = None) -> dict:
+    """The parameters' shapes and dtypes as meta tensors (no
+    allocation), as the reference's `shapes_from_schema`; `dtype`
+    overrides every PDef's dtype."""
+    out: dict = {}
+    for path, pdef in _flatten_schema(schema):
+        _insert(out, path, torch.empty(
+            pdef.shape, dtype=dtype or BY_NAME[pdef.dtype], device="meta"))
     return out
 
 

@@ -35,6 +35,11 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                arccos and sin: those within 4 fp32 ulps, and each leaf
                bitwise equal to the CPU's combine with the card's
                scalars
+  B9 gradient  the LSE forward and the three backward kernels against
+               their plain versions (MHA, GQA, MQA, every head dim, fp32
+               and bf16, ragged tiles, one row), bitwise repeatable,
+               reached once each through autograd; two smoke train
+               steps on the card repeat bitwise and match the CPU's
   B9           flash_attention against its plain version within a
                tolerance (the two sum and exponentiate differently):
                GQA, MQA, ragged Sq and Sk, every D in HEAD_DIMS, a
@@ -702,6 +707,114 @@ def test_cuda_flash_decode_tickets_reset_between_calls(dtype):
             _flash_close(got, flash_attention_plain(*ins[spec],
                                                     q_offset=spec[7]))
         assert torch.equal(_bits(got), _bits(first[spec]))
+
+
+# B9's gradient on the card against its plain version on the card:
+# (B, S, H, HK, D) with S not a multiple of the 64-row tiles, MHA, GQA
+# and MQA, every head dim it has (BWD_HEAD_DIMS: 16, 64, 96, 128). fp32: |kernel - plain| <= 1e-5 + 1e-4 |plain|
+# (both sum in fp32 in other orders; read <= 3e-6 relative on an H100).
+# bf16: <= 2^-7 |plain| + 1e-3 max|plain| (equal fp32 values up to
+# their summation order, each rounded once to bf16; near-zero entries
+# are the small differences of large terms).
+FLASH_BWD_SPECS = {
+    "mha": (2, 130, 4, 4, 64),
+    "gqa": (1, 200, 8, 2, 96),
+    "mqa": (2, 129, 4, 1, 128),
+    "d16": (2, 37, 4, 2, 16),
+    "one_tile": (1, 64, 2, 2, 64),
+    "one_row": (1, 1, 2, 2, 96),
+}
+
+
+def _bwd_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        assert bool(((g - w).abs() <= 1e-5 + 1e-4 * w.abs()).all())
+    else:
+        tol = 2.0 ** -7 * w.abs() + 1e-3 * float(w.abs().max())
+        assert bool(((g - w).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_SPECS))
+def test_cuda_flash_backward_equals_plain(case, dtype):
+    """The LSE forward equals the served forward bitwise and its LSE the
+    plain one within 1e-5; dq, dk, dv within the rule above; two
+    launches give the same bits; autograd through `flash_attention`
+    launches the LSE forward and the backward once each."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse)
+    b, s, h, hk, d = FLASH_BWD_SPECS[case]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=g).to(dt).cuda() for shape in
+               ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    dout = torch.randn((b, s, h, d), generator=g).to(dt).cuda()
+    out, lse = flash_attention_lse(q, k, v)
+    assert torch.equal(_bits(out), _bits(flash_attention(q, k, v)))
+    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-5
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout)
+    assert flash_attention_backward.launches == before + 1
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        _bwd_close(x, y)
+    again = flash_attention_backward(q, k, v, out, lse, dout)
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    grads = torch.autograd.grad(flash_attention(*leaves), leaves, dout)
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_backward.launches == b0 + 1
+    for x, y in zip(grads, got):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_other_head_dims():
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_lse)
+    q, k, v = (torch.randn((1, 40, 2, 32)).cuda() for _ in range(3))
+    out, lse = flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_attention_backward(q, k, v, out, lse, torch.ones_like(out))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_smoke_matches_cpu_and_repeats():
+    """Two train steps of the smoke model (fp32 compute, grad_accum 2)
+    on the card: bitwise repeatable, and within 1e-3 of each leaf's
+    largest magnitude of the same steps on the CPU (plain versions; the
+    CPU against JAX reads 5.5e-5 after three such steps, and an entry
+    whose gradient is near zero can take Adam's step of +-lr either
+    way)."""
+    from repro_torch import random as prng
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = smoke_config("minitron-8b").replace(compute_dtype="float32",
+                                              n_kv_heads=2)
+    toks = [np.random.default_rng(i).integers(0, cfg.vocab_size, (4, 32))
+            for i in range(2)]
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        m = Model(cfg)
+        state = init_train_state(m, prng.PRNGKey(0), device=device)
+        step = make_train_step(m, total_steps=10)
+        for t in toks:
+            state, _ = step(state, {"tokens": t})
+        runs.append([x.cpu() for x in pytree.leaves(state)])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= \
+            1e-3 * max(float(b.abs().max()), 1e-30)
 
 
 @pytest.mark.cuda

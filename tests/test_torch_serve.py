@@ -490,13 +490,14 @@ def test_serve_cli_defaults_to_cuda():
 
 
 def test_model_scope():
-    """The other families and training raise, naming ROADMAP A7; the
-    cache has the reference's structure and shapes."""
+    """The other families and gemma2's layouts raise, naming ROADMAP A7
+    (training is ported: tests/test_torch_train.py); the cache has the
+    reference's structure and shapes."""
     with pytest.raises(NotImplementedError, match="A7"):
         Model(smoke_config(ARCH).replace(family="moe"))
     cfg, jcfg = _configs(2, "bfloat16")
     with pytest.raises(NotImplementedError, match="A7"):
-        Model(cfg).loss({}, {})
+        Model(cfg.replace(sandwich_norms=True))
     got = Model(cfg).init_cache(3, 20, device="cpu")
     want = JModel(jcfg).init_cache(3, 20)
     assert jax.tree_util.tree_structure(want) == \
