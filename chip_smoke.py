@@ -97,15 +97,15 @@ The training slice runs last. `[train]` trains Phi-3-mini at full width
 and depth (fp32 parameters and AdamW moments, bf16 compute, each layer
 under remat) for 3 steps of batch 4 x 4096 in microbatches of 2, every
 attention call on B9's forward (with its log-sum-exp) and B9's gradient
-(`csrc/flash_attention_bwd.cuh`), and traces the last step. At 2 layers
-(`[train-d2]`) a step with B9 is held against the same step with B9's
-plain forward and backward, a run resumed from a checkpoint against an
-uninterrupted one (bitwise), and `python -m repro_torch.launch.merge`
-over two branch checkpoints against an in-process resolve (byte-
-identical; the CLI runs beside `[btm]`). `[btm]` runs the reference
-test's Branch-Train-Merge scenario at full width, 2 layers: a round,
-a branch killed, a straggler, an elastic join, every alive branch
-byte-identical after each merge.
+(`csrc/flash_attention_bwd.cuh`, bf16 on the tensor cores), and traces
+the last step. At 2 layers (`[train-d2]`) a step with B9 is held against
+the same step with B9's plain forward and backward, a run resumed from a
+checkpoint against an uninterrupted one (bitwise), and `python -m
+repro_torch.launch.merge` over two branch checkpoints against an
+in-process resolve (byte-identical; the CLI runs beside `[btm]`).
+`[btm]` runs the reference test's Branch-Train-Merge scenario at full
+width, 2 layers: a round, a branch killed, a straggler, an elastic
+join, every alive branch byte-identical after each merge.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -230,9 +230,10 @@ TRAIN_GRAD_TOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_LRS = 5e-2, 1e-4, 2.5
 # 88-127) at full width, 2 of 32 layers
 BTM_LAYERS, BTM_BRANCHES, BTM_MERGE_EVERY = 2, 3, 2
 BTM_BATCH, BTM_SEQ = 4, 512
-# B9's gradient against its plain version (three fp32 sums in other
-# orders, each output rounded once): fp32 within 1e-5 + 1e-4 |plain|;
-# bf16 no element beyond one bf16 ulp of |plain| + 1e-4 max |plain|
+# B9's gradient against its plain version (fp32 sums in other orders;
+# the plain's dP - Dd in float64; each output rounded once): fp32 within
+# 1e-5 + 1e-4 |plain|; bf16 no element beyond one bf16 ulp of |plain| +
+# 1e-4 max |plain|
 # (equal fp32 values up to summation order, which near-zero entries,
 # the small differences of large terms, carry in absolute terms)
 FLASH_BWD_F32 = (1e-5, 1e-4)
@@ -307,12 +308,15 @@ def phase_build() -> None:
             + " | ".join(r.split("ptxas info    : ")[-1] for r in regs))
     log(f"[build] nvcc for {sorted(logs)} in parallel: {dt:.1f} s")
     flash_instances(logs.get("flash_attention", ""))
+    flash_bwd_instances(logs.get("flash_attention_bwd", ""))
 
 
 def _instance(mangled: str) -> str:
-    """`flash_kernel_decode<bf16, 96, 1>` from a mangled kernel name."""
+    """`flash_kernel_decode<bf16, 96, 1>` or `bwd_dkdv_mma<96>` from a
+    mangled kernel name."""
     import re
-    m = re.search(r"(flash_kernel(?:_mma|_decode)?)I(.*?)EEv", mangled)
+    m = re.search(r"(flash_kernel(?:_mma|_decode)?|bwd_(?:dkdv|dq)(?:_mma)?"
+                  r"|bwd_dot)I(.*?)EEv", mangled)
     if m is None:
         return mangled[:60]
     args = [{"t": "bf16", "f": "fp32"}.get(a, n) for a, n in
@@ -320,13 +324,8 @@ def _instance(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def flash_instances(log_text: str) -> None:
-    """B9's instances: ptxas registers, spills and static shared memory,
-    the dynamic shared memory each launch asks for, and the tensor-core
-    (HMMA) instructions in the SASS of the bf16 prefill instances."""
-    import re
-    from repro_torch.kernels import build
-    smem = build.function("flash_attention_smem")
+def ptxas_info(log_text: str) -> dict:
+    """{instance: {"regs": ..., "spill": ...}} from a `-Xptxas=-v` log."""
     cur, info = None, {}
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
@@ -335,6 +334,35 @@ def flash_instances(log_text: str) -> None:
             info.setdefault(cur, {})["spill"] = ln.split(":")[-1].strip()
         elif cur and "registers" in ln:
             info.setdefault(cur, {})["regs"] = ln.split(":")[-1].strip()
+    return info
+
+
+def hmma_counts(lib: str) -> dict:
+    """{instance: bf16 tensor-core (HMMA) instructions} in the SASS of
+    the library `lib` (`cuobjdump -sass`)."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._lib_path(lib))],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            cur = _instance(ln.split("Function :")[1].strip())
+        elif cur and re.search(r"\bHMMA\.16816\.F32\.BF16\b", ln):
+            counts[cur] = counts.get(cur, 0) + 1
+    return counts
+
+
+def flash_instances(log_text: str) -> None:
+    """B9's instances: ptxas registers, spills and static shared memory,
+    the dynamic shared memory each launch asks for, and the tensor-core
+    (HMMA) instructions in the SASS of the bf16 prefill instances."""
+    from repro_torch.kernels import build
+    smem = build.function("flash_attention_smem")
+    info = ptxas_info(log_text)
     if not info:
         log("[build] flash_attention.cu was built earlier: no ptxas report")
     for name in sorted(info):
@@ -345,17 +373,7 @@ def flash_instances(log_text: str) -> None:
             dyn = smem(1, args[0] == "bf16", int(args[1]), int(args[2]))
         log(f"[build] B9 {name}: {info[name].get('regs', '?')}; "
             f"{info[name].get('spill', '?')}; {dyn} bytes dynamic smem")
-    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build._lib_path("flash_attention"))],
-                          capture_output=True, text=True,
-                          check=True).stdout
-    counts, cur = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            cur = _instance(ln.split("Function :")[1].strip())
-        elif cur and re.search(r"\bHMMA\.16816\.F32\.BF16\b", ln):
-            counts[cur] = counts.get(cur, 0) + 1
+    counts = hmma_counts("flash_attention")
     for d in (16, 32, 64, 96, 128):
         name = f"flash_kernel_mma<{d}>"
         # per 64-key tile: Q K^T D/16 k-steps x 8 key tiles, P . V 4
@@ -366,6 +384,44 @@ def flash_instances(log_text: str) -> None:
             f"P.V {pv})")
         if not counts.get(name):
             raise AssertionError(f"{name} has no tensor-core instruction")
+
+
+def flash_bwd_instances(log_text: str) -> None:
+    """B9's gradient, as `flash_instances`: every instance's ptxas
+    registers and spills and its dynamic shared memory; the HMMA count
+    of each bf16 instance (`bwd_dkdv_mma`, `bwd_dq_mma`), which must not
+    be 0."""
+    from repro_torch.kernels import build
+    smem = build.function("flash_attention_bwd_smem")
+    info = ptxas_info(log_text)
+    if not info:
+        log("[build] flash_attention_bwd.cu was built earlier: no ptxas "
+            "report")
+    for name in sorted(info):
+        kind, args = name.split("<")[0], name[:-1].split("<")[1].split(", ")
+        part = {"bwd_dkdv": 0, "bwd_dq": 1}.get(kind.replace("_mma", ""))
+        dyn = 0 if part is None else smem(part, kind.endswith("_mma"),
+                                          int(args[-1]))
+        log(f"[build] B9 bwd {name}: {info[name].get('regs', '?')}; "
+            f"{info[name].get('spill', '?')}; {dyn} bytes dynamic smem")
+    counts = hmma_counts("flash_attention_bwd")
+    for d in (16, 64, 96, 128):
+        for kind in ("bwd_dkdv_mma", "bwd_dq_mma"):
+            name = f"{kind}<{d}>"
+            # one step of C columns (the step loop is not unrolled; C
+            # as `dkdv_cols` / `kDqCols` in the source): S and dP D/16
+            # k-steps x C/8 column tiles each, then C/16 k-steps x D/8
+            # dim tiles x 3 terms, for dV and dK, or for dQ
+            dkdv = kind == "bwd_dkdv_mma"
+            c = 16 if dkdv and d >= 96 else 32
+            sp = 2 * (d // 16) * (c // 8)
+            acc = (c // 16) * (d // 8) * 3 * (2 if dkdv else 1)
+            log(f"[build] B9 bwd {name} SASS: {counts.get(name, 0)} "
+                f"HMMA.16816.F32.BF16 (a step of {c} columns: S and dP "
+                f"{sp} + {'dV and dK' if dkdv else 'dQ'} {acc})")
+            if not counts.get(name):
+                raise AssertionError(f"{name} has no tensor-core "
+                                     "instruction")
 
 
 def main_path_lengths(cfg, itemsize: int = 2, k: int = K) -> list:
@@ -756,7 +812,8 @@ def flash_bwd_case(q, k, v, dout) -> dict:
     plain version (FLASH_BWD_*), then timed, the kernel and the
     backward of `scaled_dot_product_attention` (`torch.autograd.grad`
     on an SDPA output over [B, H, S, D] copies, forward excluded) over
-    10 CUDA-event-timed calls, the plain version over 3. Bound: five
+    10 CUDA-event-timed calls, the plain version over 3, and the
+    gradient's three kernels apart (`kernel_split_ms`). Bound: five
     causal matrix products (S, dP, dV, dK, dQ: 2 D flops per visible
     pair each) at the peak rate of q's type, against each input (q, k,
     v, o, dO, the LSE) read and each output (dq, dk, dv) written once."""
@@ -820,16 +877,49 @@ def flash_bwd_case(q, k, v, dout) -> dict:
     res = {"max_abs_err": max_err, "ms": cuda_ms(kern, 10),
            "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": cuda_ms(library, 10), "rule": rule}
+           "library_ms": cuda_ms(library, 10), "rule": rule,
+           "split_ms": kernel_split_ms(kern, BWD_KERNELS)}
     del ot, qt, kt, vt
+    split = ", ".join(f"{k} {'not measured' if t is None else f'{t:.3f}'}"
+                      for k, t in res["split_ms"].items())
     log(f"[kernels] flash_attention_backward q, k, v [{b}, {sq}, {h}, {d}] "
         f"{str(q.dtype)[6:]}, causal: {rule}, max abs err {max_err:.3e}; "
         f"{res['ms']:.3f} ms (bound {res['bound_ms']:.3f} ms by "
         f"{res['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
-        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
-        f"{res['plain_ms']:.2f} ms; library (sdpa backward) "
-        f"{res['library_ms']:.3f} ms")
+        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms; kernels traced: "
+        f"{split} ms); plain {res['plain_ms']:.2f} ms; library (sdpa "
+        f"backward) {res['library_ms']:.3f} ms")
     return res
+
+
+# B9's gradient's three kernels, by the part of their names that both
+# designs share (bf16 `bwd_dkdv_mma`, fp32 `bwd_dkdv`, ...)
+BWD_KERNELS = ("bwd_dot", "bwd_dkdv", "bwd_dq")
+
+
+def kernel_split_ms(fn, names, reps: int = 10) -> dict:
+    """Median device milliseconds of each kernel of `fn()` whose name
+    holds one of `names`, over `reps` calls traced by `torch.profiler`
+    (device activity only) after one warm-up; None where the profiler
+    recorded none (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+    times: dict = {n: [] for n in names}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in ev.name:
+                times[n].append(ev.time_range.elapsed_us() / 1e3)
+                break
+    return {n: sorted(t)[len(t) // 2] if t else None
+            for n, t in times.items()}
 
 
 def phase_flash_backward(rows: dict, cfg, g) -> None:
@@ -849,18 +939,22 @@ def phase_flash_backward(rows: dict, cfg, g) -> None:
     main = cases.pop("bf16")
     rows["flash_attention_backward"] = {
         "name": "flash_attention_backward", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cuh",
+        "replaces": "none: XLA's autodiff of "
+                    "src/repro/models/layers.py:149",
         "max_abs_err": main["max_abs_err"], "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "split_ms": main["split_ms"],
         "shape": f"q, k, v, dO [{mb}, {TRAIN_SEQ}, {h}, {d}] bf16, causal; "
                  f"tolerance: {main['rule']}",
         "library": "torch.autograd.grad of "
                    "torch.nn.functional.scaled_dot_product_attention",
-        "note": "B9's gradient (dQ, dK, dV); the reference's Pallas B9 has "
-                "none: its model trains through XLA's autodiff of "
-                "chunked_attention (src/repro/models/layers.py:149)",
+        "note": "B9's gradient (dQ, dK, dV): bf16 on the tensor cores "
+                "(mma.sync, P and dS in three bf16 terms), fp32 on the "
+                "scalar pipes; the reference's Pallas B9 has none: its "
+                "model trains through XLA's autodiff of chunked_attention "
+                "(src/repro/models/layers.py:149)",
         **cases}
 
 

@@ -14,36 +14,70 @@ namespace {
 // q_offset 0), so that training's forward can run on B9.
 //
 // FlashAttention-2's backward, made deterministic: no float is summed
-// with atomics, and every sum runs in one fixed order. Three kernels on
-// the scalar fp32 pipes (explicit fmaf), q, k, v, o, dO contiguous
-// [B, S, H(K), D] in the input dtype, widened to fp32 in shared memory;
-// the forward's per-row log-sum-exp `lse` [B, H, Sq] (natural units)
-// recomputes P = exp(q.k scale - lse) with no running max:
+// with atomics, and every sum runs in one fixed order. q, k, v, o, dO
+// contiguous [B, S, H(K), D] in the input dtype; the forward's per-row
+// log-sum-exp `lse` [B, H, Sq] (natural units) recomputes
+// P = exp(q.k scale - lse) with no running max. Three kernels:
 //  1. `bwd_dot`: Dd[b, h, i] = sum_d dO[i, d] O[i, d], one warp a row,
 //     lanes over d, then a shuffle tree.
-//  2. `bwd_dkdv`: one block per (key tile of 64, KV head, batch). K and V
-//     stay in shared memory; for each query head of the GQA group in
-//     order, and each query tile that sees the key tile (causal: from the
-//     diagonal on) in order, it recomputes S = Q K^T and dP = dO V^T,
-//     P = exp(S scale - lse), dS = P (dP - Dd), and accumulates
-//     dV += P^T dO and dK += dS^T Q in registers, query by query. dK is
+//  2. dK and dV: one block per (key tile of 64, KV head, batch). For each
+//     query head of the GQA group in order, and each query tile that sees
+//     the key tile (causal: from the diagonal on) in order, it recomputes
+//     S = Q K^T and dP = dO V^T, P = exp(S scale - lse), dS = P (dP - Dd),
+//     and accumulates dV += P^T dO and dK += dS^T Q in registers. dK is
 //     scaled once at the end.
-//  3. `bwd_dq`: one block per (query tile of 64, head, batch). It loops
-//     over the key tiles the rows see, recomputes P and dS the same way,
-//     and accumulates dQ += dS K.
-// Q K^T and dO V^T are computed twice (kernels 2 and 3): the price of
-// writing dQ with no atomics. Thread (ty, tx) of 16 x 16 computes S and
-// dP of rows 4 ty .. 4 ty + 3 and keys tx + 16 j; the accumulations give
-// each thread 4 keys (rows) tx + 16 i and head dims ty + 16 j. Tiles are
-// stored transposed ([D][68]: 16-byte rows for float4 reads, columns read
-// by 16 lanes in 16 banks) and P, dS as [64][68]. Bound: operations (5
-// causal matmuls' worth of work at the least; this design does 7 on the
-// fp32 pipes, where the tensor cores would do them 15x faster in bf16:
-// `mma.sync` fragments, then `wgmma` and TMA, are the next redesign).
-// Rows that see no key (queries past Sq; the forward writes lse 0 for
-// them) give P = 0, so dQ 0. Head dims 16, 64, 96 and 128 (the configs'
-// and the smoke's); a source of its own (csrc/flash_attention_bwd.cu),
-// so it builds beside the forward's.
+//  3. dQ: one block per (query tile of 64, head, batch), the longest
+//     causal tiles first. It loops over the key tiles the rows see,
+//     recomputes P and dS the same way, and accumulates dQ += dS K.
+// S and dP are computed twice (kernels 2 and 3): the price of writing dQ
+// with no atomics. Rows that see no key (queries past Sq; the forward
+// writes lse 0 for them) give P = 0, so dQ 0. Head dims 16, 64, 96 and
+// 128 (the configs' and the smoke's); a source of its own
+// (csrc/flash_attention_bwd.cu), so it builds beside the forward's.
+//
+// Bound on the H100: operations (5 causal products' worth of work at the
+// least, against 2 bytes an element read). Two designs, by dtype:
+//
+// bf16, `bwd_dkdv_mma` and `bwd_dq_mma`: the tensor cores (mma.sync
+// m16n8k16, bf16 in, fp32 accumulate), built from the bf16 prefill's
+// parts (csrc/b9_common.cuh). Blocks of 4 warps, 16 rows a warp: keys in
+// kernel 2, queries in kernel 3. Kernel 2 stages the K and V tile in
+// shared memory once (bf16, rows padded by 16 bytes for ldmatrix) and
+// holds their A fragments in registers where they fit (D <= 96; at D =
+// 128 the dK and dV accumulators take 128 registers a thread, so the
+// fragments are read again from shared memory each step); the Q, dO, lse
+// and Dd tiles of the query loop are double-buffered with cp.async, so
+// the next loads while this one computes. Each warp computes S^T = K Q^T
+// and dP^T = V dO^T, 16 or 32 queries at a time (`dkdv_cols`): keys are
+// the rows, so P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - Dd) sit
+// in the accumulator layout that repacks into A fragments in registers,
+// and dV += P^T dO, dK += dS^T Q take dO and Q by ldmatrix.trans. P and
+// dS never touch shared memory. Kernel 3 holds Q and dO as A fragments
+// for the whole key loop, double-buffers the K and V tiles, computes
+// S = Q K^T and dP = dO V^T 32 keys at a time and dQ += dS K (K by
+// ldmatrix.trans). Causal and Sq / Sk masks on edge tiles only.
+// Precision: P and dS, where they are an A operand, go in three bf16
+// terms (hi, mid, lo: csrc/b9_common.cuh `split_bf16`) that carry their
+// fp32 value exactly, the small terms first; products of bf16 values are
+// exact in the fp32 accumulator, so S and dP (bf16 operands already)
+// need no split. Two terms would leave up to 2^-17 of each P and dS: the
+// forward found that puts outputs near zero beyond its rule
+// (csrc/flash_attention.cu), and the CPU model of these kernels
+// (tests/test_torch_flash_bwd_split.py) puts two-term gradients 3e-6 of
+// their magnitude from jax.grad's, beyond the 2e-6 the plain version is
+// held to there (three terms: 2e-7 to 1e-6). Three cost 13 products'
+// worth of tensor-core work (S and dP twice, dV, dK and dQ three times
+// each). exp is 2^x on the special-function unit of (S scale - lse)
+// log2 e (~2^-22 relative).
+//
+// fp32, `bwd_dkdv` and `bwd_dq`: the scalar fp32 pipes (explicit fmaf),
+// tiles widened to fp32 and stored transposed in shared memory. Thread
+// (ty, tx) of 16 x 16 computes S and dP of rows 4 ty .. 4 ty + 3 and keys
+// tx + 16 j; the accumulations give each thread 4 keys (rows) tx + 16 i
+// and head dims ty + 16 j. Tiles are stored transposed ([D][68]: 16-byte
+// rows for float4 reads, columns read by 16 lanes in 16 banks) and P, dS
+// as [64][68]. 7 products on the fp32 pipes (a 3xTF32 design on the
+// tensor cores is the way on, ROADMAP B).
 
 constexpr int kBwdThreads = 256;
 constexpr int kBwdT = 16;            // tx, ty in [0, 16)
@@ -362,35 +396,458 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16 on the tensor cores
+
+constexpr int kMmaBwdWarps = 4;
+constexpr int kMmaBwdThreads = 32 * kMmaBwdWarps;
+constexpr int kMmaBwdB = 16 * kMmaBwdWarps;  // rows: keys, or queries
+// blocks an SM, for __launch_bounds__ (what shared memory holds at D >=
+// 96): without it ptxas capped dQ at 168 registers, to fit three, and
+// spilled; the gradient ran 5 % slower (H100, tools/b9bwd_time.py
+// --variants)
+constexpr int kMmaBwdMinBlocks = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kMmaBwdThreads == 2 * kMmaBwdB, "one thread per lse and Dd");
+
+// bf16 elements per shared-memory row: D plus 16 bytes, so the 8 rows an
+// ldmatrix reads start in 8 distinct 16-byte bank groups (D / 8 is even)
+template <int D>
+__host__ __device__ constexpr int bwd_mma_ld() { return D + 8; }
+
+template <int D>
+constexpr int bwd_dkdv_mma_smem() {   // K, V, 2 x (Q, dO); 2 x (lse, Dd)
+  return 6 * kMmaBwdB * bwd_mma_ld<D>() * 2 + 4 * kMmaBwdB * 4;
+}
+
+template <int D>
+constexpr int bwd_dq_mma_smem() {     // Q, dO, 2 x (K, V)
+  return 6 * kMmaBwdB * bwd_mma_ld<D>() * 2;
+}
+
+// rows [r0, r0 + 64) of x (row stride rs elements) into the bf16 tile
+// dst [64][LD] by 16-byte cp.async; rows at or past n are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_rows(uint16_t* dst, const uint16_t* x,
+                                           int r0, int n, long long rs) {
+  constexpr int LD = bwd_mma_ld<D>(), U = D / 8;
+  for (int u = threadIdx.x; u < kMmaBwdB * U; u += kMmaBwdThreads) {
+    const int r = u / U, d8 = (u % U) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(dst + r * LD + d8,
+               in ? x + static_cast<long long>(r0 + r) * rs + d8 : x, in);
+  }
+}
+
+// Columns of S a step computes (C: 16 or 32) and whether dK / dV hold
+// K's and V's A fragments in registers, by head dim. A thread holds D / 2
+// dK and D / 2 dV accumulators, C / 2 of S and dP, and D / 2 registers of
+// K and V fragments: with 32 columns, ptxas spilled at D = 96 with the
+// fragments and at D = 128 without them. D = 96 with the fragments and
+// 16 columns (252 registers) ran 3 % faster than without them and 32
+// columns (228); D = 128 reads K and V from shared memory every step
+// (H100, nvcc 12.8, tools/b9bwd_time.py --variants)
+template <int D>
+__host__ __device__ constexpr int dkdv_cols() { return D >= 96 ? 16 : 32; }
+template <int D>
+__host__ __device__ constexpr bool dkdv_kv_regs() { return D <= 96; }
+constexpr int kDqCols = 32;
+
+// s = A1 X^T and p = A2 Y^T for this warp's 16 rows and C columns: X and
+// Y rows c0 .. c0 + C - 1 of [.][LD] bf16 tiles (ldmatrix), A1 and A2 the
+// A fragments `afrag(ks, a1, a2)` gives for k-step ks; C / 8 tiles of 8
+// columns each, in the accumulator layout
+template <int D, int C, typename FA>
+__device__ __forceinline__ void scores_mma(const FA& afrag,
+                                           const uint16_t* X,
+                                           const uint16_t* Y, int c0,
+                                           float (&s)[C / 8][4],
+                                           float (&p)[C / 8][4]) {
+  constexpr int LD = bwd_mma_ld<D>();
+  const int lane = threadIdx.x & 31;
+  const int r = c0 + (lane & 7) + ((lane >> 4) << 3);
+  const int c = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = p[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a1[4], a2[4];
+    afrag(ks, a1, a2);
+#pragma unroll
+    for (int np = 0; np < C / 16; ++np) {
+      uint32_t bx[4], by[4];
+      ldmatrix_x4(bx, X + (r + np * 16) * LD + ks * 16 + c);
+      ldmatrix_x4(by, Y + (r + np * 16) * LD + ks * 16 + c);
+      mma_bf16(s[2 * np], a1, bx[0], bx[1]);
+      mma_bf16(s[2 * np + 1], a1, bx[2], bx[3]);
+      mma_bf16(p[2 * np], a2, by[0], by[1]);
+      mma_bf16(p[2 * np + 1], a2, by[2], by[3]);
+    }
+  }
+}
+
+// acc += x Z for this warp's 16 rows: x the 16 x C values in the
+// accumulator layout (tiles 2 kk and 2 kk + 1 make the A fragment of
+// k-step kk), each split into three bf16 terms, the small ones first so
+// they are not lost beside the large; Z rows c0 .. c0 + C - 1 of a
+// [.][LD] bf16 tile, by ldmatrix.trans
+template <int D, int C>
+__device__ __forceinline__ void accum_mma(float (&acc)[D / 8][4],
+                                          const float (&x)[C / 8][4],
+                                          const uint16_t* Z, int c0) {
+  constexpr int LD = bwd_mma_ld<D>();
+  const int lane = threadIdx.x & 31;
+  const int r = c0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    uint32_t hi[4], mid[4], lo[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], mid[0], lo[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], mid[1], lo[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], mid[2], lo[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], mid[3], lo[3]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t z[4];
+      ldmatrix_x4_trans(z, Z + (r + kk * 16) * LD + dp * 16 + c);
+      mma_bf16(acc[2 * dp], lo, z[0], z[1]);
+      mma_bf16(acc[2 * dp], mid, z[0], z[1]);
+      mma_bf16(acc[2 * dp], hi, z[0], z[1]);
+      mma_bf16(acc[2 * dp + 1], lo, z[2], z[3]);
+      mma_bf16(acc[2 * dp + 1], mid, z[2], z[3]);
+      mma_bf16(acc[2 * dp + 1], hi, z[2], z[3]);
+    }
+  }
+}
+
+// P = exp(s scale - lse), computed as 2^((s scale - lse) log2 e)
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return exp2_approx(__fmul_rn(__fsub_rn(__fmul_rn(s, scale), lse), kLog2e));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaBwdThreads, kMmaBwdMinBlocks)
+bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+             const uint16_t* __restrict__ v,
+             const uint16_t* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ dd,
+             uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int sq,
+             int sk, int h, int hk, float scale, int causal) {
+  constexpr int LD = bwd_mma_ld<D>(), KS = D / 16, DT = D / 8;
+  constexpr int B = kMmaBwdB, C = dkdv_cols<D>();
+  constexpr bool kv_regs = dkdv_kv_regs<D>();
+  extern __shared__ __align__(16) uint16_t smh[];
+  uint16_t* Ks = smh;
+  uint16_t* Vs = Ks + B * LD;
+  uint16_t* Qs = Vs + B * LD;       // [2][B][LD]
+  uint16_t* Gs = Qs + 2 * B * LD;   // dO, [2][B][LD]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * B * LD);   // lse [2][B]
+  float* Ds = Ls + 2 * B;                                  // Dd [2][B]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int k0 = blockIdx.x * B, kh = blockIdx.y, b = blockIdx.z;
+  const int grp = h / hk;
+  const long long krs = static_cast<long long>(hk) * D;
+  const long long qrs = static_cast<long long>(h) * D;
+  const long long koff = (static_cast<long long>(b) * sk * hk + kh) * D;
+  stage_rows<D>(Ks, k + koff, k0, sk, krs);
+  stage_rows<D>(Vs, v + koff, k0, sk, krs);
+  const int nqt = (sq + B - 1) / B;
+  const int first = causal ? k0 / B : 0;   // q_offset 0: rows >= k0
+  const int per = nqt > first ? nqt - first : 0;
+  const int n = grp * per;   // the group's heads in order, then query tiles
+  auto load_step = [&](int it, int buf) {
+    const int hh = kh * grp + it / per, q0 = (first + it % per) * B;
+    const long long qoff = (static_cast<long long>(b) * sq * h + hh) * D;
+    stage_rows<D>(Qs + buf * B * LD, q + qoff, q0, sq, qrs);
+    stage_rows<D>(Gs + buf * B * LD, dout + qoff, q0, sq, qrs);
+    const long long row = (static_cast<long long>(b) * h + hh) * sq + q0;
+    const int r = tid % B;
+    const bool in = q0 + r < sq;
+    if (tid < B) cp_async4(Ls + buf * B + r, in ? lse + row + r : lse, in);
+    else cp_async4(Ds + buf * B + r, in ? dd + row + r : dd, in);
+  };
+  if (n > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float adk[DT][4], adv[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+  uint32_t kf[kv_regs ? KS : 1][4], vf[kv_regs ? KS : 1][4];
+  const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  auto afrag = [&](int ks, uint32_t (&a1)[4], uint32_t (&a2)[4]) {
+    if constexpr (kv_regs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a1[i] = kf[ks][i];
+        a2[i] = vf[ks][i];
+      }
+    } else {
+      ldmatrix_x4(a1, Ks + arow + ks * 16);
+      ldmatrix_x4(a2, Vs + arow + ks * 16);
+    }
+  };
+  // keys of rows g and g + 8 of this warp's 16
+  const int key_lo = k0 + warp * 16 + (lane >> 2), key_hi = key_lo + 8;
+
+  for (int it = 0; it < n; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n) load_step(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (kv_regs) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          ldmatrix_x4(kf[ks], Ks + arow + ks * 16);
+          ldmatrix_x4(vf[ks], Vs + arow + ks * 16);
+        }
+      }
+    }
+    const int q0 = (first + it % per) * B;
+    const uint16_t* Qt = Qs + buf * B * LD;
+    const uint16_t* Gt = Gs + buf * B * LD;
+    const float* Lt = Ls + buf * B;
+    const float* Dt = Ds + buf * B;
+    const bool edge = q0 + B > sq || k0 + B > sk
+                      || (causal && q0 < k0 + B - 1);
+#pragma unroll 1
+    for (int c0 = 0; c0 < B; c0 += C) {
+      // S^T = K Q^T and dP^T = V dO^T: keys (rows) x C queries
+      float st[C / 8][4], pt[C / 8][4];
+      scores_mma<D, C>(afrag, Qt, Gt, c0, st, pt);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = c0 + j * 8 + 2 * t + (e & 1);
+          float p = prob(st[j][e], scale, Lt[qc]);
+          if (edge) {
+            const int key = e < 2 ? key_lo : key_hi, pos = q0 + qc;
+            if (pos >= sq || key >= sk || (causal && key > pos)) p = 0.f;
+          }
+          st[j][e] = p;                                   // P^T
+          pt[j][e] = __fmul_rn(p, __fsub_rn(pt[j][e], Dt[qc]));  // dS^T
+        }
+      }
+      accum_mma<D, C>(adv, st, Gt, c0);   // dV += P^T dO
+      accum_mma<D, C>(adk, pt, Qt, c0);   // dK += dS^T Q
+    }
+    __syncthreads();   // this buffer is refilled two steps on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_lo + 8 * half;
+    if (key >= sk) continue;
+    const long long base =
+        ((static_cast<long long>(b) * sk + key) * hk + kh) * D;
+    uint32_t* krow = reinterpret_cast<uint32_t*>(dk + base);
+    uint32_t* vrow = reinterpret_cast<uint32_t*>(dv + base);
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      krow[j * 4 + t] = pack_bf16(__fmul_rn(adk[j][2 * half], scale),
+                                  __fmul_rn(adk[j][2 * half + 1], scale));
+      vrow[j * 4 + t] = pack_bf16(adv[j][2 * half], adv[j][2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaBwdThreads, kMmaBwdMinBlocks)
+bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+           const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ dd,
+           uint16_t* __restrict__ dq, int sq, int sk, int h, int hk,
+           float scale, int causal) {
+  constexpr int LD = bwd_mma_ld<D>(), KS = D / 16, DT = D / 8;
+  constexpr int B = kMmaBwdB, C = kDqCols;
+  extern __shared__ __align__(16) uint16_t smh[];
+  uint16_t* Qs = smh;
+  uint16_t* Gs = Qs + B * LD;       // dO
+  uint16_t* Ks = Gs + B * LD;       // [2][B][LD]
+  uint16_t* Vs = Ks + 2 * B * LD;   // [2][B][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  // the longest causal tiles first, so the short ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * B;
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const int kh = hh / (h / hk);
+  const int rows = min(B, sq - q0);
+  const long long qrs = static_cast<long long>(h) * D;
+  const long long krs = static_cast<long long>(hk) * D;
+  const long long qoff = (static_cast<long long>(b) * sq * h + hh) * D;
+  const long long koff = (static_cast<long long>(b) * sk * hk + kh) * D;
+  stage_rows<D>(Qs, q + qoff, q0, sq, qrs);
+  stage_rows<D>(Gs, dout + qoff, q0, sq, qrs);
+  const int kend = causal ? min(sk, q0 + rows) : sk;
+  const int ntiles = (kend + B - 1) / B;
+  auto load_tile = [&](int tile, int buf) {
+    stage_rows<D>(Ks + buf * B * LD, k + koff, tile * B, kend, krs);
+    stage_rows<D>(Vs + buf * B * LD, v + koff, tile * B, kend, krs);
+  };
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();
+
+  // rows g and g + 8 of this warp's 16
+  const int r_lo = warp * 16 + (lane >> 2), r_hi = r_lo + 8;
+  const long long lrow = (static_cast<long long>(b) * h + hh) * sq + q0;
+  const float lse_lo = r_lo < rows ? lse[lrow + r_lo] : 0.f;
+  const float lse_hi = r_hi < rows ? lse[lrow + r_hi] : 0.f;
+  const float dd_lo = r_lo < rows ? dd[lrow + r_lo] : 0.f;
+  const float dd_hi = r_hi < rows ? dd[lrow + r_hi] : 0.f;
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[KS][4], gf[KS][4];
+  auto afrag = [&](int ks, uint32_t (&a1)[4], uint32_t (&a2)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a1[i] = qf[ks][i];
+      a2[i] = gf[ks][i];
+    }
+  };
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (tile == 0) {
+      const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldmatrix_x4(qf[ks], Qs + arow + ks * 16);
+        ldmatrix_x4(gf[ks], Gs + arow + ks * 16);
+      }
+    }
+    const int k0 = tile * B;
+    const uint16_t* Kt = Ks + buf * B * LD;
+    const uint16_t* Vt = Vs + buf * B * LD;
+    const bool edge = k0 + B > kend || (causal && k0 + B - 1 > q0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < B; c0 += C) {
+      // S = Q K^T and dP = dO V^T: queries (rows) x C keys
+      float s[C / 8][4], dp[C / 8][4];
+      scores_mma<D, C>(afrag, Kt, Vt, c0, s, dp);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool hi = e >= 2;
+          float p = prob(s[j][e], scale, hi ? lse_hi : lse_lo);
+          if (edge) {
+            const int key = k0 + c0 + j * 8 + 2 * t + (e & 1);
+            const int pos = q0 + (hi ? r_hi : r_lo);
+            if (key >= kend || (causal && key > pos)) p = 0.f;
+          }
+          s[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], hi ? dd_hi : dd_lo));
+        }
+      }
+      accum_mma<D, C>(acc, s, Kt, c0);   // dQ += dS K
+    }
+    __syncthreads();   // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? r_hi : r_lo;
+    if (r >= rows) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(
+        dq + ((static_cast<long long>(b) * sq + q0 + r) * h + hh) * D);
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      orow[j * 4 + t] = pack_bf16(__fmul_rn(acc[j][2 * half], scale),
+                                  __fmul_rn(acc[j][2 * half + 1], scale));
+  }
+}
+
+// ---- launch
+
+template <typename T, int D>
+cudaError_t launch_dot(const void* o, const void* dout, float* dd, int b,
+                       int sq, int h, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(b) * sq * h;
+  bwd_dot<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), dd, b, sq, h);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* dd, void* dq, void* dk, void* dv, int b, int sq,
+                   int sk, int h, int hk, float scale, int causal,
+                   cudaStream_t stream) {
+  static bool done_kv[64], done_q[64];
+  auto kkv = bwd_dkdv_mma<D>;
+  auto kq = bwd_dq_mma<D>;
+  cudaError_t err = allow_smem(kkv, bwd_dkdv_mma_smem<D>(), done_kv);
+  if (err == cudaSuccess)
+    err = allow_smem(kq, bwd_dq_mma_smem<D>(), done_q);
+  if (err == cudaSuccess)
+    err = launch_dot<uint16_t, D>(o, dout, dd, b, sq, h, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using bf = uint16_t;
+  const dim3 gkv((sk + kMmaBwdB - 1) / kMmaBwdB, hk, b);
+  kkv<<<gkv, kMmaBwdThreads, bwd_dkdv_mma_smem<D>(), stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dd,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk, h, hk, scale,
+      causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 gq((sq + kMmaBwdB - 1) / kMmaBwdB, h, b);
+  kq<<<gq, kMmaBwdThreads, bwd_dq_mma_smem<D>(), stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dd,
+      static_cast<bf*>(dq), sq, sk, h, hk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* dd, void* dq,
                void* dk, void* dv, int b, int sq, int sk, int h, int hk,
                float scale, int causal, cudaStream_t stream) {
-  static bool done_kv[64], done_q[64];
-  auto kkv = bwd_dkdv<T, D>;
-  auto kq = bwd_dq<T, D>;
-  cudaError_t err = allow_smem(kkv, bwd_dkdv_smem<D>(), done_kv);
-  if (err == cudaSuccess) err = allow_smem(kq, bwd_dq_smem<D>(), done_q);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(b) * sq * h;
-  bwd_dot<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dd, b, sq, h);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 gkv((sk + kBwdB - 1) / kBwdB, hk, b);
-  kkv<<<gkv, kBwdThreads, bwd_dkdv_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, hk, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 gq((sq + kBwdB - 1) / kBwdB, h, b);
-  kq<<<gq, kBwdThreads, bwd_dq_smem<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-      static_cast<T*>(dq), sq, sk, h, hk, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (sizeof(T) == 2) {
+    return launch_bwd_mma<D>(q, k, v, o, dout, lse, dd, dq, dk, dv, b, sq,
+                             sk, h, hk, scale, causal, stream);
+  } else {
+    static bool done_kv[64], done_q[64];
+    auto kkv = bwd_dkdv<T, D>;
+    auto kq = bwd_dq<T, D>;
+    cudaError_t err = allow_smem(kkv, bwd_dkdv_smem<D>(), done_kv);
+    if (err == cudaSuccess) err = allow_smem(kq, bwd_dq_smem<D>(), done_q);
+    if (err == cudaSuccess)
+      err = launch_dot<T, D>(o, dout, dd, b, sq, h, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 gkv((sk + kBwdB - 1) / kBwdB, hk, b);
+    kkv<<<gkv, kBwdThreads, bwd_dkdv_smem<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, hk, scale,
+        causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 gq((sq + kBwdB - 1) / kBwdB, h, b);
+    kq<<<gq, kBwdThreads, bwd_dq_smem<D>(), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
+        static_cast<T*>(dq), sq, sk, h, hk, scale, causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>

@@ -77,6 +77,9 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
                                 [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
     "flash_attention_bwd_bf16": ("flash_attention_bwd",
                                  [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
+    # kernel (0 dK / dV, 1 dQ), bf16, D -> the gradient's dynamic
+    # shared-memory bytes (reports)
+    "flash_attention_bwd_smem": ("flash_attention_bwd", [_I] * 3),
     # design, bf16, D, rows -> dynamic shared-memory bytes (reports)
     "flash_attention_smem": ("flash_attention", [_I] * 4),
     # ... then rows per block, splits, chunk, fp32 scratch, int32

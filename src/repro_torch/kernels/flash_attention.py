@@ -36,13 +36,13 @@ sees no key); it saves q, k, v, the output and the LSE. Its backward,
 `flash_attention_backward`, computes dQ, dK and dV of causal (or full)
 GQA attention at q_offset 0, what XLA's autodiff of the reference's
 `chunked_attention` computes, with three CUDA kernels and no atomics
-(`csrc/flash_attention_bwd.cuh`, head dims BWD_HEAD_DIMS); on CPU
-tensors it runs
+(`csrc/flash_attention_bwd.cuh`, head dims BWD_HEAD_DIMS: bf16 on the
+tensor cores, fp32 on the scalar pipes); on CPU tensors it runs
 `flash_attention_backward_plain`, the same quantities step by step in
-fp32. `flash_attention_grad_plain` runs the autograd function with the
-plain forward and backward on any device (the chip smoke compares a
-train step with it). The reference's Pallas kernel has no gradient:
-its model trains through `chunked_attention`.
+fp32 (dP - Dd in float64). `flash_attention_grad_plain` runs the
+autograd function with the plain forward and backward on any device
+(the chip smoke compares a train step with it). The reference's Pallas
+kernel has no gradient: its model trains through `chunked_attention`.
 
 Sliding windows and logit softcapping (gemma2's local layers) raise
 `NotImplementedError`; they come with that family (ROADMAP A7).
@@ -312,21 +312,26 @@ def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
     """(dq, dk, dv) step by step in fp32 torch ops, chunked over
     queries: Dd = rowsum(dO * O), P = exp(q.k scale - lse) (0 where
     masked), dP = dO V^T, dS = P (dP - Dd), dV = P^T dO, dK = dS^T Q
-    scale, dQ = dS K scale; each cast to its input's dtype."""
+    scale, dQ = dS K scale; each cast to its input's dtype. dP and Dd,
+    and their difference, are taken in float64: that difference is the
+    step that cancels (in a row that sees one key O is that key's V, and
+    dS is 0 in exact arithmetic), and float64 rounds it 2^29 times finer
+    than the kernels' fp32, so the reference adds no noise of its own
+    there."""
     _check(q, k, v, 0)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     g = h // hk
     if scale <= 0.0:
         scale = d ** -0.5
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
     dq = torch.zeros((b, sq, h, d), dtype=f32, device=q.device)
     dk = torch.zeros((b, hk, sk, d), dtype=f32, device=q.device)
     dv = torch.zeros((b, hk, sk, d), dtype=f32, device=q.device)
     if sk and sq:
-        dd = (dout.to(f32) * o.to(f32)).sum(dim=-1)            # B,Sq,H
+        dd = (dout.to(f64) * o.to(f64)).sum(dim=-1)            # B,Sq,H
         kf = k.to(f32).permute(0, 2, 1, 3).unsqueeze(2)        # B,HK,1,Sk,D
-        vf = v.to(f32).permute(0, 2, 1, 3).unsqueeze(2)
+        vd = v.to(f64).permute(0, 2, 1, 3).unsqueeze(2)
         kpos = torch.arange(sk, device=q.device)
         chunk = max(1, _PLAIN_ELEMS // max(1, b * h * sk))
         for s0 in range(0, sq, chunk):
@@ -345,7 +350,8 @@ def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
                 p.masked_fill_(kpos[None, :] > qpos[:, None], 0.0)
             ddc = dd[:, s0:s0 + c].reshape(b, c, hk, g) \
                 .permute(0, 2, 3, 1).unsqueeze(-1)
-            ds = p * (torch.matmul(gc, vf.transpose(-1, -2)) - ddc)
+            ds = p * (torch.matmul(gc.to(f64), vd.transpose(-1, -2))
+                      - ddc).to(f32)
             dv += torch.matmul(p.transpose(-1, -2), gc).sum(dim=2)
             dk += torch.matmul(ds.transpose(-1, -2), qc).sum(dim=2)
             dq[:, s0:s0 + c] = (torch.matmul(ds, kf) * scale) \

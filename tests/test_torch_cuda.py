@@ -37,7 +37,9 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                scalars
   B9 gradient  the LSE forward and the three backward kernels against
                their plain versions (MHA, GQA, MQA, every head dim, fp32
-               and bf16, ragged tiles, one row), bitwise repeatable,
+               and bf16, ragged tiles, one row, non-causal, Minitron-8B's
+               32:8 GQA at D = 128, MiniCPM-2B's 36 heads; q x8 in bf16),
+               bitwise repeatable,
                reached once each through autograd; two smoke train
                steps on the card repeat bitwise and match the CPU's
   B9           flash_attention against its plain version within a
@@ -716,6 +718,12 @@ def test_cuda_flash_decode_tickets_reset_between_calls(dtype):
 # bf16: <= 2^-7 |plain| + 1e-3 max|plain| (equal fp32 values up to
 # their summation order, each rounded once to bf16; near-zero entries
 # are the small differences of large terms).
+# The bf16 design's tiles under stress (FLASH_BWD_OPTS): a non-causal
+# call, Minitron-8B's GQA (32 heads over 8 KV heads, D = 128) at S = 257,
+# MiniCPM-2B's 36 heads at D = 64; and, bf16 only (FLASH_BWD_PEAKED), q
+# scaled x8, so rows have peaked P and large cancelling dP - Dd (the
+# fp32 rule's 1e-5 floor is for logits of order 1: eight times larger
+# logits take the scalar fp32 instance beyond it, ROADMAP C).
 FLASH_BWD_SPECS = {
     "mha": (2, 130, 4, 4, 64),
     "gqa": (1, 200, 8, 2, 96),
@@ -723,7 +731,12 @@ FLASH_BWD_SPECS = {
     "d16": (2, 37, 4, 2, 16),
     "one_tile": (1, 64, 2, 2, 64),
     "one_row": (1, 1, 2, 2, 96),
+    "full": (2, 130, 4, 2, 64),
+    "minitron_gqa": (1, 257, 32, 8, 128),
+    "minicpm_heads": (1, 300, 36, 36, 64),
 }
+FLASH_BWD_PEAKED = (2, 200, 4, 2, 96)
+FLASH_BWD_OPTS = {"full": {"causal": False}}
 
 
 def _bwd_close(got, want):
@@ -744,32 +757,49 @@ def test_cuda_flash_backward_equals_plain(case, dtype):
     plain one within 1e-5; dq, dk, dv within the rule above; two
     launches give the same bits; autograd through `flash_attention`
     launches the LSE forward and the backward once each."""
+    _check_flash_backward(FLASH_BWD_SPECS[case], dtype,
+                          **FLASH_BWD_OPTS.get(case, {}))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_peaked_bf16():
+    """The same checks in bf16 with q scaled x8 (the LSE within 8e-5:
+    its fp32 rounding scales with the logits)."""
+    _check_flash_backward(FLASH_BWD_PEAKED, "bfloat16", q_mult=8.0)
+
+
+def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0):
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_lse)
-    b, s, h, hk, d = FLASH_BWD_SPECS[case]
+    b, s, h, hk, d = spec
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(s)
     q, k, v = (torch.randn(shape, generator=g).to(dt).cuda() for shape in
                ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    q = q * q_mult
     dout = torch.randn((b, s, h, d), generator=g).to(dt).cuda()
-    out, lse = flash_attention_lse(q, k, v)
-    assert torch.equal(_bits(out), _bits(flash_attention(q, k, v)))
-    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True)
-    assert float((lse - lse_plain).abs().max()) <= 1e-5
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(_bits(out),
+                       _bits(flash_attention(q, k, v, causal=causal)))
+    _, lse_plain = flash_attention_plain(q, k, v, causal=causal,
+                                         return_lse=True)
+    assert float((lse - lse_plain).abs().max()) <= 1e-5 * q_mult
     before = flash_attention_backward.launches
-    got = flash_attention_backward(q, k, v, out, lse, dout)
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
     assert flash_attention_backward.launches == before + 1
-    want = flash_attention_backward_plain(q, k, v, out, lse, dout)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                          causal=causal)
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         _bwd_close(x, y)
-    again = flash_attention_backward(q, k, v, out, lse, dout)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
     for x, y in zip(got, again):
         assert torch.equal(_bits(x), _bits(y))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     f0, b0 = flash_attention.launches, flash_attention_backward.launches
-    grads = torch.autograd.grad(flash_attention(*leaves), leaves, dout)
+    grads = torch.autograd.grad(flash_attention(*leaves, causal=causal),
+                                leaves, dout)
     assert flash_attention.launches == f0 + 1
     assert flash_attention_backward.launches == b0 + 1
     for x, y in zip(grads, got):
