@@ -41,20 +41,36 @@ before it and read just after:
           dense contributions and S: B1 and B3-B5 launch on fused groups
           of K + 1 rows (attention) and K rows (the rest) in one merge.
 
-The consortium (`[gossip]`, full width, 8 of the 32 layers) runs after
+  gemma2  Gemma-2 27B (configs/gemma2_27b.py) at full width and depth:
+          27,227,128,320 bf16 parameters seeded on the card (54.45 GB),
+          `greedy_decode` twice (batch 2, an 8160-token prompt, past
+          the local layers' 4096-key window, and 32 tokens; B9 with the
+          attention softcap on every call, the window in prefill and the
+          local layers' 4096-slot ring caches in decode: exactly 46 x 33
+          launches a call), byte-identical tokens and logits, one decode
+          step and one prefill traced; then a base and 2 contributions
+          at 2 of its layers through two replicas in opposite orders,
+          which resolve TIES to byte-identical trees and serve them to
+          byte-identical tokens and logits; and at 2 layers (one local,
+          one global) the served forward with B9 against its plain
+          version. `[kernels]` holds B9 at gemma2's shapes (prefill
+          local and global, bf16 and fp32; decode over the ring and the
+          global cache).
+
+The consortium (`[gossip]`, full width, 2 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
 attention update each and a dense fine-tune on nodes 0 and 1 (every
 payload one tensor shared by all stores); partitioned in two halves a round leaves 2
 roots, healed 1; every node resolves weight_average to node 0's bytes,
 and nodes 0 and 7 histogram TIES to each other's. Last, the paper's
 Tables 6-9 (benchmarks/bench_gossip.py --full: 100 nodes at 512^2 over
-20 orderings, 10 partitions healing, 26 of 26 strategies at 10 nodes,
+2 of its 20 orderings, 10 partitions healing, 26 of 26 strategies at 10 nodes,
 2-50 nodes and epidemic gossip) on the card, every node's output
 byte-identical; no merge kernel runs there, as in the reference.
 
-The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 8 of
+The whole-model slice (`[whole]`) runs at Phi-3-mini's full width, 2 of
 its 32 layers, fp32 (five fp32 models at 32 layers would take 76.4 GB,
-and 8 rather than 16 keeps the script inside its time limit; bf16 SVD
+and 2 rather than 16 keeps the script inside its time limit; bf16 SVD
 raises in both packages): replica A contributes K models in
 order, replica B the same models in reverse order under A's eids; each
 resolves star, svd_knot_tying, adarank, evolutionary_merge and
@@ -68,7 +84,9 @@ and 512^2, and the five whole-model strategies on the card against the
 CPU at 512^2.
 
 `[durable]` (inside the main paths, after int8) journals the four int8
-payloads through `Replica(path=)`, reopens it, and syncs for real: the
+payloads, cut to 4 of their 32 layers (`first_layers`; all 32 before
+the gemma2 phase came), through `Replica(path=)`, reopens it, and syncs
+for real: the
 recovered replica A, its storage handed to a `SyncNode`, and replica B
 on a `keep_quantized` node run an anti-entropy session over
 `PersistentLoopbackTransport` (B's root equal to A's, every chunk
@@ -189,12 +207,20 @@ FLASH_F32_ATOL = 1e-5
 # plain version, on logits while the two runs' tokens agree; tokens must
 # agree at every step whose top-2 logit margin exceeds the limit. bf16:
 # one attention output a bf16 ulp apart moves the logits by a few bf16
-# ulps; fp32: summation order only
+# ulps; fp32: summation order only. Stated for Phi-3-mini and for
+# gemma2-27b (at 2 layers an H100 read gemma2's logits 3.5e-2 apart in
+# bf16 and 1.3e-5 in fp32, Phi-3-mini's 3.5e-2 and 1.7e-5)
 SERVE_LOGIT_LIMIT = {"bfloat16": 0.35, "float32": 1.2e-4}
-# the whole-model slice: 8 of Phi-3-mini's 32 layers in fp32 (five
-# models, 22.1 GB). Memory allows 16 (40.2 GB); 8 keeps the script
-# inside its time limit beside the [durable] phase
-WHOLE_LAYERS = 8
+# B9's bf16 prefill at gemma2's shapes (D = 128, 8160 keys, softcap 50):
+# one bf16 ulp of |plain| + 2e-6. Outputs near 0 carry ~1e-6 of the
+# kernel's fp32 rounding (tensor-core Q K^T sums, 2^x): an H100 read
+# 4.23e-6 where the plain version read 3.26e-6 and a float64 oracle of
+# the row 3.31e-6, and 1 of 66.8M elements beyond the 1e-6 floor
+FLASH_BF16_FLOOR = {"phi3": 1e-6, "gemma2": 2e-6}
+# the whole-model slice: 2 of Phi-3-mini's 32 layers in fp32 (five
+# models, 8.5 GB). Memory allows 16 (40.2 GB); 2 (8 before the [gemma2]
+# phase came) keeps the script inside its time limit
+WHOLE_LAYERS = 2
 WHOLE = ("star", "svd_knot_tying", "adarank", "evolutionary_merge",
          "genetic_merge")
 SEARCH = ("genetic_merge", "evolutionary_merge")
@@ -238,6 +264,21 @@ BTM_BATCH, BTM_SEQ = 4, 512
 # the small differences of large terms, carry in absolute terms)
 FLASH_BWD_F32 = (1e-5, 1e-4)
 FLASH_BWD_BF16_ATOL = 1e-4
+# [gemma2]: Gemma-2 27B (configs/gemma2_27b.py) served at
+# full width and depth in bf16: batch 2, a prompt of 8160 tokens (past
+# the 4096-key window, so the local layers' mask binds) and 32 greedy
+# tokens, max_len 8192 (its context); a model merged through two
+# replicas at 2 of its 46 layers (1 period: a base and 2 contributions
+# are 3 x 4.62 GB; at full depth they would be 3 x 54.45 GB; 2 rather
+# than 4 keeps the script inside its time limit); B9 against its plain
+# version at 2 layers (one local, one global)
+GEMMA2 = "gemma2-27b"
+G2_BATCH, G2_PROMPT, G2_GEN = 2, 8160, 32
+G2_MERGE_LAYERS, G2_K, G2_PLAIN_LAYERS = 2, 2, 2
+# [durable] journals and syncs the int8 payloads of 4 of Phi-3-mini's 32
+# layers (all 32 before gemma2's phase, 16 in its first runs): it is
+# host-bound, and the [gemma2] phase needs its time under the limit
+DURABLE_LAYERS = 4
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -298,9 +339,28 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """nvcc for every source at once (`build.build_all`, on a thread that
+    waits for the compilers), while this thread compiles `flex_library`
+    for B9's gemma2 rows (`flex_warm`)."""
+    import threading
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build_all()
+    built = {}
+
+    def run():
+        try:
+            built["logs"] = build.build_all()
+        except BaseException as e:      # raised again on this thread
+            built["error"] = e
+    nvcc = threading.Thread(target=run)
+    nvcc.start()
+    try:
+        flex_warm()
+    finally:
+        nvcc.join()
+    if "error" in built:
+        raise built["error"]
+    logs = built["logs"]
     dt = time.perf_counter() - t0
     for src, text in sorted(logs.items()):
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
@@ -309,6 +369,30 @@ def phase_build() -> None:
     log(f"[build] nvcc for {sorted(logs)} in parallel: {dt:.1f} s")
     flash_instances(logs.get("flash_attention", ""))
     flash_bwd_instances(logs.get("flash_attention_bwd", ""))
+
+
+def flex_warm() -> None:
+    """Compiles `flex_library` at the shapes and dtypes of B9's gemma2
+    rows (`phase_gemma2_flash_kernel`), one compile for each, on zeros;
+    the [kernels] phase then reuses them."""
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA2)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
+    t0 = time.perf_counter()
+
+    def zeros(s, n, dtype=torch.bfloat16):
+        return torch.zeros(G2_BATCH, s, n, d, dtype=dtype, device=DEVICE)
+    for dtype in (torch.bfloat16, torch.float32):
+        flex_library(zeros(G2_PROMPT, h, dtype), zeros(G2_PROMPT, hk, dtype),
+                     zeros(G2_PROMPT, hk, dtype), 0, w, cap, scale)()
+    for s, q_offset in ((w, w - 1), (G2_PROMPT + G2_GEN, G2_PROMPT)):
+        flex_library(zeros(1, h), zeros(s, hk), zeros(s, hk), q_offset, 0,
+                     cap, scale)()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[build] flex_attention compiled for B9's gemma2 rows beside nvcc "
+        f"(4 shapes and dtypes): {time.perf_counter() - t0:.1f} s")
 
 
 def _instance(mangled: str) -> str:
@@ -666,6 +750,7 @@ def phase_kernels(cfg) -> dict:
     torch.cuda.empty_cache()
     phase_perleaf_kernels(rows, g)
     phase_flash_kernel(rows, cfg, g)
+    phase_gemma2_flash_kernel(rows, g)
     phase_flash_backward(rows, cfg, g)
     return rows
 
@@ -740,24 +825,31 @@ def bits(t: torch.Tensor) -> torch.Tensor:
                    8: torch.int64}[t.element_size()])
 
 
-def flash_case(q, k, v, q_offset: int) -> dict:
-    """B9 at one shape: held against its plain version (FLASH_F32_ATOL,
-    or one bf16 ulp), then timed, the kernel and
-    `scaled_dot_product_attention` (on [B, H, S, D] copies, over the
-    visible keys) over 10 CUDA-event-timed calls, the plain version over
-    3. Bound: the operations and bytes of the keys each query row sees,
-    at the peak rate of q's type."""
+def flash_case(q, k, v, q_offset: int, window: int = 0,
+               softcap: float = 0.0, scale: float = 0.0,
+               floor: float = FLASH_BF16_FLOOR["phi3"]) -> dict:
+    """B9 at one shape (causal, with gemma2's `window` and `softcap`
+    where given): held against its plain version (FLASH_F32_ATOL, or one
+    bf16 ulp + `floor`), then timed, the kernel and the library call
+    over 10 CUDA-event-timed calls, the plain version over 3. The
+    library call, on [B, H, S, D] copies: `scaled_dot_product_attention`
+    over the visible keys, or with a softcap or window `flex_attention`
+    (`flex_library`). Bound: the operations of the (query, key) pairs
+    each row sees (4 D flops a pair) and the bytes of q, the output and
+    the keys some row sees, at the peak rate of q's type."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        DECODE_ROWS, flash_attention, flash_attention_plain)
+        DECODE_ROWS, flash_attention, flash_attention_plain, visible_keys)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
+    kw = dict(q_offset=q_offset, window=window, softcap=softcap,
+              scale=scale)
 
     def kern():
-        return flash_attention(q, k, v, q_offset=q_offset)
+        return flash_attention(q, k, v, **kw)
 
     def plain():
-        return flash_attention_plain(q, k, v, q_offset=q_offset)
+        return flash_attention_plain(q, k, v, **kw)
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -767,43 +859,106 @@ def flash_case(q, k, v, q_offset: int) -> dict:
         ok = max_err <= FLASH_F32_ATOL
         rule = f"max abs err <= {FLASH_F32_ATOL}"
     else:
-        beyond = int((err > 2.0 ** -7 * want.float().abs() + 1e-6).sum())
-        ok, rule = beyond == 0, f"{beyond} elements beyond one bf16 ulp"
+        beyond = int((err > 2.0 ** -7 * want.float().abs() + floor).sum())
+        ok = beyond == 0
+        rule = f"{beyond} elements beyond one bf16 ulp + {floor:g}"
     if not ok:
         raise AssertionError(f"flash_attention {tuple(q.shape)} {q.dtype}: "
                              f"kernel vs plain outside tolerance ({rule}, "
                              f"max abs err {max_err:.3e})")
-    del got, want, err
-    kmax = min(sk, q_offset + sq)
-    pairs = sum(min(sk, q_offset + i + 1) for i in range(sq))
+    del got, err
+    kbeg, kmax = visible_keys(sq, sk, True, q_offset, window)
+    pairs = sum(min(sk, q_offset + i + 1)
+                - (max(0, q_offset + i - window + 1) if window else 0)
+                for i in range(sq))
     ops = 4.0 * d * b * h * pairs
-    nbytes = (2 * b * sq * h * d + 2 * b * kmax * hk * d) * q.element_size()
+    nbytes = (2 * b * sq * h * d + 2 * b * (kmax - kbeg) * hk * d) \
+        * q.element_size()
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    qt, kt, vt = (x.transpose(1, 2).contiguous()
-                  for x in (q, k[:, :kmax], v[:, :kmax]))
-    causal = sq > 1
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-
     out = {"max_abs_err": max_err, "ms": cuda_ms(kern, 10),
            "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": cuda_ms(library, 10), "rule": rule}
+           "library_ms": None, "rule": rule}
+    if softcap or window:
+        library = flex_library(q, k, v, q_offset, window, softcap, scale)
+        lib_err = float((library().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        out["library_ms"] = cuda_ms(library, 10)
+        lib = (f"(flex_attention) {out['library_ms']:.3f} ms, max abs "
+               f"diff from plain {lib_err:.3e}")
+    else:
+        qt, kt, vt = (x.transpose(1, 2).contiguous()
+                      for x in (q, k[:, :kmax], v[:, :kmax]))
+        causal = sq > 1
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale or None,
+                enable_gqa=h != hk)
+
+        out["library_ms"] = cuda_ms(library, 10)
+        lib = f"(sdpa) {out['library_ms']:.3f} ms"
+        del qt, kt, vt
+    del want
     design = ("decode design" if sq <= DECODE_ROWS else
               "prefill on the tensor cores" if q.dtype == torch.bfloat16
               else "prefill, scalar fp32 instance")
     log(f"[kernels] flash_attention ({design}) q {list(q.shape)} k/v "
-        f"{list(k.shape)} {str(q.dtype)[6:]}, q_offset {q_offset}: {rule}, "
-        "max abs err "
+        f"{list(k.shape)} {str(q.dtype)[6:]}, q_offset {q_offset}, window "
+        f"{window}, softcap {softcap}: {rule}, max abs err "
         f"{max_err:.3e}; {out['ms']:.3f} ms (bound {out['bound_ms']:.3f} ms "
-        f"by {out['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
-        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
-        f"{out['plain_ms']:.2f} ms; library (sdpa) {out['library_ms']:.3f} "
-        "ms")
+        f"by {out['bound_by']}: {pairs} visible pairs, {ops:.3e} flops in "
+        f"{t_ops:.3f} ms, {nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
+        f"{out['plain_ms']:.2f} ms; library {lib}")
     return out
+
+
+_FLEX = None
+# flex_library's mask parameters: 0-d tensors that the compiled call
+# takes as inputs, so the local and global rows of one shape and dtype
+# share one compile (a Python int would be baked into each graph)
+_FLEX_QOFF = _FLEX_WIN = None
+_FLEX_CAP = 0.0
+
+
+def _flex_mask(b, h, qi, ki):
+    qpos = qi + _FLEX_QOFF
+    return (ki <= qpos) & (qpos - ki < _FLEX_WIN)
+
+
+def _flex_softcap(s, b, h, qi, ki):
+    return _FLEX_CAP * torch.tanh(s / _FLEX_CAP)
+
+
+def flex_library(q, k, v, q_offset: int, window: int, softcap: float,
+                 scale: float):
+    """The library call for B9 with a softcap or a window: one call of
+    `torch.compile(flex_attention)` on [B, H, S, D] copies of q, k and
+    v, with `softcap * tanh(s / softcap)` as its score_mod and B9's
+    mask (k <= q_offset + q, q_offset + q - k < window) as its block
+    mask, compiled here on the first call at each shape and dtype. For
+    timing only: the port never calls it."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention)
+    global _FLEX, _FLEX_QOFF, _FLEX_WIN, _FLEX_CAP
+    if _FLEX is None:
+        # compile in this process: no pool of workers outlives the script
+        torch._inductor.config.compile_threads = 1
+        _FLEX = torch.compile(flex_attention, dynamic=False)
+        _FLEX_QOFF = torch.zeros((), dtype=torch.int32, device=q.device)
+        _FLEX_WIN = torch.zeros((), dtype=torch.int32, device=q.device)
+    _FLEX_QOFF.fill_(q_offset)
+    _FLEX_WIN.fill_(window or 2 ** 30)
+    _FLEX_CAP = softcap
+    sq, sk = q.shape[1], k.shape[1]
+    block = create_block_mask(_flex_mask, None, None, sq, sk,
+                              device=q.device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return lambda: _FLEX(qt, kt, vt, score_mod=_flex_softcap if softcap
+                         else None, block_mask=block, scale=scale or None,
+                         enable_gqa=q.shape[2] != k.shape[2])
 
 
 def flash_bwd_case(q, k, v, dout) -> dict:
@@ -1054,6 +1209,7 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                            "ties_block"),
                 "gossip": (),
                 "serve": ("flash_attention",),
+                "gemma2": ("flash_attention",),
                 "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
@@ -1061,13 +1217,35 @@ SPARSE_LEAVES = tuple(f"['blocks']['sub0']['attn']['{w}']"
                       for w in ("wk", "wo", "wq", "wv"))
 
 
-def int8_eid(eid: str) -> str:
+def int8_eid(eid: str, layers: int = 0) -> str:
     """The element id of the int8 payload compressed from the fine-tune
-    named `eid`: a hex name derived from that content id. An int8
-    payload needs one (`Replica.contribute` asks for `element_id`), and
-    the compression is deterministic, so every replica that compresses
-    the same fine-tune derives the same name."""
-    return hashlib.sha256(f"int8 payload of {eid}".encode()).hexdigest()
+    named `eid` (of its first `layers` layers, where given): a hex name
+    derived from that content id. An int8 payload needs one
+    (`Replica.contribute` asks for `element_id`), and the compression is
+    deterministic, so every replica that compresses the same fine-tune
+    derives the same name."""
+    cut = f", first {layers} layers" if layers else ""
+    return hashlib.sha256(f"int8 payload of {eid}{cut}".encode()).hexdigest()
+
+
+def first_layers(tree, n: int):
+    """The first n layers of a stacked model: every `blocks` leaf cut to
+    [:n] and copied (so the full leaves can go), the rest as they are.
+    An int8 `CompressedTree` keeps each leaf's scale (one a leaf), so
+    the cut payload dequantizes to the cut of the full one."""
+    from repro_torch import pytree
+    from repro_torch.core.compression import CompressedLeaf, CompressedTree
+    if isinstance(tree, CompressedTree):
+        paths = pytree.leaf_paths(tree.treedef)
+        return CompressedTree([
+            CompressedLeaf(leaf.q[:n].clone(), leaf.scale,
+                           (n,) + tuple(leaf.shape[1:]), leaf.dtype)
+            if path.startswith("['blocks']") else leaf
+            for path, leaf in zip(paths, tree.leaves)], tree.treedef)
+    flat, treedef = pytree.flatten_with_path(tree)
+    return treedef.unflatten([
+        t[:n].clone() if pytree.keystr(path).startswith("['blocks']") else t
+        for path, t in flat])
 
 
 def sparse_eid(layers: int) -> str:
@@ -1082,19 +1260,21 @@ def sparse_eid(layers: int) -> str:
 # the re-resolve's cache holds every leaf's output and fp32 fold
 # accumulator: 3.82e9 parameters x (2 + 4) bytes, and S's four leaves
 SPARSE_CACHE_BYTES = 40 * 10 ** 9
-# the consortium: nodes, and each node's update under a fixed eid; 8 of
-# Phi-3-mini's 32 layers (16 before the [durable] sync sessions came)
-# keep the script inside its time limit
+# the consortium: nodes, and each node's update under a fixed eid; 2 of
+# Phi-3-mini's 32 layers (16 before the [durable] sync sessions came, 8
+# before the [gemma2] phase) keep the script inside its time limit
 CONSORTIUM = 8
-CONSORTIUM_LAYERS = 8
+CONSORTIUM_LAYERS = 2
 
 
 def consortium_eid(i) -> str:
     return hashlib.sha256(f"consortium update {i}".encode()).hexdigest()
 
 
-# the paper's Tables 6-9 at benchmarks/bench_gossip.py --full sizes
-T6_NODES, T6_SIDE, T6_ORDERINGS = 100, 512, 20
+# the paper's Tables 6-9 at benchmarks/bench_gossip.py --full sizes,
+# but for Table 6's orderings: 2 of its 20 (each ~8 s of host-bound
+# resolves on 100 nodes) keep the script inside its time limit
+T6_NODES, T6_SIDE, T6_ORDERINGS = 100, 512, 2
 T7_NODES, T7_SIDE, T7_PARTS = 100, 64, 10
 T8_NODES, T8_SIDE = 10, 64
 T9_SIZES, T9_SIDE = (2, 5, 10, 20, 30, 50), 64
@@ -1340,11 +1520,15 @@ def phase_main_path(cfg) -> dict:
         raise AssertionError("kernel_dispatch_total{kernel=quant_nary} "
                              "did not grow")
     t0 = time.perf_counter()
-    held = {"base": base}        # the phase frees the base, and cts
-    del base
-    paths["durable"] = phase_durable(cts, qids, held)
+    # the phase frees the base, and the payloads: DURABLE_LAYERS of them
+    held = {"base": first_layers(base, DURABLE_LAYERS)}
+    dcts = [first_layers(ct, DURABLE_LAYERS) for ct in cts]
+    del base, cts
+    torch.cuda.empty_cache()
+    paths["durable"] = phase_durable(
+        dcts, [int8_eid(e, DURABLE_LAYERS) for e in order], held)
     log(f"[time] phase_durable: {time.perf_counter() - t0:.0f} s")
-    del cts, held
+    del dcts, held
     torch.cuda.empty_cache()
     launches = {k: sum(p["launches"][k] for p in paths.values())
                 for k in paths["bf16"]["launches"]}
@@ -1618,17 +1802,19 @@ def sparse_vs_exact(cfg, rep, order, base, ref) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_batch(cfg) -> dict:
+def serve_batch(cfg, batch: int = SERVE_BATCH,
+                prompt: int = SERVE_PROMPT) -> dict:
     from repro_torch.configs import ShapeSpec
     from repro_torch.data.synthetic import make_batch
-    shape = ShapeSpec("serve", SERVE_PROMPT, SERVE_BATCH, "prefill")
+    shape = ShapeSpec("serve", prompt, batch, "prefill")
     return {k: torch.as_tensor(v, device=DEVICE)
             for k, v in make_batch(cfg, shape, step=SEED).items()}
 
 
-def check_served(label: str, tokens, logits, cfg) -> None:
-    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) \
-            or tuple(logits.shape) != (SERVE_BATCH, cfg.vocab_size):
+def check_served(label: str, tokens, logits, cfg, batch: int = SERVE_BATCH,
+                 gen: int = SERVE_GEN) -> None:
+    if tuple(tokens.shape) != (batch, gen) \
+            or tuple(logits.shape) != (batch, cfg.vocab_size):
         raise AssertionError(f"{label}: tokens {tuple(tokens.shape)}, "
                              f"logits {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()) or int(tokens.min()) < 0 \
@@ -1823,14 +2009,24 @@ def phase_serve_vs_plain(cfg) -> None:
     same forward with B9's plain version on the card, in bf16 and fp32
     compute: logits compared while both runs' tokens agree, tokens at
     every step whose top-2 margin exceeds SERVE_LOGIT_LIMIT."""
+    served_vs_plain(cfg.replace(n_layers=2), serve_batch(cfg),
+                    "serve-vs-plain")
+
+
+def served_vs_plain(cfg, batch: dict, tag: str) -> None:
+    """`greedy_decode` of 8 tokens with B9 and with its plain version
+    (`flash_attention_plain`) on the same bf16 weights
+    (`init_from_schema`), in bf16 and fp32 compute: per row, the logits
+    within SERVE_LOGIT_LIMIT[cd] at every step while both runs' tokens
+    agree, and the tokens equal at every step whose top-2 margin exceeds
+    it."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     from repro_torch.train.serve import greedy_decode
-    cfg = cfg.replace(n_layers=2)
     params = init_from_schema(Model(cfg).schema(), seed=SEED,
                               device=DEVICE, dtype=torch.bfloat16)
-    batch = serve_batch(cfg)
+    nb, prompt = batch["tokens"].shape
     steps = 8
     for cd in ("bfloat16", "float32"):
         c = cfg.replace(compute_dtype=cd)
@@ -1840,7 +2036,7 @@ def phase_serve_vs_plain(cfg) -> None:
                                params, batch, steps, return_logits=True)
         limit = SERVE_LOGIT_LIMIT[cd]
         worst, compared, bad = 0.0, 0, []
-        for r in range(SERVE_BATCH):
+        for r in range(nb):
             for i in range(steps + 1):
                 worst = max(worst, float((kl[i][r] - pl[i][r]).abs().max()))
                 if i == steps:
@@ -1854,8 +2050,8 @@ def phase_serve_vs_plain(cfg) -> None:
                     break
         share = float((kt == pt).float().mean())
         ok = worst <= limit and not bad
-        log(f"[serve-vs-plain] {cd} compute, {cfg.n_layers} layers, batch "
-            f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {steps} tokens: logits "
+        log(f"[{tag}] {cfg.name} {cd} compute, {cfg.n_layers} layers, batch "
+            f"{nb}, prompt {prompt}, {steps} tokens: logits "
             f"max abs diff {worst:.3e} while the tokens agree (limit "
             f"{limit}); {compared} tokens past the margin rule, "
             f"{len(bad)} differ; {share:.4f} of all tokens agree: "
@@ -1863,8 +2059,188 @@ def phase_serve_vs_plain(cfg) -> None:
         if not ok:
             raise AssertionError(f"served forward with B9 vs plain ({cd}) "
                                  "outside its limit")
+        del kt, kl, pt, pl
     del params
     torch.cuda.empty_cache()
+
+
+def phase_gemma2() -> dict:
+    """`[gemma2]`: Gemma-2 27B served on the card. Full depth: its
+    27,227,128,320 parameters seeded in bf16 (`init_from_schema`, 54.45
+    GB), then `greedy_decode` twice (batch 2, an 8160-token prompt from
+    `make_batch`, 32 tokens; every attention call on B9 with the softcap,
+    the local layers' window in prefill and their 4096-slot rings in
+    decode: exactly 46 x 33 launches a call), byte-identical tokens and
+    logits; the prefill alone for the split; one decode step and one
+    prefill traced. Merged: at 2 layers, a base and 2 contributions
+    (base + 0.1 x a seeded delta) go to two replicas in opposite orders,
+    which resolve TIES (exact path) to byte-identical trees and serve
+    them to byte-identical tokens and logits (the reference's
+    `examples/serve_merged.py` flow). Last, at 2 layers, the served
+    forward with B9 against its plain version (`served_vs_plain`)."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    cfg = get_config(GEMMA2)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    log(f"[gemma2] {cfg.name}: {n} bf16 parameters "
+        f"({n * 2 / 1e9:.2f} GB, {model.n_periods} periods of "
+        f"{len(model.layout)} sub-layers, windows "
+        f"{[sl.window for sl in model.layout]}) seeded in "
+        f"{time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    batch = serve_batch(cfg, G2_BATCH, G2_PROMPT)
+    per_call = cfg.n_layers * (G2_GEN + 1)
+    out = {}
+
+    def serve(label, m, p, b=batch):
+        def thunk():
+            out[label] = greedy_decode(m, p, b, G2_GEN, return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1", model, params)),
+             ("greedy_decode 2", serve("2", model, params))]
+    path = run_path("gemma2", calls, expect={
+        label: {"flash_attention": per_call} for label, _ in calls})
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served("gemma2", tok1, lg1[-1], cfg, G2_BATCH, G2_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError("[gemma2] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch,
+                                   max_len=G2_PROMPT + G2_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / G2_GEN
+    log(f"[gemma2] {cfg.n_layers} layers, batch {G2_BATCH}, prompt "
+        f"{G2_PROMPT}, {G2_GEN} tokens: {per_call} B9 launches a call; "
+        f"tokens and all {G2_GEN + 1} logits byte-identical across the two "
+        f"calls; greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s "
+        f"(first call), {total:.3f} s (second) = prefill {t_prefill:.3f} s "
+        f"(timed alone; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB) + {decode_ms:.2f} ms per decode step; "
+        f"{G2_BATCH * G2_GEN / total:.1f} generated tokens/s "
+        f"({G2_BATCH * G2_GEN / (total - t_prefill):.1f} after the "
+        f"prefill); tokens[0] {tok1[0].tolist()}")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, G2_PROMPT), tag="gemma2")
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=G2_PROMPT + G2_GEN), tag="gemma2")
+    del params, calls      # the thunks hold the 54.45 GB of weights too
+    torch.cuda.empty_cache()
+
+    # merged at G2_MERGE_LAYERS through two replicas, then served
+    cfg4 = cfg.replace(n_layers=G2_MERGE_LAYERS)
+    t0 = time.perf_counter()
+    base, contribs = make_models(cfg4, DEVICE, k=G2_K)
+    rep_a = Replica("gemma2-a", device=DEVICE)
+    eids = [rep_a.contribute(c) for c in contribs]
+    ref_a = rep_a.register_base(base)
+    rep_b = Replica("gemma2-b", device=DEVICE)
+    for c, eid in zip(contribs[::-1], eids[::-1]):
+        rep_b.contribute(c, eid)
+    ref_b = rep_b.register_base(base)
+    if rep_a.merkle_root() != rep_b.merkle_root() or ref_a != ref_b:
+        raise AssertionError("[gemma2] the two replicas disagree on Layer 1")
+    del contribs
+    merged = {}
+    for label, rep, ref in (("A", rep_a, ref_a), ("B", rep_b, ref_b)):
+        t1 = time.perf_counter()
+        merged[label] = rep.resolve(MergeSpec("ties", base_ref=ref))
+        torch.cuda.synchronize()
+        log(f"[gemma2] merged, {G2_MERGE_LAYERS} layers: replica {label} "
+            f"resolves ties in {time.perf_counter() - t1:.1f} s")
+    check_output("gemma2 ties (replica A)", merged["A"], base)
+    differ = same_bytes(merged["A"], merged["B"])
+    if differ:
+        raise AssertionError(f"[gemma2] merged trees differ in {differ} "
+                             "leaves")
+    del rep_a, rep_b, rep, base
+    model4 = Model(cfg4)
+    calls = [(f"greedy_decode merged {label}",
+              serve(label, model4, merged[label])) for label in ("A", "B")]
+    per4 = cfg4.n_layers * (G2_GEN + 1)
+    merged_path = run_path("gemma2", calls, expect={
+        label: {"flash_attention": per4} for label, _ in calls})
+    (ta, la), (tb, lb) = out.pop("A"), out.pop("B")
+    check_served("gemma2 merged", ta, la[-1], cfg4, G2_BATCH, G2_GEN)
+    if not (torch.equal(ta, tb) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(la, lb))):
+        raise AssertionError("[gemma2] the replicas' merged trees served "
+                             "different tokens or logits")
+    log(f"[gemma2] merged, {G2_MERGE_LAYERS} layers ({G2_K} contributions "
+        f"+ base, {sum(t.numel() for t in pytree.leaves(merged['A']))} "
+        "parameters a model): replicas A and B (opposite orders) resolve "
+        "byte-identical trees and serve byte-identical tokens and logits "
+        f"({per4} B9 launches each); {time.perf_counter() - t0:.1f} s "
+        f"with the merges; tokens[0] {ta[0].tolist()}")
+    del merged, out, la, lb, calls
+    torch.cuda.empty_cache()
+    served_vs_plain(cfg.replace(n_layers=G2_PLAIN_LAYERS), batch,
+                    "gemma2-vs-plain")
+    launches = {k: path["launches"][k] + merged_path["launches"][k]
+                for k in path["launches"]}
+    return {"launches": launches, "ms": {**path["ms"],
+                                         **merged_path["ms"]}}
+
+
+def phase_gemma2_flash_kernel(rows: dict, g) -> None:
+    """B9 at gemma2-27b's serving shapes, each held against its plain
+    version and timed: the prefill's q [2, 8160, 32, 128], k, v [2,
+    8160, 16, 128] with softcap 50 and scale 144^-0.5, bf16 and fp32,
+    on a local layer (window 4096: key tiles below it are skipped) and a
+    global one; a decode step's q [2, 1, 32, 128] over a local layer's
+    4096-slot ring at q_offset 4095 and over a global layer's 8192-slot
+    cache at position 8160."""
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA2)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cases = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        qkv = [randn(G2_BATCH, G2_PROMPT, n, d, dtype=dtype)
+               for n in (h, hk, hk)]
+        for layer, window in (("local", w), ("global", 0)):
+            cases[f"gemma2 prefill {layer} {tag}"] = flash_case(
+                *qkv, 0, window=window, softcap=cap, scale=scale,
+                floor=FLASH_BF16_FLOOR["gemma2"])
+        del qkv
+        torch.cuda.empty_cache()
+    q = randn(G2_BATCH, 1, h, d)
+    kv = [randn(G2_BATCH, w, hk, d) for _ in range(2)]
+    cases["gemma2 decode ring bf16"] = flash_case(q, *kv, w - 1,
+                                                  softcap=cap, scale=scale)
+    kv = [randn(G2_BATCH, G2_PROMPT + G2_GEN, hk, d) for _ in range(2)]
+    cases["gemma2 decode global bf16"] = flash_case(
+        q, *kv, G2_PROMPT, softcap=cap, scale=scale)
+    del q, kv
+    torch.cuda.empty_cache()
+    rows["flash_attention"].update(cases)
 
 
 def search_path(ordered, order, base, ref, seed, cache) -> dict:
@@ -2259,8 +2635,9 @@ def sha256_gbps(chunk) -> float:
 
 def phase_durable(cts: list, eids, held: dict) -> dict:
     """`[durable]`: the main path's K int8 payloads (compressed on the
-    card) under their eids, journaled, recovered, synced and merged on
-    arrival, at Phi-3-mini's full width and depth.
+    card; DURABLE_LAYERS of their layers, as `first_layers` cuts them)
+    under their eids, journaled, recovered, synced and merged on
+    arrival, at Phi-3-mini's full width.
 
     An in-memory replica resolves weight_average with the kernels over
     them (B2) and over `decompress_tree` of them (B1), and on the exact
@@ -2565,7 +2942,12 @@ def phase_durable(cts: list, eids, held: dict) -> dict:
                 "decompressed",
                 weight_average(state, engine.EngineCache()))
 
+    # one launch per fused group of the payloads' leaves, at
+    # DURABLE_LAYERS = 4 (the engine's packing: int8 payloads priced at
+    # a byte an element, decompressed ones at bf16's two; groups of 5 and
+    # 2 leaves, 5 leaves alone)
     quant = {"quant_nary": 2}
+    dense = {"nary_accum": 2}
     try:
         out = run_path("durable", [
             ("in-memory int8 weight_average", in_memory),
@@ -2578,14 +2960,13 @@ def phase_durable(cts: list, eids, held: dict) -> dict:
             ("fetch-on-resolve C", fetch_on_resolve_c),
             ("B msg_to_state weight_average", b_decompressed)],
             expect={"in-memory int8 weight_average": quant,
-                    "in-memory decompress_tree weight_average":
-                        {"nary_accum": 2},
+                    "in-memory decompress_tree weight_average": dense,
                     "journal, close, reopen": {},
                     "recovered A weight_average": quant,
                     "sync A -> B": {},
                     "B weight_average": quant,
                     "fetch-on-resolve C": quant,
-                    "B msg_to_state weight_average": {"nary_accum": 2}})
+                    "B msg_to_state weight_average": dense})
     finally:
         for r in rep.values():
             r.close()
@@ -3349,15 +3730,16 @@ def main() -> int:
         return out
 
     dev = phase_device()
-    timed(phase_build)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    timed(phase_build)
     rows = timed(phase_kernels, cfg)
     main = timed(phase_main_path, cfg)
     timed(phase_consortium, cfg)
     timed(phase_exact_vs_kernels, cfg)
     serve = timed(phase_serve, cfg)
     timed(phase_serve_vs_plain, cfg)
+    gemma2 = timed(phase_gemma2)
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
@@ -3368,7 +3750,7 @@ def main() -> int:
     timed(phase_merge_cli, pending)
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name]
-                              for p in (main, serve, train, btm))
+                              for p in (main, serve, gemma2, train, btm))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -5,13 +5,14 @@ Every architecture is a `ModelConfig` and every workload cell a
 `ShapeSpec`, plain frozen dataclasses copied field for field from the
 reference so the two describe the same model and the same batch. The
 port registers the configurations it can run (the plain dense family:
-Phi-3-mini, MiniCPM-2B, Minitron-8B); the rest arrive with ROADMAP A7.
+Phi-3-mini, MiniCPM-2B, Minitron-8B; and Gemma-2 27B's local/global
+layout); the rest arrive with ROADMAP A7.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Shapes (assigned workload cells)
@@ -140,6 +141,11 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_counts(self) -> Tuple[int, int]:
+        """Returns (total_params, active_params) analytically."""
+        from repro_torch.models.params import count_params  # lazy
+        return count_params(self)
+
 
 # registry ------------------------------------------------------------------
 
@@ -167,7 +173,7 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        minicpm_2b, minitron_8b, phi3_mini_3_8b)
+        gemma2_27b, minicpm_2b, minitron_8b, phi3_mini_3_8b)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 // B9 flash attention, replacing repro/kernels/flash_attention.py
 // `flash_attention` (its Pallas kernel `_flash_kernel`): online-softmax
-// attention with GQA and a causal mask by position.
+// attention with GQA and a causal mask by position, and gemma2's logit
+// softcap and sliding window (the reference model's `_attn_core`,
+// repro/models/layers.py:121-146).
 //
 //   q [B, Sq, H, D], k and v [B, Sk, HK, D], fp32 or bf16 (all three
 //   alike), read in place through their strides (the last dimension
@@ -9,9 +11,14 @@
 //   with `causal`, key j is visible to it iff j <= q_offset + i. Keys at
 //   or past Sk are never read (the reference pads them with zeros, and
 //   without `causal` leaves the zeros in its softmax; here they are
-//   masked). logits = (q . k) * scale in fp32; a running max m, normalizer
-//   l and fp32 accumulator of p * v per query row; out = acc / max(l,
-//   1e-30), rounded to q's dtype. A row that sees no key gives 0.
+//   masked). With a `window` W > 0 (only with `causal`) key j is visible
+//   to row i only if q_offset + i - j < W as well. logits = (q . k) *
+//   scale in fp32, and with a `softcap` c > 0, c tanh(logits / c) (tanhf,
+//   correctly rounded division and product, as the plain version's
+//   ops); a running max m, normalizer l and fp32 accumulator of p * v
+//   per query row; out = acc / max(l, 1e-30), rounded to q's dtype. A
+//   row that sees no key gives 0. Softcap and window are runtime
+//   arguments, so they add no instance.
 //
 // Bound on the H100: operations for prefill (4 D flops per visible
 // (query, key) pair against 2 bytes per element read), bytes for decode
@@ -69,8 +76,11 @@
 //
 // Every design consumes keys in a fixed order and sums no float with
 // atomics, so every launch gives the same bits. A causal block stops at
-// the last key tile any of its rows can see; prefill launches the
-// longest query tiles first, so the short ones fill the tail.
+// the last key tile any of its rows can see, and with a window starts
+// at the tile that holds the first key its first row sees: key tiles
+// wholly below every row's window are neither loaded nor computed.
+// Prefill launches the longest query tiles first, so the short ones
+// fill the tail.
 #include <math.h>
 
 #include <type_traits>
@@ -90,6 +100,20 @@ __device__ __forceinline__ float finite_or_zero(float m) {
   return m == -INFINITY ? 0.f : m;
 }
 
+// gemma2's attention softcap on a scaled logit: c tanh(x / c) for c > 0
+__device__ __forceinline__ float soft_cap(float x, float c) {
+  return c > 0.f ? __fmul_rn(c, tanhf(__fdiv_rn(x, c))) : x;
+}
+
+// the first key a row at position `pos` sees under a window (0: none),
+// rounded down to a multiple of `tile`, and never past `kend`
+__device__ __forceinline__ int window_start(int pos, int window, int kend,
+                                            int tile) {
+  if (!window) return 0;
+  const int first = min(kend, max(0, pos - window + 1));
+  return first / tile * tile;
+}
+
 template <int D>
 constexpr int smem_floats() {
   return D * (kTY * kRQ + 4)        // Qs [D][BQ + 4]
@@ -105,7 +129,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              int sk, int h, int hk, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh,
              long long vsb, long long vss, long long vsh, float scale,
-             int causal, int q_offset, float* __restrict__ lse) {
+             int causal, int q_offset, float softcap, int window,
+             float* __restrict__ lse) {
   constexpr int BQ = kTY * kRQ;
   constexpr int DC = D / kTX;           // head dims per thread
   constexpr int U = D / 8;              // 8-element units per row
@@ -139,9 +164,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 8; ++e) Qs[(d8 + e) * QLD + r] = x[e];
   }
 
-  // keys [0, kend) are read; with `causal` no row of the tile sees past
-  // position q_offset + q0 + rows - 1
+  // keys [kbeg, kend) are read; with `causal` no row of the tile sees
+  // past position q_offset + q0 + rows - 1, and with a window none below
+  // q_offset + q0 - window + 1
   const int kend = causal ? max(0, min(sk, q_offset + q0 + rows)) : sk;
+  const int kbeg = window_start(q_offset + q0, window, kend, kBK);
 
   float m[kRQ], l[kRQ], acc[kRQ][DC];
 #pragma unroll
@@ -152,7 +179,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
+  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
     __syncthreads();   // Q staged; the previous tile's K, V, P all read
     for (int u = tid; u < kBK * U; u += kThreads) {
       const int c = u / U, d8 = (u % U) * 8;
@@ -199,8 +226,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + kTX * j;
-        const bool seen = key < kend && (!causal || key <= qpos);
-        s[i][j] = seen ? __fmul_rn(s[i][j], scale) : -INFINITY;
+        const bool seen = key < kend && (!causal || key <= qpos)
+                          && (!window || qpos - key < window);
+        s[i][j] = seen ? soft_cap(__fmul_rn(s[i][j], scale), softcap)
+                       : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -294,7 +323,8 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
                  int sq, int sk, int h, int hk, long long qsb, long long qss,
                  long long qsh, long long ksb, long long kss, long long ksh,
                  long long vsb, long long vss, long long vsh, float scale,
-                 int causal, int q_offset, float* __restrict__ lse) {
+                 int causal, int q_offset, float softcap, int window,
+                 float* __restrict__ lse) {
   constexpr int LD = mma_ld<D>();
   constexpr int U = D / 8;       // 16-byte units per row
   constexpr int KS = D / 16;     // k-steps of Q . K^T
@@ -316,8 +346,16 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
   const uint16_t* vb = v + b * vsb + kh * vsh;
   const int kend = causal ? max(0, min(sk, q_offset + q0 + rows)) : sk;
   const int ntiles = (kend + kMmaBK - 1) / kMmaBK;
-  // logits in base-2 units: exp(x scale) = 2^(x scale log2 e)
+  // with a window, the first tile holding a key the block's first row
+  // sees (no later row sees an earlier key)
+  const int t0 = window_start(q_offset + q0, window, kend, kMmaBK) / kMmaBK;
+  // logits in base-2 units: exp(x scale) = 2^(x scale log2 e); with a
+  // softcap c, exp(c tanh(x scale / c)) = 2^(c tanh(x scale (1/c)) log2 e),
+  // 1/c correctly rounded (a division per logit took 53 % longer on an
+  // H100 at gemma2's shapes, with the same outputs)
+  const bool capped = softcap > 0.f;
   const float scale2 = __fmul_rn(scale, 1.4426950408889634f);
+  const float rcap = capped ? __frcp_rn(softcap) : 0.f;
 
   for (int u = tid; u < kMmaBQ * U; u += kMmaThreads) {
     const int r = u / U, d8 = (u % U) * 8;
@@ -337,7 +375,7 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
       cp_async16(vd + c * LD + d8, in ? vb + key * vss + d8 : vb, in);
     }
   };
-  if (ntiles > 0) load_tile(0, 0);
+  if (t0 < ntiles) load_tile(t0, 0);
   cp_async_commit();
 
   // rows g and g + 8 of this warp's 16
@@ -351,13 +389,13 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   uint32_t qf[KS][4];
 
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
+  for (int tile = t0; tile < ntiles; ++tile) {
+    const int buf = (tile - t0) & 1;
     if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (tile == 0) {
+    if (tile == t0) {
 #pragma unroll
       for (int s = 0; s < KS; ++s)
         ldmatrix_x4(qf[s], Qs + (warp * 16 + (lane & 15)) * LD + s * 16
@@ -385,18 +423,40 @@ flash_kernel_mma(const uint16_t* __restrict__ q,
     }
 
     const int k0 = tile * kMmaBK;
+    // a tile past Sk, above the first row's diagonal, or below the last
+    // row's window is masked key by key
     const bool edge = k0 + kMmaBK > kend
-                      || (causal && k0 + kMmaBK - 1 > q_offset + q0);
+                      || (causal && k0 + kMmaBK - 1 > q_offset + q0)
+                      || (window && q_offset + q0 + kMmaBQ - 1 - k0 >= window);
+    // the softcap's branch holds a whole tile, so the tile without one
+    // runs the uncapped instructions alone
+    if (capped) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = __fmul_rn(
+              __fmul_rn(softcap,
+                        tanhf(__fmul_rn(__fmul_rn(sc[n][e], scale), rcap))),
+              1.4426950408889634f);
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = __fmul_rn(sc[n][e], scale2);
+    }
     float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = __fmul_rn(sc[n][e], scale2);
+        float x = sc[n][e];
         if (edge) {
           const int key = k0 + n * 8 + 2 * t + (e & 1);
           const int pos = e < 2 ? pos_lo : pos_hi;
-          if (key >= kend || (causal && key > pos)) x = -INFINITY;
+          if (key >= kend || (causal && key > pos)
+              || (window && pos - key >= window))
+            x = -INFINITY;
         }
         sc[n][e] = x;
       }
@@ -554,8 +614,8 @@ flash_kernel_decode(const T* __restrict__ q, const T* __restrict__ k,
                     long long qsh, long long ksb, long long kss,
                     long long ksh, long long vsb, long long vss,
                     long long vsh, float scale, int causal, int q_offset,
-                    int chunk, float* __restrict__ part,
-                    int* __restrict__ tickets) {
+                    float softcap, int window, int chunk,
+                    float* __restrict__ part, int* __restrict__ tickets) {
   using Ly = DecLayout<T, D>;
   constexpr int LD = Ly::LD, VEC = Ly::VEC, NQ = Ly::NQ, QQ = Ly::QQ;
   constexpr int NL = Ly::NL, KG = Ly::KG, DPL = Ly::DPL;
@@ -574,8 +634,11 @@ flash_kernel_decode(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = blockIdx.y / rgroups, rg = blockIdx.y % rgroups;
   const int b = blockIdx.z, splits = gridDim.x;
   const int grp = b * gridDim.y + blockIdx.y;
+  // the chunks split keys [kbeg, kend): with a window the first row
+  // (position q_offset) sees none below q_offset - window + 1
   const int kend = causal ? max(0, min(sk, q_offset + sq)) : sk;
-  const int c0 = blockIdx.x * chunk, c1 = min(c0 + chunk, kend);
+  const int kbeg = window_start(q_offset, window, kend, 1);
+  const int c0 = kbeg + blockIdx.x * chunk, c1 = min(c0 + chunk, kend);
   const int ntiles = c1 > c0 ? (c1 - c0 + kDecBK - 1) / kDecBK : 0;
   const T* kb = k + b * ksb + kh * ksh;
   const T* vb = v + b * vsb + kh * vsh;
@@ -649,8 +712,9 @@ flash_kernel_decode(const T* __restrict__ q, const T* __restrict__ k,
       // the four quarters' sums, alike in the four lanes of a key
       a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 8));
       a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, 16));
-      const bool seen = valid[r] && key < c1 && (!causal || key <= pos[r]);
-      s[r] = seen ? __fmul_rn(a, scale) : -INFINITY;
+      const bool seen = valid[r] && key < c1 && (!causal || key <= pos[r])
+                        && (!window || pos[r] - key < window);
+      s[r] = seen ? soft_cap(__fmul_rn(a, scale), softcap) : -INFINITY;
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -781,6 +845,8 @@ struct Args {
   const long long* st;
   float scale;
   int causal, q_offset;
+  float softcap;          // 0: none
+  int window;             // 0: none; else only with causal
   cudaStream_t stream;
   float* lse = nullptr;   // prefill only: per-row log-sum-exp, or none
 };
@@ -799,7 +865,7 @@ int launch_scalar(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.sk,
       a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], a.scale, a.causal, a.q_offset, a.lse);
+      st[8], a.scale, a.causal, a.q_offset, a.softcap, a.window, a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -816,7 +882,8 @@ int launch_mma(const Args& a) {
       static_cast<const uint16_t*>(a.q), static_cast<const uint16_t*>(a.k),
       static_cast<const uint16_t*>(a.v), static_cast<uint16_t*>(a.o), a.sq,
       a.sk, a.h, a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], a.scale, a.causal, a.q_offset, a.lse);
+      st[7], st[8], a.scale, a.causal, a.q_offset, a.softcap, a.window,
+      a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -835,7 +902,8 @@ int launch_decode_r(const Args& a, int splits, int chunk, float* part,
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.sq, a.sk, a.h,
       a.hk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      a.scale, a.causal, a.q_offset, chunk, part, tickets);
+      a.scale, a.causal, a.q_offset, a.softcap, a.window, chunk, part,
+      tickets);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -878,40 +946,53 @@ int launch(const Args& a, int d, int rows, int splits, int chunk,
   }
 }
 
-// keys [0, kend) that some query row of a decode call sees
-int visible_keys(int sq, int sk, int causal, int q_offset) {
+// keys [kbeg, kend) that some query row of a decode call sees; returns
+// kend - kbeg (the kernel's `window_start` and key range)
+int visible_keys(int sq, int sk, int causal, int q_offset, int window) {
   if (!causal) return sk;
   const int last = q_offset + sq;
-  return last < 0 ? 0 : (last < sk ? last : sk);
+  const int kend = last < 0 ? 0 : (last < sk ? last : sk);
+  if (!window) return kend;
+  const int first = q_offset - window + 1;
+  return first <= 0 ? kend : (first < kend ? kend - first : 0);
+}
+
+// softcap >= 0; a window >= 0, and only with causal
+bool bad_options(int causal, float softcap, int window) {
+  return !(softcap >= 0.f) || window < 0 || (window && !causal);
 }
 
 template <typename T>
 int prefill_or_decode(const void* q, const void* k, const void* v, void* o,
                       int b, int sq, int sk, int h, int hk, int d,
                       const long long* st, float scale, int causal,
-                      int q_offset, void* stream) {
+                      int q_offset, float softcap, int window,
+                      void* stream) {
+  if (bad_options(causal, softcap, window))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, q_offset,
-               static_cast<cudaStream_t>(stream)};
+               softcap, window, static_cast<cudaStream_t>(stream)};
   if (sq > kDecRowsMax) return launch<T>(a, d, 0, 1, 0, nullptr, nullptr);
   // a single chunk of 16-row groups needs no scratch
-  const int kend = visible_keys(sq, sk, causal, q_offset);
-  return launch<T>(a, d, kDecRowsMax, 1, kend > 1 ? kend : 1, nullptr,
-                   nullptr);
+  const int n = visible_keys(sq, sk, causal, q_offset, window);
+  return launch<T>(a, d, kDecRowsMax, 1, n > 1 ? n : 1, nullptr, nullptr);
 }
 
 template <typename T>
 int decode_split(const void* q, const void* k, const void* v, void* o,
                  int b, int sq, int sk, int h, int hk, int d,
                  const long long* st, float scale, int causal, int q_offset,
-                 int rows, int splits, int chunk, void* part, void* tickets,
-                 void* stream) {
-  const int kend = visible_keys(sq, sk, causal, q_offset);
+                 float softcap, int window, int rows, int splits, int chunk,
+                 void* part, void* tickets, void* stream) {
+  if (bad_options(causal, softcap, window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = visible_keys(sq, sk, causal, q_offset, window);
   if (sq > kDecRowsMax || rows < 1 || splits < 1 || chunk < 1
-      || static_cast<long long>(splits) * chunk < kend
+      || static_cast<long long>(splits) * chunk < n
       || (splits > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, q_offset,
-               static_cast<cudaStream_t>(stream)};
+               softcap, window, static_cast<cudaStream_t>(stream)};
   return launch<T>(a, d, rows, splits, chunk, static_cast<float*>(part),
                    static_cast<int*>(tickets));
 }
@@ -920,7 +1001,7 @@ template <typename T>
 int forward_lse(const void* q, const void* k, const void* v, void* o, int b,
                 int sq, int sk, int h, int hk, int d, const long long* st,
                 float scale, int causal, void* lse, void* stream) {
-  Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, 0,
+  Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, 0, 0.f, 0,
          static_cast<cudaStream_t>(stream)};
   a.lse = static_cast<float*>(lse);
   return launch<T>(a, d, 0, 1, 0, nullptr, nullptr);
@@ -930,49 +1011,53 @@ int forward_lse(const void* q, const void* k, const void* v, void* o, int b,
 
 // q, k, v: fp32 or bf16 (raw bits) with element strides (batch, seq,
 // head) and a contiguous last dimension, 16-byte aligned rows; d in
-// {16, 32, 64, 96, 128}; h a multiple of hk; q_offset >= 0. out:
-// contiguous [b, sq, h, d] of the same dtype. The Python wrapper checks
-// all of this. sq > 16 takes the prefill design (bf16 on the tensor
-// cores, fp32 scalar), sq <= 16 the decode design in one key chunk.
+// {16, 32, 64, 96, 128}; h a multiple of hk; q_offset >= 0; softcap >= 0
+// and window >= 0 (0: off; a window only with causal). out: contiguous
+// [b, sq, h, d] of the same dtype. The Python wrapper checks all of
+// this. sq > 16 takes the prefill design (bf16 on the tensor cores,
+// fp32 scalar), sq <= 16 the decode design in one key chunk.
 #define B9_ARGS                                                          \
   const void *q, const void *k, const void *v, void *o, int b, int sq,   \
       int sk, int h, int hk, int d, long long qsb, long long qss,        \
       long long qsh, long long ksb, long long kss, long long ksh,        \
       long long vsb, long long vss, long long vsh, float scale,          \
-      int causal, int q_offset
+      int causal, int q_offset, float softcap, int window
 
 extern "C" int flash_attention_f32(B9_ARGS, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   return prefill_or_decode<float>(q, k, v, o, b, sq, sk, h, hk, d, st,
-                                  scale, causal, q_offset, stream);
+                                  scale, causal, q_offset, softcap, window,
+                                  stream);
 }
 
 extern "C" int flash_attention_bf16(B9_ARGS, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   return prefill_or_decode<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st,
-                                     scale, causal, q_offset, stream);
+                                     scale, causal, q_offset, softcap,
+                                     window, stream);
 }
 
 // The decode design (sq <= 16) with `rows` query rows per block (1 or
 // 16; the sq x h / hk rows of a KV head make ceil(sq h / hk / rows)
 // groups) over `splits` key chunks of `chunk` keys (chunk c reads keys
-// [c chunk, min((c + 1) chunk, kend))). With splits > 1: part, fp32
+// [kbeg + c chunk, min(kbeg + (c + 1) chunk, kend)), kbeg the first key
+// the window lets a row see, else 0). With splits > 1: part, fp32
 // scratch of b * hk * groups * splits * rows * (d + 2) floats; tickets,
 // b * hk * groups ints, zero before the call and zero after it.
 extern "C" int flash_decode_f32(B9_ARGS, int rows, int splits, int chunk,
                                 void* part, void* tickets, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   return decode_split<float>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
-                             causal, q_offset, rows, splits, chunk, part,
-                             tickets, stream);
+                             causal, q_offset, softcap, window, rows, splits,
+                             chunk, part, tickets, stream);
 }
 
 extern "C" int flash_decode_bf16(B9_ARGS, int rows, int splits, int chunk,
                                  void* part, void* tickets, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   return decode_split<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
-                                causal, q_offset, rows, splits, chunk, part,
-                                tickets, stream);
+                                causal, q_offset, softcap, window, rows,
+                                splits, chunk, part, tickets, stream);
 }
 
 // Dynamic shared memory of one instance, for reports: design 0 prefill
@@ -1001,19 +1086,22 @@ extern "C" int flash_attention_smem(int design, int bf16, int d, int rows) {
   }
 }
 
-// The prefill design at any Sq (q_offset 0), also writing each row's
-// log-sum-exp of the scaled logits, natural units, to lse [b, h, sq]
-// fp32 (0 for a row that sees no key): the forward of the gradient.
+// The prefill design at any Sq (q_offset 0, no softcap or window), also
+// writing each row's log-sum-exp of the scaled logits, natural units, to
+// lse [b, h, sq] fp32 (0 for a row that sees no key): the forward of the
+// gradient.
 extern "C" int flash_attention_lse_f32(B9_ARGS, void* lse, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  if (q_offset != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_offset != 0 || softcap != 0.f || window != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return forward_lse<float>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
                             causal, lse, stream);
 }
 
 extern "C" int flash_attention_lse_bf16(B9_ARGS, void* lse, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  if (q_offset != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (q_offset != 0 || softcap != 0.f || window != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return forward_lse<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
                                causal, lse, stream);
 }

@@ -57,20 +57,21 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "slerp_combine_f32": ("slerp", [_P, _P, _P, _P, _L, _P]),
     "slerp_combine_bf16": ("slerp", [_P, _P, _P, _P, _L, _P]),
     # q, k, v, out, B, Sq, Sk, H, HK, D, 9 strides, scale, causal,
-    # q_offset, stream
+    # q_offset, softcap, window, stream
     "flash_attention_f32": ("flash_attention",
                             [_P] * 4 + [_I] * 6 + [_L] * 9
-                            + [_F, _I, _I, _P]),
+                            + [_F, _I, _I, _F, _I, _P]),
     "flash_attention_bf16": ("flash_attention",
                              [_P] * 4 + [_I] * 6 + [_L] * 9
-                             + [_F, _I, _I, _P]),
-    # ... then lse [B, H, Sq] fp32 (the prefill design, q_offset 0)
+                             + [_F, _I, _I, _F, _I, _P]),
+    # ... then lse [B, H, Sq] fp32 (the prefill design, q_offset 0, no
+    # softcap or window)
     "flash_attention_lse_f32": ("flash_attention",
                                 [_P] * 4 + [_I] * 6 + [_L] * 9
-                                + [_F, _I, _I, _P, _P]),
+                                + [_F, _I, _I, _F, _I, _P, _P]),
     "flash_attention_lse_bf16": ("flash_attention",
                                  [_P] * 4 + [_I] * 6 + [_L] * 9
-                                 + [_F, _I, _I, _P, _P]),
+                                 + [_F, _I, _I, _F, _I, _P, _P]),
     # B9's gradient: q, k, v, o, dout, lse, dd scratch, dq, dk, dv, B,
     # Sq, Sk, H, HK, D, scale, causal, stream
     "flash_attention_bwd_f32": ("flash_attention_bwd",
@@ -86,10 +87,10 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     # tickets, stream
     "flash_decode_f32": ("flash_attention",
                          [_P] * 4 + [_I] * 6 + [_L] * 9
-                         + [_F] + [_I] * 5 + [_P] * 3),
+                         + [_F, _I, _I, _F] + [_I] * 4 + [_P] * 3),
     "flash_decode_bf16": ("flash_attention",
                           [_P] * 4 + [_I] * 6 + [_L] * 9
-                          + [_F] + [_I] * 5 + [_P] * 3),
+                          + [_F, _I, _I, _F] + [_I] * 4 + [_P] * 3),
 }
 
 

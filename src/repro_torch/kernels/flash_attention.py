@@ -1,20 +1,27 @@
 """B9 flash attention (`repro/kernels/flash_attention.py:flash_attention`,
 in CUDA: `csrc/flash_attention.cu`).
 
-    flash_attention(q, k, v, causal=True, scale=0.0, q_offset=0)
+    flash_attention(q, k, v, causal=True, scale=0.0, q_offset=0,
+                    window=0, softcap=0.0)
 
 q [B, Sq, H, D]; k, v [B, Sk, HK, D] with H a multiple of HK (query head
 h reads KV head h // (H / HK)); all fp32 or all bf16. Returns
-[B, Sq, H, D] in q's dtype: softmax((q . k) * scale) . v, with scale 0
-meaning D^-0.5, logits, softmax and the p . v accumulator in fp32.
-Query row i sits at position q_offset + i; with `causal` it sees keys
-0 .. q_offset + i. So one function serves prefill (q_offset 0) and a
-decode step (Sq = 1, q_offset = its position, k and v the whole cache:
-the keys past the position are never read). Two departures from the
-reference, both needed by the serving path: `q_offset` (the reference
-has none; at 0 the function is the reference's), and keys past Sk are
-masked with or without `causal` (the reference pads them with zeros and
-leaves those in its non-causal softmax, ROADMAP C).
+[B, Sq, H, D] in q's dtype: softmax(logits) . v with logits = (q . k) *
+scale, scale 0 meaning D^-0.5, and with a `softcap` c > 0 logits = c *
+tanh(logits / c) (gemma2's attention softcap); logits, softmax and the
+p . v accumulator in fp32. Query row i sits at position q_offset + i;
+with `causal` it sees keys 0 .. q_offset + i, and with a `window` W > 0
+only those with q_offset + i - key < W (gemma2's local layers): the
+reference's `_attn_core` mask (`models/layers.py:121-146`). A window
+needs `causal` (`ValueError` otherwise: gemma2 attends causally only,
+and without a causal bound the window would reach forward). So one
+function serves prefill (q_offset 0) and a decode step (Sq = 1, q_offset
+= its position, k and v the whole cache: the keys past the position,
+and below the window, are never read). Two departures from the
+reference's kernel, both needed by the serving path: `q_offset` (the
+reference has none; at 0 the function is the reference's), and keys
+past Sk are masked with or without `causal` (the reference pads them
+with zeros and leaves those in its non-causal softmax, ROADMAP C).
 
 The wrapper launches a CUDA kernel for CUDA tensors, reading q, k and
 v in place through their strides (the reference transposes to
@@ -23,7 +30,9 @@ runs `flash_attention_plain` for CPU tensors. Above DECODE_ROWS queries
 it launches the prefill design (bf16 on the tensor cores; fp32 on the
 scalar pipes); at DECODE_ROWS or fewer, the decode design, whose keys
 are split over `decode_splits(...)` chunks, chosen from the shapes
-alone, so two devices make the same partials and the same bits. Kernel
+alone, so two devices make the same partials and the same bits. Every
+design skips the key tiles that no row of a block can see: above the
+diagonal under `causal`, and wholly below every row's window. Kernel
 and plain version sum in different orders and exponentiate with
 different code, so they agree within a tolerance, not bitwise
 (`chip_smoke.py` states it). A row that sees no key gives 0 in both.
@@ -43,9 +52,9 @@ fp32 (dP - Dd in float64). `flash_attention_grad_plain` runs the
 autograd function with the plain forward and backward on any device
 (the chip smoke compares a train step with it). The reference's Pallas
 kernel has no gradient: its model trains through `chunked_attention`.
-
-Sliding windows and logit softcapping (gemma2's local layers) raise
-`NotImplementedError`; they come with that family (ROADMAP A7).
+Under autograd, sliding windows and logit softcaps raise
+`NotImplementedError`: their gradient is the next slice (gemma2's
+training, ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -71,14 +80,14 @@ DECODE_MIN_CHUNK_ELEMS = 128 * 96
 _PLAIN_ELEMS = 1 << 28
 
 
-def _unsupported(window: int, softcap: float) -> None:
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention (gemma2's local layers) waits for "
-            "ROADMAP A7")
-    if softcap:
-        raise NotImplementedError(
-            "attention logit softcapping (gemma2) waits for ROADMAP A7")
+def _options(causal: bool, window: int, softcap: float
+             ) -> Tuple[int, float]:
+    """(window, softcap) as the kernels take them: 0 where off (the
+    reference applies each only when it is > 0)."""
+    window = max(int(window), 0)
+    if window and not causal:
+        raise ValueError("a sliding window needs causal attention")
+    return window, max(float(softcap), 0.0)
 
 
 def _check(q, k, v, q_offset: int) -> None:
@@ -112,9 +121,19 @@ def _check_strided(*tensors) -> None:
                 f"strides {t.stride()}")
 
 
+def visible_keys(sq: int, sk: int, causal: bool, q_offset: int,
+                 window: int = 0) -> Tuple[int, int]:
+    """[kbeg, kend): the keys that some query row of a call sees (the
+    CUDA source's `visible_keys`)."""
+    kend = max(0, min(sk, q_offset + sq)) if causal else sk
+    kbeg = min(max(0, q_offset - window + 1), kend) if window else 0
+    return kbeg, kend
+
+
 def decode_splits(b: int, hk: int, kend: int, d: int) -> Tuple[int, int]:
-    """(splits, chunk) of a decode call over keys [0, kend): chunk c
-    covers [c * chunk, min((c + 1) * chunk, kend)). About
+    """(splits, chunk) of a decode call over `kend` visible keys (from
+    the first one a row sees, `visible_keys`): chunk c covers keys
+    [c * chunk, min((c + 1) * chunk, kend)) of them. About
     DECODE_TARGET_BLOCKS blocks over the b * hk (batch, KV head) pairs,
     chunks of whole tiles and at least DECODE_MIN_CHUNK_ELEMS elements;
     one chunk (no scratch, no combine) when the prefix is short."""
@@ -159,10 +178,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int = 0, softcap: float = 0.0,
                           return_lse: bool = False):
     """The same function in fp32 torch ops, chunked over queries:
-    logits, mask, a max-subtracted softmax, p @ v, cast to q's dtype.
-    With `return_lse`, also each row's log-sum-exp [B, H, Sq] fp32 (0
-    for a row that sees no key)."""
-    _unsupported(window, softcap)
+    logits, softcap, mask, a max-subtracted softmax, p @ v, cast to q's
+    dtype. With `return_lse`, also each row's log-sum-exp [B, H, Sq]
+    fp32 (0 for a row that sees no key)."""
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, q_offset)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -182,10 +201,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         qc = q[:, s0:s0 + c].to(torch.float32).reshape(b, c, hk, g, d) \
             .permute(0, 2, 3, 1, 4)                           # B,HK,G,c,D
         logits = torch.matmul(qc, kt) * scale                 # B,HK,G,c,Sk
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
         if causal:
             qpos = q_offset + s0 + torch.arange(c, device=q.device)
-            logits.masked_fill_(kpos[None, :] > qpos[:, None],
-                                float("-inf"))
+            hidden = kpos[None, :] > qpos[:, None]
+            if window:
+                hidden |= qpos[:, None] - kpos[None, :] >= window
+            logits.masked_fill_(hidden, float("-inf"))
         m = logits.amax(dim=-1, keepdim=True)
         m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
         p = torch.exp(logits - m)
@@ -213,7 +236,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, window=window,
                                      softcap=softcap)
-    _unsupported(window, softcap)
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, q_offset)
     d = q.shape[3]
     if scale <= 0.0:
@@ -229,14 +252,15 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(bool(causal)), int(q_offset))
+            float(scale), int(bool(causal)), int(q_offset), softcap,
+            window)
     if sq > DECODE_ROWS:
         symbol = "flash_attention_bf16" if bf16 else "flash_attention_f32"
         code = build.function(symbol)(*args, stream)
     else:
         symbol = "flash_decode_bf16" if bf16 else "flash_decode_f32"
-        kend = min(sk, q_offset + sq) if causal else sk
-        splits, chunk = decode_splits(b, hk, kend, d)
+        kbeg, kend = visible_keys(sq, sk, causal, q_offset, window)
+        splits, chunk = decode_splits(b, hk, kend - kbeg, d)
         rows = _decode_rows(sq * (h // hk))
         part = tickets = None
         if splits > 1:
@@ -262,7 +286,10 @@ flash_attention.launches = 0
 
 def _grad_supported(q, k, v, q_offset: int, window: int,
                     softcap: float) -> None:
-    _unsupported(window, softcap)
+    if window > 0 or softcap > 0:
+        raise NotImplementedError(
+            "B9's gradient with a sliding window or a logit softcap is the "
+            "next slice (gemma2 training, ROADMAP A7)")
     _check(q, k, v, q_offset)
     if q_offset:
         raise NotImplementedError(
@@ -299,7 +326,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale: float = 0.0
     code = build.function(symbol)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
         h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(bool(causal)), 0, lse.data_ptr(), stream)
+        float(scale), int(bool(causal)), 0, 0.0, 0, lse.data_ptr(), stream)
     flash_attention.launches += 1
     build.check(code, symbol)
     return out, lse

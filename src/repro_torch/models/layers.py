@@ -1,16 +1,18 @@
 """Shared layer library (`repro.models.layers`, the dense family's part):
-norms, RoPE, MLPs and GQA attention.
+norms, RoPE, MLPs and GQA attention, with gemma2's sliding window and
+logit softcap.
 
 Everything is a plain function over a param dict, in the reference's
 order of operations and roundings. Attention goes to B9
 (`kernels.flash_attention`), which takes the place of the reference's
-query-chunked `chunked_attention`: on CUDA tensors its CUDA kernel, on
-CPU tensors its plain version. Both keep p . v in fp32, where
-`chunked_attention` rounds the probabilities to the compute dtype first
-(`layers.py:144`): in bf16 the two differ by that rounding.
+query-chunked `chunked_attention` and applies its softcap and window
+mask (`_attn_core`): on CUDA tensors its CUDA kernel, on CPU tensors
+its plain version. Both keep p . v in fp32, where `chunked_attention`
+rounds the probabilities to the compute dtype first (`layers.py:144`):
+in bf16 the two differ by that rounding.
 
-`sinusoidal_positions` (whisper) and attention with a sliding window or
-a logit softcap (gemma2) serve other families and wait for ROADMAP A7.
+`sinusoidal_positions` (whisper) serves another family and waits for
+ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -120,16 +122,17 @@ def attn_def(d: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def gqa_attention(p: dict, x, *, n_heads: int, n_kv: int, head_dim: int,
-                  rope_theta: float, softcap: float = 0.0,
+                  rope_theta: float, window: int = 0, softcap: float = 0.0,
                   q_scale: float = 0.0, compute_dtype=torch.bfloat16,
                   attention: Optional[Callable] = None):
-    """Causal self-attention sub-layer (projections, RoPE, B9, output
-    projection). No cache. B9 tiles the queries itself, so the
-    reference's `q_chunk` has no counterpart; its cross-attention
-    (`kv_x`) and offset queries serve the enc-dec and VLM families
-    (ROADMAP A7). `attention` replaces B9 with a function of its
-    signature (the chip smoke passes B9's plain version, to compare the
-    two on the card)."""
+    """Causal self-attention sub-layer (projections, RoPE, B9 with the
+    sliding `window` and logit `softcap` of the reference's
+    `gqa_attention`, output projection). No cache. B9 tiles the queries
+    itself, so the reference's `q_chunk` has no counterpart; its
+    cross-attention (`kv_x`) and offset queries serve the enc-dec and
+    VLM families (ROADMAP A7). `attention` replaces B9 with a function
+    of its signature (the chip smoke passes B9's plain version, to
+    compare the two on the card)."""
     attend = attention or flash_attention
     b, s, _ = x.shape
     x = x.to(compute_dtype)
@@ -140,6 +143,7 @@ def gqa_attention(p: dict, x, *, n_heads: int, n_kv: int, head_dim: int,
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    out = attend(q, k, v, causal=True, scale=q_scale, softcap=softcap)
+    out = attend(q, k, v, causal=True, scale=q_scale, window=window,
+                 softcap=softcap)
     out = out.reshape(b, s, n_heads * head_dim)
     return out @ p["wo"].to(compute_dtype)

@@ -1,43 +1,65 @@
 """The dense model family (`repro.models.model`, `family == "dense"`):
-its parameter layout and its serving path, prefill and decode.
+its parameter layout and its serving path, prefill and decode, with
+gemma2's local/global layout.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
-does: one `blocks/sub0` subtree whose leaves carry [n_layers, ...]. The
-stack runs as a Python loop over layer views of those leaves, where the
-reference scans. `Model` stays a class over the parameter pytree, as
-`Replica.resolve` returns it; it runs under `torch.inference_mode()` on
-the device the parameters lie on.
+does, in the reference's period layout (`period_layout`): a period of
+sub-layers repeated `n_periods` times, one `blocks/sub{j}` subtree per
+sub-layer whose leaves carry [n_periods, ...]. The plain dense family
+has one sub-layer (`sub0`, n_periods = n_layers); gemma2's
+`local_global_pattern` has two, `sub0` attending within its sliding
+window and `sub1` globally (n_periods = n_layers // 2), and with
+`sandwich_norms` each sub-layer norms its mixer's and its FFN's output
+(`post_mixer_norm`, `post_ffn_norm`) before the residual add. The stack
+runs as a Python loop over periods and, in each, over the sub-layers'
+views of those leaves, where the reference scans. `Model` stays a class
+over the parameter pytree, as `Replica.resolve` returns it; it runs
+under `torch.inference_mode()` on the device the parameters lie on.
 
-The KV cache has the reference's structure, `{"blocks": {"sub0": (k,
-v)}}` with k, v of [n_layers, B, max_len, HK, D] in the compute dtype.
-Prefill allocates it zeroed at `max(max_len, s)` slots for an s-token
-prompt and writes the prompt's keys and values into it (the reference
-zero-pads a copy, `_pad_seq`, which leaves a longer sequence as it
-is); `decode_step` writes its slot in place (the reference returns an
-updated copy) and returns the same tensors. A step whose tokens would
-not fit in the cache raises `ValueError`, where the reference clamps
-the slot and overwrites the last key (ROADMAP C, departures). Every
+The KV cache has the reference's structure, `{"blocks": {"sub{j}": (k,
+v)}}` with k, v of [n_periods, B, slots, HK, D] in the compute dtype:
+`max_len` slots for a global sub-layer, min(window, max_len) for a local
+one, a ring buffer once the window fits (slot i holds the newest
+position p with p = i mod window). Prefill allocates it zeroed at
+`max(max_len, s)` positions for an s-token prompt and writes the
+prompt's keys and values into it (the reference zero-pads a copy,
+`_pad_seq`, which leaves a longer sequence as it is); a ring of w slots
+takes a prompt of s >= w as `roll(k[:, -w:], s % w)`, the reference's
+layout. `decode_step` writes its slot in place (position pos, or pos %
+w on a ring; the reference returns an updated copy) and returns the
+same tensors. A step whose tokens would not fit the global caches
+raises `ValueError`, where the reference clamps the slot and overwrites
+the last key (ROADMAP C, departures); so does a step of more than one
+token on a ring (a departure: `greedy_decode` steps one token). Every
 attention call goes to `self.attention`, B9 (`kernels.flash_attention`)
-unless the caller passes a function of its signature.
+unless the caller passes a function of its signature. Decode attention
+over a ring needs no mode of its own: every filled slot lies inside the
+window, so the visible slots are 0 .. min(pos, w - 1), B9's causal mask
+at q_offset = min(pos, w - 1) (the reference's `kv_positions = pos -
+(pos - i) mod w`).
 
 Training: `init(key)` draws the reference's parameters bit for bit
 (threefry, per leaf `fold_in(key, SHA-256(path)[:4])`); `loss` is the
 reference's training forward (no cache, no `inference_mode`) and its
-causal cross-entropy, with each layer under `torch.utils.checkpoint`
-(non-reentrant) when `cfg.remat != "none"`, the reference's
-`jax.checkpoint`. Under autograd every attention call goes to B9's
-autograd function (forward with the log-sum-exp, hand-written
-backward). `loss` takes the stacked `blocks/sub0` leaves or, as the
-train step passes them, a list of per-layer dicts (views that are
-autograd leaves of their own, so a layer's gradient lands in its slice
-of the stacked gradient without a full-size zero tensor per layer).
+causal cross-entropy, with each sub-layer under
+`torch.utils.checkpoint` (non-reentrant) when `cfg.remat != "none"`,
+the reference's `jax.checkpoint`. Under autograd every attention call
+goes to B9's autograd function (forward with the log-sum-exp,
+hand-written backward); windows and softcaps raise there, so gemma2
+does not train yet (the next slice). `loss` takes the stacked
+`blocks/sub{j}` leaves or, as the train step passes them, a list of
+per-period dicts for each sub-layer (views that are autograd leaves of
+their own, so a layer's gradient lands in its slice of the stacked
+gradient without a full-size zero tensor per layer).
 
-The MoE, MLA, SSM, hybrid, enc-dec and VLM families, gemma2's windows,
-softcaps and sandwich norms wait for ROADMAP A7.
+The MoE, MLA, SSM, hybrid, enc-dec and VLM families wait for ROADMAP
+A7.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -50,6 +72,22 @@ from repro_torch.models import layers as L
 from repro_torch.models.schema import init_from_key, PDef
 
 
+@dataclass(frozen=True)
+class SubLayer:
+    mixer: str            # attn (the other mixers wait for ROADMAP A7)
+    ffn: str              # dense
+    window: int = 0       # sliding window for attn (0 = global)
+
+
+def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
+    """Returns (sub-layers of one period, n_periods) for the stack: the
+    reference's layouts of the dense family."""
+    if cfg.local_global_pattern:
+        return [SubLayer("attn", "dense", window=cfg.sliding_window),
+                SubLayer("attn", "dense", window=0)], cfg.n_layers // 2
+    return [SubLayer("attn", "dense")], cfg.n_layers
+
+
 def _stack(schema: Any, n: int) -> Any:
     if isinstance(schema, PDef):
         return PDef((n,) + schema.shape, (None,) + schema.spec, schema.init,
@@ -60,18 +98,19 @@ def _stack(schema: Any, n: int) -> Any:
 class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None):
-        if cfg.family != "dense" or cfg.local_global_pattern \
-                or cfg.sandwich_norms or cfg.pad_heads_to_tp:
+        if cfg.family != "dense" or cfg.pad_heads_to_tp:
             raise NotImplementedError(
-                f"{cfg.name}: only the plain dense layout is ported; the "
-                "other families wait for ROADMAP A7")
+                f"{cfg.name}: only the dense layouts (plain and gemma2's "
+                "local/global) are ported; the other families wait for "
+                "ROADMAP A7")
         self.cfg = cfg
         self.compute_dtype = BY_NAME[cfg.compute_dtype]
         self.attention = attention or flash_attention
+        self.layout, self.n_periods = period_layout(cfg)
 
     # ------------------------------------------------------------- schema
 
-    def schema(self) -> dict:
+    def _sublayer_schema(self) -> dict:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         sub: Dict[str, Any] = {
@@ -80,10 +119,20 @@ class Model:
             "ffn_norm": L.rmsnorm_def(d),
             "ffn": L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02),
         }
+        if cfg.sandwich_norms:
+            sub["post_mixer_norm"] = L.rmsnorm_def(d)
+            sub["post_ffn_norm"] = L.rmsnorm_def(d)
+        return sub
+
+    def schema(self) -> dict:
+        cfg = self.cfg
+        d = cfg.d_model
+        period = {f"sub{j}": self._sublayer_schema()
+                  for j in range(len(self.layout))}
         sc: Dict[str, Any] = {
             "embed": PDef((cfg.vocab_size, d), ("tp", None), scale=0.02),
             "final_norm": L.rmsnorm_def(d),
-            "blocks": _stack({"sub0": sub}, cfg.n_layers),
+            "blocks": _stack(period, self.n_periods),
         }
         if not cfg.tie_embeddings:
             sc["lm_head"] = PDef((d, cfg.vocab_size), (None, "tp"),
@@ -109,11 +158,11 @@ class Model:
 
     # --------------------------------------------------------- sub-layers
 
-    def _apply_mixer(self, p, x, *, mode, cache, pos):
-        """Plain attention; `mode` is "train", "prefill" or "decode".
-        `cache` (prefill and decode):
-        this layer's (k, v) views of [B, max_len, HK, D], written in
-        place. Returns the mixer's output."""
+    def _apply_mixer(self, sl: SubLayer, p, x, *, mode, cache, pos):
+        """Attention, plain or within `sl.window`; `mode` is "train",
+        "prefill" or "decode". `cache` (prefill and decode): this
+        layer's (k, v) views of [B, slots, HK, D], written in place.
+        Returns the mixer's output."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
@@ -122,19 +171,36 @@ class Model:
             k_new, v_new = self._project_kv(p["attn"], x, rope=True,
                                             pos=pos)
             s = x.shape[1]
-            k_cache[:, pos:pos + s] = k_new.to(k_cache.dtype)
-            v_cache[:, pos:pos + s] = v_new.to(v_cache.dtype)
-            return self._attn_with_cache(p["attn"], x, k_cache, v_cache, pos)
+            slots = k_cache.shape[1]
+            ring = _is_ring(sl, slots)
+            slot = pos % slots if ring else pos
+            k_cache[:, slot:slot + s] = k_new.to(k_cache.dtype)
+            v_cache[:, slot:slot + s] = v_new.to(v_cache.dtype)
+            if ring:
+                # every filled slot lies inside the window: slots
+                # 0 .. min(pos, slots - 1) are visible
+                return self._attn_with_cache(p["attn"], x, k_cache, v_cache,
+                                             pos, q_offset=min(pos,
+                                                               slots - 1))
+            return self._attn_with_cache(p["attn"], x, k_cache, v_cache,
+                                         pos, q_offset=pos,
+                                         window=sl.window)
         out = L.gqa_attention(
             p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=hd, rope_theta=cfg.rope_theta, softcap=cfg.attn_softcap,
-            q_scale=cfg.query_scale, compute_dtype=cd,
-            attention=self.attention)
+            head_dim=hd, rope_theta=cfg.rope_theta, window=sl.window,
+            softcap=cfg.attn_softcap, q_scale=cfg.query_scale,
+            compute_dtype=cd, attention=self.attention)
         if mode == "train":
             return out
         k, v = self._project_kv(p["attn"], x, rope=True)
+        s, slots = k.shape[1], cache[0].shape[1]
+        if sl.window and s >= slots:
+            # a ring of `slots` positions: slot i holds the last position
+            # p = i mod slots, the reference's roll of the last slots keys
+            k = torch.roll(k[:, s - slots:], s % slots, dims=1)
+            v = torch.roll(v[:, s - slots:], s % slots, dims=1)
         cache[0][:, :k.shape[1]] = k
-        cache[1][:, :k.shape[1]] = v
+        cache[1][:, :v.shape[1]] = v
         return out
 
     def _project_kv(self, p, x, *, rope, pos=None):
@@ -152,9 +218,12 @@ class Model:
             k = L.apply_rope(k, positions, cfg.rope_theta)
         return k, v
 
-    def _attn_with_cache(self, p, x, k_cache, v_cache, pos):
-        """Decode attention over the whole cache: B9 at q_offset = pos
-        sees keys 0 .. pos + i, the reference's `kv_valid` mask."""
+    def _attn_with_cache(self, p, x, k_cache, v_cache, pos, *, q_offset,
+                         window=0):
+        """Decode attention over the whole cache: B9 at `q_offset` sees
+        slots 0 .. q_offset + i (and, with a `window`, those within it),
+        the reference's `kv_valid` mask. The queries sit at `pos` for
+        RoPE."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
@@ -164,44 +233,56 @@ class Model:
             q = L.apply_rope(q, pos + torch.arange(s, device=x.device),
                              cfg.rope_theta)
         out = self.attention(q, k_cache.to(cd), v_cache.to(cd), causal=True,
-                             scale=cfg.query_scale, q_offset=pos,
-                             softcap=cfg.attn_softcap)
+                             scale=cfg.query_scale, q_offset=q_offset,
+                             window=window, softcap=cfg.attn_softcap)
         return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
 
-    def _apply_sublayer(self, p, x, *, mode, cache=None, pos=None):
+    def _apply_sublayer(self, sl: SubLayer, p, x, *, mode, cache=None,
+                        pos=None):
         cfg = self.cfg
         # the scale rounded to the residual's dtype, as a weak-typed
         # Python float meets a bf16 array in the reference
         rs = torch.tensor(cfg.residual_scale, dtype=x.dtype).item()
         h = L.rmsnorm(p["pre_norm"], x, cfg.rms_eps)
-        mix = self._apply_mixer(p, h, mode=mode, cache=cache, pos=pos)
+        mix = self._apply_mixer(sl, p, h, mode=mode, cache=cache, pos=pos)
+        if cfg.sandwich_norms:
+            mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.rms_eps)
         x = x + rs * mix
         h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
         y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
+        if cfg.sandwich_norms:
+            y = L.rmsnorm(p["post_ffn_norm"], y, cfg.rms_eps)
         return x + rs * y
 
     # ------------------------------------------------------------ drivers
 
     def _run_stack(self, params, x, *, mode, caches=None, pos=None):
-        """The layer stack, one layer's views of the stacked leaves at a
-        time. `caches`: the (k, v) pair of [n_layers, ...] tensors. In
+        """The stack, period by period and in each the sub-layers in
+        order, one layer's views of the stacked leaves at a time.
+        `caches`: {"sub{j}": (k, v)} of [n_periods, ...] tensors. In
         training each layer runs under `checkpoint` unless `cfg.remat`
         is "none" (its activations are recomputed in the backward)."""
-        blocks = params["blocks"]["sub0"]
+        blocks = params["blocks"]
         remat = mode == "train" and self.cfg.remat != "none"
-        for i in range(self.cfg.n_layers):
-            bp = blocks[i] if isinstance(blocks, list) else \
-                pytree.tree_map(lambda t: t[i], blocks)
-            if remat:
-                x = checkpoint(self._train_layer, bp, x, use_reentrant=False,
-                               preserve_rng_state=False)
-                continue
-            cache = None if caches is None else (caches[0][i], caches[1][i])
-            x = self._apply_sublayer(bp, x, mode=mode, cache=cache, pos=pos)
+        for i in range(self.n_periods):
+            for j, sl in enumerate(self.layout):
+                name = f"sub{j}"
+                sub = blocks[name]
+                bp = sub[i] if isinstance(sub, list) else \
+                    pytree.tree_map(lambda t: t[i], sub)
+                if remat:
+                    x = checkpoint(functools.partial(self._train_layer, sl),
+                                   bp, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+                    continue
+                cache = None if caches is None else \
+                    (caches[name][0][i], caches[name][1][i])
+                x = self._apply_sublayer(sl, bp, x, mode=mode, cache=cache,
+                                         pos=pos)
         return x
 
-    def _train_layer(self, bp, x):
-        return self._apply_sublayer(bp, x, mode="train")
+    def _train_layer(self, sl, bp, x):
+        return self._apply_sublayer(sl, bp, x, mode="train")
 
     # -------------------------------------------------------- embeddings
 
@@ -250,7 +331,7 @@ class Model:
                                  device=params["embed"].device)
         x = self._embed(params, tokens)
         x = self._run_stack(params, x, mode="prefill",
-                            caches=caches["blocks"]["sub0"])
+                            caches=caches["blocks"])
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], caches
 
@@ -259,32 +340,51 @@ class Model:
         """One decode step. token: [B, 1]; pos: its position.
 
         Returns (logits [B, V] fp32, caches), the caches written in place.
-        Raises `ValueError` when the step's slots pos .. pos + s - 1 run
-        past the cache (the reference clamps the slot to the last one).
+        Raises `ValueError` when the step's positions pos .. pos + s - 1
+        run past the global caches (the reference clamps the slot to the
+        last one), or when a step of s > 1 tokens meets a ring cache.
         """
         tokens = self._tokens(params, token)
-        cache_len = caches["blocks"]["sub0"][0].shape[2]
-        if int(pos) < 0 or int(pos) + tokens.shape[1] > cache_len:
+        s = tokens.shape[1]
+        slots = [caches["blocks"][f"sub{j}"][0].shape[2]
+                 for j in range(len(self.layout))]
+        rings = [_is_ring(sl, n) for sl, n in zip(self.layout, slots)]
+        held = [n for n, ring in zip(slots, rings) if not ring]
+        if int(pos) < 0 or (held and int(pos) + s > min(held)):
             raise ValueError(
-                f"decode at position {int(pos)} of {tokens.shape[1]} "
-                f"token(s) does not fit a {cache_len}-slot KV cache; "
-                "pre-size it with prefill(..., max_len=...)")
+                f"decode at position {int(pos)} of {s} token(s) does not "
+                f"fit a {min(held) if held else 0}-slot KV cache; pre-size "
+                "it with prefill(..., max_len=...)")
+        if s > 1 and any(rings):
+            raise ValueError(
+                f"a decode step of {s} tokens on a sliding-window ring "
+                "cache; step one token at a time")
         x = self._embed(params, tokens)
         x = self._run_stack(params, x, mode="decode",
-                            caches=caches["blocks"]["sub0"], pos=int(pos))
+                            caches=caches["blocks"], pos=int(pos))
         return self._logits(params, x)[:, 0], caches
 
     # ------------------------------------------------------------- cache
 
     def init_cache(self, batch_size: int, max_len: int, *,
                    device: Any = "cuda"):
-        """Zeroed cache pytree for decode."""
+        """Zeroed cache pytree for decode: max_len slots per global
+        sub-layer, min(window, max_len) per local one."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
         kw = dict(dtype=self.compute_dtype, device=device)
-        return {"blocks": {"sub0": (torch.zeros(shape, **kw),
-                                    torch.zeros(shape, **kw))}}
+        blocks = {}
+        for j, sl in enumerate(self.layout):
+            slots = min(sl.window, max_len) if sl.window else max_len
+            shape = (self.n_periods, batch_size, slots, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            blocks[f"sub{j}"] = (torch.zeros(shape, **kw),
+                                 torch.zeros(shape, **kw))
+        return {"blocks": blocks}
+
+
+def _is_ring(sl: SubLayer, slots: int) -> bool:
+    """A local sub-layer's cache is a ring once the window fits in it."""
+    return bool(sl.window) and sl.window <= slots
 
 
 def _causal_ce(logits, tokens):

@@ -77,7 +77,7 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _grad_views(params: Dict, grads: Dict, n_layers: int) -> Dict:
+def _grad_views(params: Dict, grads: Dict, n_periods: int) -> Dict:
     """The model's params as autograd leaves whose .grad are views of
     `grads`; the stacked blocks become a list of per-layer dicts."""
     out = {}
@@ -86,7 +86,7 @@ def _grad_views(params: Dict, grads: Dict, n_layers: int) -> Dict:
             out[name] = {
                 s: [pytree.tree_map(lambda p, g, i=i: _leaf(p[i], g[i]),
                                     sub[s], grads[name][s])
-                    for i in range(n_layers)]
+                    for i in range(n_periods)]
                 for s in sub}
         else:
             out[name] = pytree.tree_map(_leaf, sub, grads[name])
@@ -148,7 +148,7 @@ def make_train_step(model: Model, total_steps: int = 10000,
                 if not direct and i:
                     for g in pytree.leaves(grads):
                         g.zero_()
-                live = _grad_views(params, grads, cfg.n_layers)
+                live = _grad_views(params, grads, model.n_periods)
                 loss, mets = loss_fn(live, {"tokens":
                                             tokens[i * per:(i + 1) * per]})
                 loss.backward()

@@ -39,8 +39,9 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                their plain versions (MHA, GQA, MQA, every head dim, fp32
                and bf16, ragged tiles, one row, non-causal, Minitron-8B's
                32:8 GQA at D = 128, MiniCPM-2B's 36 heads; q x8 in bf16),
-               bitwise repeatable,
-               reached once each through autograd; two smoke train
+               bitwise repeatable, and q x8 in fp32 against a float64
+               oracle (ROADMAP C4), reached once each through
+               autograd; two smoke train
                steps on the card repeat bitwise and match the CPU's
   B9           flash_attention against its plain version within a
                tolerance (the two sum and exponentiate differently):
@@ -53,6 +54,12 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                bits, also with calls of another shape between them (the
                decode tickets reset); the smoke model's greedy decode on
                the card gives the CPU's tokens in fp32
+  B9 gemma2    softcap and sliding window in the three designs, every
+               head dim, windows of 1, 7, 64, 100 and 4096, q_offset 0
+               and past it; key tiles below the window never read (NaN
+               there leaves the output's bits); decode over a 4096-slot
+               ring at and after the wrap; gemma2's smoke model (window
+               5, softcap 2) greedy-decodes the CPU's tokens on the card
   whole-model  `random.split` / `normal` on the card equal the CPU's
                (bitwise), the medians on the card equal the CPU's
                (bitwise: ties, +-0, NaN), the five whole-model
@@ -90,7 +97,7 @@ from repro_torch.kernels import ties  # noqa: E402
 from repro_torch.kernels.common import padded_len  # noqa: E402
 from repro_torch.kernels.config import kernel_env  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    HEAD_DIMS, flash_attention, flash_attention_plain)
 from repro_torch.kernels.histogram import batch_layout  # noqa: E402
 
 BLOCK = 2048
@@ -711,6 +718,114 @@ def test_cuda_flash_decode_tickets_reset_between_calls(dtype):
         assert torch.equal(_bits(got), _bits(first[spec]))
 
 
+# gemma2's softcap and sliding window, in the three
+# designs (bf16 prefill on the tensor cores, fp32 prefill on the scalar
+# pipes, decode), under the same rule as above (`_flash_close`): every
+# head dim in HEAD_DIMS; windows of 1, 7, 64 (a key tile), 100 and 4096
+# (>= Sk: never binding); a binding softcap (2.0) and gemma2's (50); at
+# q_offset 0 and past it (a chunked prefill, and decode steps whose
+# window starts inside a key chunk). (B, Sq, Sk, H, HK, D, q_offset).
+FLASH_WINDOWS = (1, 7, 64, 100, 4096)
+FLASH_WINDOW_SHAPES = {
+    "prefill": (2, 200, 200, 4, 2, None, 0),
+    "chunked_prefill": (2, 80, 300, 4, 2, None, 220),
+    "decode": (2, 1, 800, 8, 2, None, 700),
+    "decode_gqa_rows": (2, 3, 2000, 8, 2, None, 1500),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("shape", sorted(FLASH_WINDOW_SHAPES))
+def test_cuda_flash_window_softcap_equals_plain(shape, d, dtype):
+    """Each window, with softcap 2.0 at the odd ones and 50 at the
+    others: the kernel launches once, lies within the rule of the plain
+    version, and a second launch gives the same bits."""
+    b, sq, sk, h, hk, _, q_offset = FLASH_WINDOW_SHAPES[shape]
+    spec = (b, sq, sk, h, hk, d, True, q_offset)
+    q, k, v = (t.cuda() for t in _flash_inputs(spec, dtype, seed=d))
+    for i, window in enumerate(FLASH_WINDOWS):
+        kw = dict(q_offset=q_offset, window=window,
+                  softcap=2.0 if i % 2 else 50.0)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, **kw)
+        assert flash_attention.launches == before + 1
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _flash_close(got, want)
+        assert torch.equal(_bits(got), _bits(flash_attention(q, k, v, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq", [64, 1])
+def test_cuda_flash_window_skips_tiles_below_it(sq, dtype):
+    """Key tiles wholly below every row's window are neither loaded nor
+    computed: with K and V there set to NaN the output is bitwise the
+    clean input's (a key that was read, even masked, would carry the NaN
+    into p . v). One 64-row query tile (the prefill design, both dtypes)
+    at q_offset 1000 with a window of 100 sees keys from 901 on, in the
+    key tile from 896; a decode step at 1000, keys from 901."""
+    q_offset, window = 1000, 100
+    spec = (2, sq, q_offset + sq, 4, 2, 64, True, q_offset)
+    q, k, v = (t.cuda() for t in _flash_inputs(spec, dtype, seed=9))
+    kw = dict(q_offset=q_offset, window=window, softcap=50.0)
+    clean = flash_attention(q, k, v, **kw)
+    first = 896 if sq > 16 else q_offset - window + 1
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :first] = float("nan")
+    v2[:, :first] = float("nan")
+    got = flash_attention(q, k2, v2, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(clean))
+    _flash_close(clean, flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_ring_decode_equals_plain(dtype):
+    """Decode over a 4096-slot ring (gemma2's local layers) at and after
+    the wrap: B9 at q_offset = min(pos, 4095) without a window (every
+    filled slot lies inside it), a 16-head query over 8 KV heads, D =
+    128, softcap 50, within the rule, bitwise repeatable."""
+    spec = (2, 1, 4096, 16, 8, 128, True, 0)
+    q, k, v = (t.cuda() for t in _flash_inputs(spec, dtype, seed=4))
+    for pos in (4000, 4095, 4096, 8160):
+        kw = dict(q_offset=min(pos, 4095), softcap=50.0)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _flash_close(got, want)
+        assert torch.equal(_bits(got), _bits(flash_attention(q, k, v, **kw)))
+
+
+@pytest.mark.cuda
+def test_cuda_gemma2_smoke_greedy_decode_equals_cpu():
+    """gemma2's smoke config with a window of 5 and a softcap of 2.0,
+    fp32 compute: greedy_decode of 9 tokens past a 24-token prompt (the
+    prefill design, then decode steps over the 5-slot rings, across
+    their wraps) launches B9 once per layer per step and gives the CPU's
+    tokens."""
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("gemma2-27b").replace(
+        compute_dtype="float32", sliding_window=5, attn_softcap=2.0)
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    batch = make_batch(cfg, ShapeSpec("s", 24, 3, "prefill"))
+    want = greedy_decode(model, params, batch, 9)
+    before = flash_attention.launches
+    got = greedy_decode(model, pytree.tree_map(lambda t: t.cuda(), params),
+                        batch, 9)
+    assert flash_attention.launches - before == cfg.n_layers * 10
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
 # B9's gradient on the card against its plain version on the card:
 # (B, S, H, HK, D) with S not a multiple of the 64-row tiles, MHA, GQA
 # and MQA, every head dim it has (BWD_HEAD_DIMS: 16, 64, 96, 128). fp32: |kernel - plain| <= 1e-5 + 1e-4 |plain|
@@ -720,10 +835,10 @@ def test_cuda_flash_decode_tickets_reset_between_calls(dtype):
 # are the small differences of large terms).
 # The bf16 design's tiles under stress (FLASH_BWD_OPTS): a non-causal
 # call, Minitron-8B's GQA (32 heads over 8 KV heads, D = 128) at S = 257,
-# MiniCPM-2B's 36 heads at D = 64; and, bf16 only (FLASH_BWD_PEAKED), q
-# scaled x8, so rows have peaked P and large cancelling dP - Dd (the
-# fp32 rule's 1e-5 floor is for logits of order 1: eight times larger
-# logits take the scalar fp32 instance beyond it, ROADMAP C).
+# MiniCPM-2B's 36 heads at D = 64; and (FLASH_BWD_PEAKED) q scaled x8,
+# so rows have peaked P and large cancelling dP - Dd: bf16 under the
+# rule above; fp32 against a float64 oracle (the fp32 rule's 1e-5 floor
+# is for gradients of order 1, and at x8 dk reaches 30: ROADMAP C4).
 FLASH_BWD_SPECS = {
     "mha": (2, 130, 4, 4, 64),
     "gqa": (1, 200, 8, 2, 96),
@@ -766,6 +881,55 @@ def test_cuda_flash_backward_peaked_bf16():
     """The same checks in bf16 with q scaled x8 (the LSE within 8e-5:
     its fp32 rounding scales with the logits)."""
     _check_flash_backward(FLASH_BWD_PEAKED, "bfloat16", q_mult=8.0)
+
+
+def _attention_f64(q, k, v):
+    """Causal GQA attention in float64 torch ops: the oracle."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kk = k.repeat_interleave(g, dim=2)
+    vv = v.repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kk) * d ** -0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+    p = torch.softmax(logits.masked_fill(mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_peaked_fp32():
+    """fp32 with q scaled x8 (ROADMAP C4): the kernel's and the plain
+    version's dq, dk and dv against a float64 oracle of the same
+    function on the card (autograd of `_attention_f64` on the same
+    inputs). An fp32 sum over hundreds of keys of gradients of order 30
+    leaves errors of its own, so the yardstick is the plain version's:
+    for each, max |kernel - oracle| <= 2 max |plain - oracle| + 1e-7 max
+    |oracle|. Two launches give the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse)
+    b, s, h, hk, d = FLASH_BWD_PEAKED
+    g = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(shape, generator=g).cuda() for shape in
+               ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    q = q * 8.0
+    dout = torch.randn((b, s, h, d), generator=g).cuda()
+    out, lse = flash_attention_lse(q, k, v)
+    got = flash_attention_backward(q, k, v, out, lse, dout)
+    plain = flash_attention_backward_plain(q, k, v, out, lse, dout)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    oracle = torch.autograd.grad(_attention_f64(*leaves), leaves,
+                                 dout.double())
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, plain, oracle):
+        err = float((x.double() - z).abs().max())
+        ref = float((y.double() - z).abs().max())
+        top = float(z.abs().max())
+        print(f"C4 {name}: max |kernel - oracle| {err:.3e}, max |plain - "
+              f"oracle| {ref:.3e}, max |oracle| {top:.3e}")
+        assert err <= 2 * ref + 1e-7 * top, (name, err, ref)
+    again = flash_attention_backward(q, k, v, out, lse, dout)
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
 
 
 def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0):

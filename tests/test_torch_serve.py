@@ -39,6 +39,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro.train.serve import greedy_decode as jgreedy  # noqa: E402
 from repro_torch import convert, pytree  # noqa: E402
+from repro_torch import random as prng  # noqa: E402
 from repro_torch.api import MergeSpec, Replica  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.configs.base import SHAPES, ShapeSpec  # noqa: E402
@@ -215,19 +216,26 @@ def test_flash_plain_bf16_matches_chunked_attention():
 
 def test_flash_edges_and_refusals():
     """Exact: a head that sees no key gives zeros; the plain version is
-    what the wrapper runs on the CPU; the window and softcap options of
-    other families, mixed dtypes, bad head counts and negative offsets
-    raise."""
+    what the wrapper runs on the CPU. Within FLASH_ATOL, fp32: gemma2's
+    window and softcap against `chunked_attention`.
+    Raise: a window without `causal`, mixed dtypes, bad head counts and
+    negative offsets."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(
         np.random.default_rng(5), 1, 3, 5, 2, 1, 16))
     assert torch.equal(flash_attention(q, k, v, q_offset=2),
                        flash_attention_plain(q, k, v, q_offset=2))
     empty = flash_attention(q, k[:, :0], v[:, :0], causal=False)
     assert torch.equal(empty, torch.zeros_like(q))
-    for kw, exc in ((dict(window=4), NotImplementedError),
-                    (dict(softcap=30.0), NotImplementedError),
-                    (dict(q_offset=-1), ValueError)):
-        with pytest.raises(exc):
+    for kw in (dict(window=2), dict(softcap=0.5)):
+        want = JL.chunked_attention(*(jnp.asarray(t.numpy())
+                                      for t in (q, k, v)), q_offset=2,
+                                    q_chunk=512, compute_dtype=jnp.float32,
+                                    **kw)
+        np.testing.assert_allclose(
+            flash_attention(q, k, v, q_offset=2, **kw).numpy(),
+            np.asarray(want), rtol=0, atol=FLASH_ATOL)
+    for kw in (dict(q_offset=-1), dict(causal=False, window=4)):
+        with pytest.raises(ValueError):
             flash_attention(q, k, v, **kw)
     with pytest.raises(TypeError):
         flash_attention(q.to(torch.bfloat16), k, v)
@@ -490,14 +498,26 @@ def test_serve_cli_defaults_to_cuda():
 
 
 def test_model_scope():
-    """The other families and gemma2's layouts raise, naming ROADMAP A7
-    (training is ported: tests/test_torch_train.py); the cache has the
-    reference's structure and shapes."""
+    """The other families raise, naming ROADMAP A7 (training is ported:
+    tests/test_torch_train.py). Sandwich norms (gemma2's) on this
+    config: `Model.init` bitwise the reference's, prefill logits within
+    LIMITS in fp32 (tests/test_torch_gemma2.py holds
+    gemma2's whole layout). The cache has the reference's structure and
+    shapes."""
     with pytest.raises(NotImplementedError, match="A7"):
         Model(smoke_config(ARCH).replace(family="moe"))
     cfg, jcfg = _configs(2, "bfloat16")
-    with pytest.raises(NotImplementedError, match="A7"):
-        Model(cfg.replace(sandwich_norms=True))
+    scfg, sjcfg = (c.replace(sandwich_norms=True, compute_dtype="float32")
+                   for c in (cfg, jcfg))
+    sp = Model(scfg).init(prng.PRNGKey(4), device="cpu")
+    jsp = JModel(sjcfg).init(jax.random.PRNGKey(4))
+    for a, b in zip(pytree.leaves(sp), jax.tree_util.tree_leaves(jsp)):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    toks = jmake_batch(sjcfg, JShape("s", 9, 2, "prefill"))["tokens"]
+    got, _ = Model(scfg).prefill(sp, {"tokens": torch.from_numpy(toks)})
+    want, _ = JModel(sjcfg).prefill(jsp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LIMITS["float32"][0])
     got = Model(cfg).init_cache(3, 20, device="cpu")
     want = JModel(jcfg).init_cache(3, 20)
     assert jax.tree_util.tree_structure(want) == \

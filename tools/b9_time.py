@@ -10,11 +10,12 @@ the readings.
 
   (always)    `flash_attention` of DIR's `src/repro_torch` (default:
               this checkout; its kernels build under DIR/build/) at the
-              serving shapes of `chip_smoke.py`: the bf16 prefill, q, k,
-              v [4, 4064, 32, 96] causal, and a decode step, q
-              [4, 1, 32, 96] over a [4, 4096, 32, 96] cache at q_offset
-              4063; each held against `flash_attention_plain` (elements
-              beyond one bf16 ulp of |plain| + 1e-6) and timed with
+              serving shapes of `chip_smoke.py`: the prefill, q, k, v
+              [4, 4064, 32, 96] causal, in bf16 and fp32, and a decode
+              step, q [4, 1, 32, 96] over a [4, 4096, 32, 96] cache at
+              q_offset 4063; each held against `flash_attention_plain`
+              (elements beyond one bf16 ulp of |plain| + 1e-6, or beyond
+              1e-5 in fp32) and timed with
               `chip_smoke.cuda_ms` of this checkout, with the device
               sleep ahead of the start event and without it (the method
               up to PR 15), beside `scaled_dot_product_attention` timed
@@ -65,7 +66,11 @@ H, D, SLOTS, PROMPT = 32, 96, 4096, 4064
 
 
 def beyond(got, want) -> int:
+    """Elements beyond one bf16 ulp of |plain| + 1e-6 (bf16), or beyond
+    chip_smoke's fp32 limit (fp32)."""
     g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        return int(((g - w).abs() > chip_smoke.FLASH_F32_ATOL).sum())
     return int(((g - w).abs() > 2.0 ** -7 * w.abs() + 1e-6).sum())
 
 
@@ -86,8 +91,9 @@ def serving(out: dict) -> None:
     q, k, v = (randn(g, 4, PROMPT, H, D) for _ in range(3))
     qd = randn(g, 4, 1, H, D)
     kc, vc = randn(g, 4, SLOTS, H, D), randn(g, 4, SLOTS, H, D)
-    cases = {"prefill": (q, k, v, 0, PROMPT), "decode": (qd, kc, vc,
-                                                         PROMPT - 1, PROMPT)}
+    cases = {"prefill": (q, k, v, 0, PROMPT),
+             "prefill fp32": (q.float(), k.float(), v.float(), 0, PROMPT),
+             "decode": (qd, kc, vc, PROMPT - 1, PROMPT)}
     for name, (q, k, v, off, kend) in cases.items():
         got = flash_attention(q, k, v, q_offset=off)
         bad = beyond(got, flash_attention_plain(q, k, v, q_offset=off))
@@ -127,7 +133,8 @@ def sweep(out: dict) -> None:
                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), b, 1, SLOTS, H, H, D,
                           *q.stride()[:3], *k.stride()[:3],
-                          *v.stride()[:3], D ** -0.5, 1, kend - 1, 1, n,
+                          *v.stride()[:3], D ** -0.5, 1, kend - 1, 0.0, 0,
+                          1, n,
                           chunk, part.data_ptr(), tickets.data_ptr(),
                           stream)
                 if code:
@@ -190,7 +197,7 @@ def variants(out: dict) -> None:
                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), b, s, s, h, hk, d, *q.stride()[:3],
                           *k.stride()[:3], *v.stride()[:3], d ** -0.5, 1, 0,
-                          stream)
+                          0.0, 0, stream)
                 if code:
                     raise RuntimeError(f"{name}: launch failed ({code})")
             call()
