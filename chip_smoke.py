@@ -124,6 +124,15 @@ in-process resolve (byte-identical; the CLI runs beside `[btm]`).
 `[btm]` runs the reference test's Branch-Train-Merge scenario at full
 width, 2 layers: a round, a branch killed, a straggler, an elastic
 join, every alive branch byte-identical after each merge.
+`[gemma2-train]` runs last: Gemma-2 27B at full width and 2 of its 23
+periods (4 layers, local and global in turn; fp32 parameters and
+moments, 55.1 GB of state, bf16 compute, remat), 3 steps of batch 2 x 8192 in
+microbatches of 1, every attention call on B9's forward and gradient
+with the softcap and, on the local sub-layer, the 4096-key window; the
+last step traced, and a run resumed from a checkpoint written after
+step 2 bitwise the uninterrupted run. `[kernels]` holds B9's gradient
+at that microbatch (local and global, bf16 and fp32) beside
+`flex_attention`'s backward.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -275,6 +284,17 @@ FLASH_BWD_BF16_ATOL = 1e-4
 GEMMA2 = "gemma2-27b"
 G2_BATCH, G2_PROMPT, G2_GEN = 2, 8160, 32
 G2_MERGE_LAYERS, G2_K, G2_PLAIN_LAYERS = 2, 2, 2
+# [gemma2-train]: Gemma-2 27B trained at full width (fp32 parameters and
+# AdamW moments, bf16 compute, each sub-layer under remat) at 2 of its 23
+# periods (4 layers, each period a local and a global sub-layer:
+# 3,444,650,496 parameters, 55.1 GB of parameters, moments and gradients;
+# an H100 read a peak of 69.47 GB with the logits stage of a microbatch at
+# a vocabulary of 256,000; a third period's 18.1 GB would not fit), batch
+# 2 x 8192 (its context, so the local layers' 4096-key window binds in the
+# backward; at 4096 it would not) in microbatches of 1; 3 steps, the last
+# traced; a checkpoint written after step 2 and restored, step 3 again
+G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 2, 3
+G2_TRAIN_BATCH, G2_TRAIN_SEQ, G2_TRAIN_ACCUM = 2, 8192, 2
 # [durable] journals and syncs the int8 payloads of 4 of Phi-3-mini's 32
 # layers (all 32 before gemma2's phase, 16 in its first runs): it is
 # host-bound, and the [gemma2] phase needs its time under the limit
@@ -381,26 +401,33 @@ def flex_warm() -> None:
     w, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
     t0 = time.perf_counter()
 
-    def zeros(s, n, dtype=torch.bfloat16):
-        return torch.zeros(G2_BATCH, s, n, d, dtype=dtype, device=DEVICE)
+    def zeros(s, n, dtype=torch.bfloat16, b=G2_BATCH):
+        return torch.zeros(b, s, n, d, dtype=dtype, device=DEVICE)
     for dtype in (torch.bfloat16, torch.float32):
         flex_library(zeros(G2_PROMPT, h, dtype), zeros(G2_PROMPT, hk, dtype),
                      zeros(G2_PROMPT, hk, dtype), 0, w, cap, scale)()
     for s, q_offset in ((w, w - 1), (G2_PROMPT + G2_GEN, G2_PROMPT)):
         flex_library(zeros(1, h), zeros(s, hk), zeros(s, hk), q_offset, 0,
                      cap, scale)()
+    # the gradient's rows: [gemma2-train]'s microbatch, forward and
+    # backward
+    mb = G2_TRAIN_BATCH // G2_TRAIN_ACCUM
+    for dtype in (torch.bfloat16, torch.float32):
+        flex_grad_library(*(zeros(G2_TRAIN_SEQ, n, dtype, mb)
+                            for n in (h, hk, hk, h)), w, cap, scale)()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[build] flex_attention compiled for B9's gemma2 rows beside nvcc "
-        f"(4 shapes and dtypes): {time.perf_counter() - t0:.1f} s")
+        f"(4 forward shapes and dtypes, 2 of forward and backward): "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _instance(mangled: str) -> str:
     """`flash_kernel_decode<bf16, 96, 1>` or `bwd_dkdv_mma<96>` from a
     mangled kernel name."""
     import re
-    m = re.search(r"(flash_kernel(?:_mma|_decode)?|bwd_(?:dkdv|dq)(?:_mma)?"
-                  r"|bwd_dot)I(.*?)EEv", mangled)
+    m = re.search(r"(flash_kernel(?:_mma|_decode)?|bwd_(?:dkdv|dq|dot)"
+                  r"(?:_mma)?)I(.*?)EEv", mangled)
     if m is None:
         return mangled[:60]
     args = [{"t": "bf16", "f": "fp32"}.get(a, n) for a, n in
@@ -752,6 +779,7 @@ def phase_kernels(cfg) -> dict:
     phase_flash_kernel(rows, cfg, g)
     phase_gemma2_flash_kernel(rows, g)
     phase_flash_backward(rows, cfg, g)
+    phase_gemma2_flash_backward(rows, g)
     return rows
 
 
@@ -933,13 +961,14 @@ def _flex_softcap(s, b, h, qi, ki):
 
 
 def flex_library(q, k, v, q_offset: int, window: int, softcap: float,
-                 scale: float):
+                 scale: float, grad: bool = False):
     """The library call for B9 with a softcap or a window: one call of
     `torch.compile(flex_attention)` on [B, H, S, D] copies of q, k and
     v, with `softcap * tanh(s / softcap)` as its score_mod and B9's
     mask (k <= q_offset + q, q_offset + q - k < window) as its block
-    mask, compiled here on the first call at each shape and dtype. For
-    timing only: the port never calls it."""
+    mask, compiled here on the first call at each shape and dtype (with
+    `grad`, the copies require grad, and the backward compiles at its
+    first call). For timing only: the port never calls it."""
     from torch.nn.attention.flex_attention import (
         create_block_mask, flex_attention)
     global _FLEX, _FLEX_QOFF, _FLEX_WIN, _FLEX_CAP
@@ -955,39 +984,65 @@ def flex_library(q, k, v, q_offset: int, window: int, softcap: float,
     sq, sk = q.shape[1], k.shape[1]
     block = create_block_mask(_flex_mask, None, None, sq, sk,
                               device=q.device)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    return lambda: _FLEX(qt, kt, vt, score_mod=_flex_softcap if softcap
-                         else None, block_mask=block, scale=scale or None,
-                         enable_gqa=q.shape[2] != k.shape[2])
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(grad)
+                  for x in (q, k, v))
+
+    def call():
+        return _FLEX(qt, kt, vt, score_mod=_flex_softcap if softcap
+                     else None, block_mask=block, scale=scale or None,
+                     enable_gqa=q.shape[2] != k.shape[2])
+    call.inputs = (qt, kt, vt)
+    return call
 
 
-def flash_bwd_case(q, k, v, dout) -> dict:
-    """B9's gradient at one shape (q_offset 0, causal): the LSE forward
-    held bitwise against the served forward, the backward against its
-    plain version (FLASH_BWD_*), then timed, the kernel and the
-    backward of `scaled_dot_product_attention` (`torch.autograd.grad`
-    on an SDPA output over [B, H, S, D] copies, forward excluded) over
-    10 CUDA-event-timed calls, the plain version over 3, and the
-    gradient's three kernels apart (`kernel_split_ms`). Bound: five
-    causal matrix products (S, dP, dV, dK, dQ: 2 D flops per visible
-    pair each) at the peak rate of q's type, against each input (q, k,
-    v, o, dO, the LSE) read and each output (dq, dk, dv) written once."""
+def flex_grad_library(q, k, v, dout, window: int, softcap: float,
+                      scale: float):
+    """The library call for B9's gradient with a softcap or a window:
+    `torch.autograd.grad` through one `flex_library` call (q_offset 0)
+    on [B, H, S, D] copies, its forward run once here and excluded from
+    the thunk, as the SDPA backward's. For timing only."""
+    call = flex_library(q, k, v, 0, window, softcap, scale, grad=True)
+    out = call()
+    gt = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, call.inputs, gt,
+                                       retain_graph=True)
+
+
+def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
+                   scale: float = 0.0) -> dict:
+    """B9's gradient at one shape (q_offset 0, causal; with gemma2's
+    `window` and `softcap` where given): the LSE forward held bitwise
+    against the served forward, the backward against its plain version
+    (FLASH_BWD_*), then timed, the kernel and the library call over 10
+    CUDA-event-timed calls, the plain version over 3, and the gradient's
+    three kernels apart (`kernel_split_ms`). The library call: the
+    backward of `scaled_dot_product_attention`, or with a softcap or
+    window of `flex_attention` (`flex_grad_library`), through
+    `torch.autograd.grad` over [B, H, S, D] copies, forward excluded.
+    Bound: five matrix products over the visible pairs (S, dP, dV, dK,
+    dQ: 2 D flops a pair each) at the peak rate of q's type, against
+    each input (q, k, v, o, dO, the LSE) read and each output (dq, dk,
+    dv) written once."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward,
         flash_attention_backward_plain, flash_attention_lse)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    out, lse = flash_attention_lse(q, k, v)
-    if not torch.equal(bits(out), bits(flash_attention(q, k, v))):
+    # the options only where given, so the case also runs an older
+    # checkout's wrappers (tools/b9bwd_time.py --root)
+    kw = dict(scale=scale, **({"window": window} if window else {}),
+              **({"softcap": softcap} if softcap else {}))
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    if not torch.equal(bits(out), bits(flash_attention(q, k, v, **kw))):
         raise AssertionError("B9's LSE forward differs from the served "
                              "forward")
 
     def kern():
-        return flash_attention_backward(q, k, v, out, lse, dout)
+        return flash_attention_backward(q, k, v, out, lse, dout, **kw)
 
     def plain():
-        return flash_attention_backward_plain(q, k, v, out, lse, dout)
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
 
     got, want = kern(), plain()
     again = kern()
@@ -1013,7 +1068,8 @@ def flash_bwd_case(q, k, v, dout) -> dict:
                              f"{q.dtype}: kernel vs plain outside "
                              f"tolerance ({rule}, max abs err {max_err:.3e})")
     del got, want, again
-    pairs = sum(min(sk, i + 1) for i in range(sq))
+    pairs = sum(min(sk, i + 1) - (max(0, i - window + 1) if window else 0)
+                for i in range(sq))
     ops = 5 * 2.0 * d * b * h * pairs
     nbytes = ((3 * b * sq * h * d + 2 * b * sk * hk * d) * q.element_size()
               + b * h * sq * 4 + (b * sq * h * d + 2 * b * sk * hk * d)
@@ -1021,29 +1077,37 @@ def flash_bwd_case(q, k, v, dout) -> dict:
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    gt = dout.transpose(1, 2)
+    if window or softcap:
+        library = flex_grad_library(q, k, v, dout, window, softcap, scale)
+        lib_name = "flex_attention backward"
+    else:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=scale or None,
+                                            enable_gqa=h != hk)
+        gt = dout.transpose(1, 2)
 
-    def library():
-        return torch.autograd.grad(ot, (qt, kt, vt), gt, retain_graph=True)
-
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), gt,
+                                       retain_graph=True)
+        lib_name = "sdpa backward"
     res = {"max_abs_err": max_err, "ms": cuda_ms(kern, 10),
            "plain_ms": cuda_ms(plain, 3), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": cuda_ms(library, 10), "rule": rule,
            "split_ms": kernel_split_ms(kern, BWD_KERNELS)}
-    del ot, qt, kt, vt
+    del library
     split = ", ".join(f"{k} {'not measured' if t is None else f'{t:.3f}'}"
                       for k, t in res["split_ms"].items())
-    log(f"[kernels] flash_attention_backward q, k, v [{b}, {sq}, {h}, {d}] "
-        f"{str(q.dtype)[6:]}, causal: {rule}, max abs err {max_err:.3e}; "
+    log(f"[kernels] flash_attention_backward q [{b}, {sq}, {h}, {d}], k, v "
+        f"[{b}, {sk}, {hk}, {d}] {str(q.dtype)[6:]}, causal, window "
+        f"{window}, softcap {softcap}: {rule}, max abs err {max_err:.3e}; "
         f"{res['ms']:.3f} ms (bound {res['bound_ms']:.3f} ms by "
-        f"{res['bound_by']}: {ops:.3e} flops in {t_ops:.3f} ms, "
-        f"{nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms; kernels traced: "
-        f"{split} ms); plain {res['plain_ms']:.2f} ms; library (sdpa "
-        f"backward) {res['library_ms']:.3f} ms")
+        f"{res['bound_by']}: {pairs} visible pairs, {ops:.3e} flops in "
+        f"{t_ops:.3f} ms, {nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms; "
+        f"kernels traced: {split} ms); plain {res['plain_ms']:.2f} ms; "
+        f"library ({lib_name}) {res['library_ms']:.3f} ms")
     return res
 
 
@@ -1104,13 +1168,40 @@ def phase_flash_backward(rows: dict, cfg, g) -> None:
         "shape": f"q, k, v, dO [{mb}, {TRAIN_SEQ}, {h}, {d}] bf16, causal; "
                  f"tolerance: {main['rule']}",
         "library": "torch.autograd.grad of "
-                   "torch.nn.functional.scaled_dot_product_attention",
+                   "torch.nn.functional.scaled_dot_product_attention; "
+                   "gemma2 rows: of torch.compile(flex_attention) with a "
+                   "tanh score_mod and B9's mask as a block mask",
         "note": "B9's gradient (dQ, dK, dV): bf16 on the tensor cores "
                 "(mma.sync, P and dS in three bf16 terms), fp32 on the "
                 "scalar pipes; the reference's Pallas B9 has none: its "
                 "model trains through XLA's autodiff of chunked_attention "
                 "(src/repro/models/layers.py:149)",
         **cases}
+
+
+def phase_gemma2_flash_backward(rows: dict, g) -> None:
+    """B9's gradient at [gemma2-train]'s microbatch: q, dO [1, 8192, 32,
+    128], k, v [1, 8192, 16, 128] with softcap 50 and scale 144^-0.5,
+    bf16 (as training runs it) and fp32, on a local layer (window 4096:
+    the query tiles past a key tile's window are skipped) and a global
+    one, each held against the plain backward (FLASH_BWD_*) and timed
+    beside `flex_attention`'s backward."""
+    from repro_torch.configs import get_config
+    cfg = get_config(GEMMA2)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w, cap, scale = cfg.sliding_window, cfg.attn_softcap, cfg.query_scale
+    mb = G2_TRAIN_BATCH // G2_TRAIN_ACCUM
+    cases = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        x = [torch.randn((mb, G2_TRAIN_SEQ, n, d), generator=g,
+                         device=dev).to(dtype) for n in (h, hk, hk, h)]
+        for layer, window in (("local", w), ("global", 0)):
+            cases[f"gemma2 {layer} {tag}"] = flash_bwd_case(
+                *x, window=window, softcap=cap, scale=scale)
+        del x
+        torch.cuda.empty_cache()
+    rows["flash_attention_backward"].update(cases)
 
 
 def phase_flash_kernel(rows: dict, cfg, g) -> None:
@@ -1824,7 +1915,7 @@ def check_served(label: str, tokens, logits, cfg, batch: int = SERVE_BATCH,
 
 
 def trace_device(label: str, fn, tag: str = "serve",
-                 host: bool = True) -> None:
+                 host: bool = True) -> dict:
     """One warm call of `fn` under `torch.profiler`: its wall time (host
     clock to a synchronize, profiler on), the device time of its kernels
     by group (B9, B9's gradient where it ran, matrix products, the rest)
@@ -1832,7 +1923,9 @@ def trace_device(label: str, fn, tag: str = "serve",
     device was idle, and (with `host`) the host's three costliest CUDA
     runtime calls. Without `host` only the device is traced: a train
     step launches ~23,000 kernels from ~100,000 host ops, and recording
-    those took 12 s of a 3.5 s step on an H100 80GB HBM3)."""
+    those took 12 s of a 3.5 s step on an H100 80GB HBM3). Logs one line
+    and returns {"wall_ms", "kernels", "groups" (ms by group)}, empty
+    where the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     torch.cuda.synchronize()
@@ -1867,7 +1960,7 @@ def trace_device(label: str, fn, tag: str = "serve",
     if not n:
         log(f"[{tag}] {label}, traced: the profiler recorded no device "
             "time (device split not measured)")
-        return
+        return {}
     busy = sum(groups.values())
     def top(d):
         return ", ".join(f"{k} {v:.2f} ms" for k, v in
@@ -1880,6 +1973,7 @@ def trace_device(label: str, fn, tag: str = "serve",
         f"{max(0.0, 1 - busy / wall):.3f} of the wall time; costliest "
         f"kernels {top(kernels)}; host runtime calls "
         + (top(runtime) if host else "not traced"))
+    return {"wall_ms": wall, "kernels": n, "groups": groups}
 
 
 def phase_serve(cfg) -> dict:
@@ -3334,6 +3428,23 @@ def phase_audits() -> None:
     log(f"[audit] {time.perf_counter() - t0:.1f} s")
 
 
+def bits_fingerprint(t: torch.Tensor) -> tuple:
+    """(dtype, shape, sum over elements i of bits_i (2 i + 1) mod 2^64),
+    computed on t's device in int64 chunks. Each weight is odd, so a
+    change to any one element's bits changes the sum: two tensors with
+    equal fingerprints are bitwise equal short of a contrived
+    cancellation across elements."""
+    x = bits(t.detach()).reshape(-1)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    step = 1 << 26
+    for i in range(0, x.numel(), step):
+        c = x[i:i + step].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), dtype=torch.int64,
+                         device=x.device).mul_(2).add_(1)
+        total += c.mul_(w).sum()
+    return str(t.dtype), tuple(t.shape), int(total)
+
+
 def leaf_samples(tree) -> list:
     """A strided sample of every leaf (one element in 101), to tell
     later whether the leaf changed without a copy of the model."""
@@ -3715,6 +3826,160 @@ def phase_btm(cfg) -> dict:
     return {"launches": counts}
 
 
+def phase_gemma2_train() -> dict:
+    """[gemma2-train]: Gemma-2 27B trained on the card at full width,
+    G2_TRAIN_PERIODS of its 23 periods (a local sub-layer, window 4096,
+    and a global one, each with the attention softcap, sandwich norms;
+    the tied 256,000-row embedding, the final softcap), fp32 parameters
+    and moments, bf16 compute, remat, from `init_from_schema`; then
+    G2_TRAIN_STEPS steps of `make_train_step` at batch G2_TRAIN_BATCH x
+    G2_TRAIN_SEQ in microbatches of G2_TRAIN_BATCH / G2_TRAIN_ACCUM on
+    `SyntheticTask` batches. Per step: loss, grad norm, seconds, tokens
+    per second, peak device memory; the last step traced. B9's forward
+    and backward launch exactly as the layers, microbatches and remat
+    ask (the window and softcap on the kernels: B9's gradient raises
+    nowhere and never gives way to its plain version on CUDA tensors).
+    Resume: a checkpoint written after step G2_TRAIN_STEPS - 1, the
+    finished state fingerprinted (`bits_fingerprint`), the checkpoint
+    restored and the last step run again: every leaf's fingerprint the
+    uninterrupted run's."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch import kernels, pytree
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import SyntheticTask
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        train_state_shapes)
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(GEMMA2).replace(n_layers=2 * G2_TRAIN_PERIODS,
+                                     grad_accum=G2_TRAIN_ACCUM)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_train_state(model, params=init_from_schema(
+        model.schema(), seed=SEED, device=DEVICE), device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(state["params"]))
+    log(f"[gemma2-train] {cfg.name} at full width, {model.n_periods} of 23 "
+        f"periods (sub-layers with windows "
+        f"{[sl.window for sl in model.layout]}; depth cut so that 16 bytes "
+        f"a parameter and the logits stage of a {G2_TRAIN_SEQ}-token "
+        f"microbatch fit 80 GB), {n:,} parameters {cfg.param_dtype}, "
+        f"moments {cfg.opt_state_dtype}, compute {cfg.compute_dtype}, remat "
+        f"{cfg.remat}: state in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"({held0 / 1e9:.2f} GB before it)")
+    before = leaf_samples(state["params"])
+    step_fn = make_train_step(model, total_steps=G2_TRAIN_STEPS,
+                              grad_accum=G2_TRAIN_ACCUM)
+    task = SyntheticTask(cfg.vocab_size, G2_TRAIN_SEQ, task_id=0)
+
+    def batch(i):
+        return {"tokens": torch.as_tensor(task.batch(i, G2_TRAIN_BATCH),
+                                          device=DEVICE)}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_g2ckpt_")
+    try:
+        kernels.reset_launch_counts()
+        ckpt_path, t_save = None, 0.0
+        for i in range(G2_TRAIN_STEPS):
+            b = batch(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mets = {}
+
+            def step(b=b, mets=mets):           # the state in place
+                mets.update(step_fn(state, b)[1])
+                torch.cuda.synchronize()
+
+            last = i == G2_TRAIN_STEPS - 1
+            t0 = time.perf_counter()
+            if last:
+                trace_device(f"train step {i + 1}", step,
+                             tag="gemma2-train", host=False)
+            else:
+                step()
+            dt = time.perf_counter() - t0
+            loss = float(mets["loss"])
+            gnorm = float(mets["grad_norm"])
+            log(f"[gemma2-train] step {i + 1}: loss {loss:.4f}, grad norm "
+                f"{gnorm:.4f}, {dt:.2f} s{' (traced)' if last else ''}, "
+                f"{G2_TRAIN_BATCH * G2_TRAIN_SEQ / dt:.0f} tokens/s, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"gemma2 train step {i + 1}: loss "
+                                     f"{loss}, grad norm {gnorm}")
+            if i == G2_TRAIN_STEPS - 2:
+                t0 = time.perf_counter()
+                ckpt_path = save_checkpoint(
+                    tmp, state, i + 1, metadata={"data_step": i + 1})
+                t_save = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        after = leaf_samples(state["params"])
+        shares = [float((a != b).float().mean())
+                  for a, b in zip(before, after)]
+        if min(shares) == 0.0:
+            raise AssertionError(f"a parameter leaf did not change: "
+                                 f"{shares}")
+        if int(state["step"]) != G2_TRAIN_STEPS:
+            raise AssertionError(f"step counter {int(state['step'])}")
+        micro = G2_TRAIN_STEPS * G2_TRAIN_ACCUM * cfg.n_layers
+        want = {"flash_attention": micro * (2 if cfg.remat != "none"
+                                            else 1),
+                "flash_attention_backward": micro}
+        got = {k: counts[k] for k in want}
+        log(f"[gemma2-train] launches {got} (expected {want}: "
+            f"{cfg.n_layers} layers x {G2_TRAIN_ACCUM} microbatches x "
+            f"{G2_TRAIN_STEPS} steps, the forward again in each remat); "
+            f"every parameter leaf changed (shares of sampled elements "
+            f"changed {min(shares):.4f}-{max(shares):.4f})")
+        if got != want:
+            raise AssertionError(f"gemma2 train launches {got} != {want}")
+        del before, after
+        # resume: the finished state's fingerprints, the checkpoint back
+        # on the card (two states do not fit), the last step again
+        t0 = time.perf_counter()
+        want = [bits_fingerprint(t) for t in pytree.leaves(state)]
+        t_print = time.perf_counter() - t0
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, meta = restore_checkpoint(ckpt_path, train_state_shapes(model),
+                                         device=DEVICE)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        for i in range(int(meta["data_step"]), G2_TRAIN_STEPS):
+            state, _ = step_fn(state, batch(i))
+        got = [bits_fingerprint(t) for t in pytree.leaves(state)]
+        same = sum(x == y for x, y in zip(got, want))
+        size = sum(os.path.getsize(os.path.join(ckpt_path, f))
+                   for f in os.listdir(ckpt_path))
+        log(f"[gemma2-train] resume: {G2_TRAIN_STEPS} steps straight vs "
+            f"{G2_TRAIN_STEPS - 1} + save ({size / 1e9:.2f} GB, {t_save:.1f} "
+            f"s) + restore ({t_restore:.1f} s) + 1: {same} of {len(want)} "
+            f"leaves (params, m, v, step) with the uninterrupted run's bit "
+            f"fingerprint (bits_fingerprint, not an element-wise "
+            f"comparison; {t_print:.1f} s for the state)")
+        if same != len(want):
+            raise AssertionError("gemma2: resume differs from the "
+                                 "uninterrupted run")
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3748,9 +4013,10 @@ def main() -> int:
     pending = timed(phase_train_depth2, cfg)
     btm = timed(phase_btm, cfg)
     timed(phase_merge_cli, pending)
+    g2train = timed(phase_gemma2_train)
     for name, row in rows.items():
-        row["launches"] = sum(p["launches"][name]
-                              for p in (main, serve, gemma2, train, btm))
+        row["launches"] = sum(p["launches"][name] for p in
+                              (main, serve, gemma2, train, btm, g2train))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -1,8 +1,9 @@
 // Helpers B9's sources share (csrc/flash_attention.cu, the forward, and
 // csrc/flash_attention_bwd.cuh, the gradient): rounding to bf16 as
-// torch rounds, typed stores, the dynamic shared-memory opt-in, and the
-// tensor-core building blocks of the bf16 designs (cp.async, ldmatrix,
-// mma.sync, P split into three bf16 terms, 2^x on the SFU).
+// torch rounds, typed stores, the dynamic shared-memory opt-in, the
+// sliding window's first key tile, and the tensor-core building blocks
+// of the bf16 designs (cp.async, ldmatrix, mma.sync, P split into three
+// bf16 terms, 2^x on the SFU).
 #pragma once
 
 #include "common.cuh"
@@ -34,6 +35,15 @@ cudaError_t allow_smem(K kern, int bytes, bool (&done)[64]) {
                              bytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return err;
+}
+
+// the first key a row at position `pos` sees under a window (0: none),
+// rounded down to a multiple of `tile`, and never past `kend`
+__device__ __forceinline__ int window_start(int pos, int window, int kend,
+                                            int tile) {
+  if (!window) return 0;
+  const int first = min(kend, max(0, pos - window + 1));
+  return first / tile * tile;
 }
 
 // ---- PTX wrappers: cp.async, ldmatrix, mma.sync (sm_80 and later)

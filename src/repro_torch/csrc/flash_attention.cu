@@ -105,15 +105,6 @@ __device__ __forceinline__ float soft_cap(float x, float c) {
   return c > 0.f ? __fmul_rn(c, tanhf(__fdiv_rn(x, c))) : x;
 }
 
-// the first key a row at position `pos` sees under a window (0: none),
-// rounded down to a multiple of `tile`, and never past `kend`
-__device__ __forceinline__ int window_start(int pos, int window, int kend,
-                                            int tile) {
-  if (!window) return 0;
-  const int first = min(kend, max(0, pos - window + 1));
-  return first / tile * tile;
-}
-
 template <int D>
 constexpr int smem_floats() {
   return D * (kTY * kRQ + 4)        // Qs [D][BQ + 4]
@@ -1000,9 +991,12 @@ int decode_split(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int forward_lse(const void* q, const void* k, const void* v, void* o, int b,
                 int sq, int sk, int h, int hk, int d, const long long* st,
-                float scale, int causal, void* lse, void* stream) {
-  Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, 0, 0.f, 0,
-         static_cast<cudaStream_t>(stream)};
+                float scale, int causal, int q_offset, float softcap,
+                int window, void* lse, void* stream) {
+  if (q_offset != 0 || bad_options(causal, softcap, window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k, v, o, b, sq, sk, h, hk, st, scale, causal, 0, softcap,
+         window, static_cast<cudaStream_t>(stream)};
   a.lse = static_cast<float*>(lse);
   return launch<T>(a, d, 0, 1, 0, nullptr, nullptr);
 }
@@ -1086,22 +1080,19 @@ extern "C" int flash_attention_smem(int design, int bf16, int d, int rows) {
   }
 }
 
-// The prefill design at any Sq (q_offset 0, no softcap or window), also
-// writing each row's log-sum-exp of the scaled logits, natural units, to
-// lse [b, h, sq] fp32 (0 for a row that sees no key): the forward of the
-// gradient.
+// The prefill design at any Sq (q_offset 0; with the softcap and the
+// window, as the served forward), also writing each row's log-sum-exp of
+// its (capped) logits, natural units, to lse [b, h, sq] fp32 (0 for a
+// row that sees no key): the forward of the gradient.
 extern "C" int flash_attention_lse_f32(B9_ARGS, void* lse, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  if (q_offset != 0 || softcap != 0.f || window != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   return forward_lse<float>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
-                            causal, lse, stream);
+                            causal, q_offset, softcap, window, lse, stream);
 }
 
 extern "C" int flash_attention_lse_bf16(B9_ARGS, void* lse, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
-  if (q_offset != 0 || softcap != 0.f || window != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   return forward_lse<uint16_t>(q, k, v, o, b, sq, sk, h, hk, d, st, scale,
-                               causal, lse, stream);
+                               causal, q_offset, softcap, window, lse,
+                               stream);
 }

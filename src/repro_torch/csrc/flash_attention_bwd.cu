@@ -6,12 +6,13 @@
 
 extern "C" int flash_attention_bwd_f32(B9_BWD_ARGS) {
   return backward<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, b, sq, sk, h,
-                         hk, d, scale, causal, stream);
+                         hk, d, {scale, causal, softcap, window}, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(B9_BWD_ARGS) {
   return backward<uint16_t>(q, k, v, o, dout, lse, dd, dq, dk, dv, b, sq, sk,
-                            h, hk, d, scale, causal, stream);
+                            h, hk, d, {scale, causal, softcap, window},
+                            stream);
 }
 
 // Dynamic shared memory of one instance, for reports: kernel 0 dK / dV,

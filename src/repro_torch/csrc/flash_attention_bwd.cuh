@@ -2,6 +2,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "b9_common.cuh"
 
 namespace {
@@ -11,32 +13,48 @@ namespace {
 // trains through XLA's autodiff of `chunked_attention`
 // (repro/models/layers.py:149). This computes the same dQ, dK and dV of
 // csrc/flash_attention.cu's prefill function (causal or full, GQA,
-// q_offset 0), so that training's forward can run on B9.
+// q_offset 0, with gemma2's softcap and sliding window), so that
+// training's forward can run on B9.
 //
 // FlashAttention-2's backward, made deterministic: no float is summed
 // with atomics, and every sum runs in one fixed order. q, k, v, o, dO
 // contiguous [B, S, H(K), D] in the input dtype; the forward's per-row
 // log-sum-exp `lse` [B, H, Sq] (natural units) recomputes
-// P = exp(q.k scale - lse) with no running max. Three kernels:
-//  1. `bwd_dot`: Dd[b, h, i] = sum_d dO[i, d] O[i, d], one warp a row,
-//     lanes over d, then a shuffle tree.
+// P = exp(s - lse) with no running max, s the logit as the forward's own
+// design computed it: x = q.k scale, and with a softcap c > 0,
+// s = c tanh(x / c) (tanhf; the tensor-core design multiplies by the
+// forward's correctly rounded 1/c). Three kernels:
+//  1. `bwd_dot` / `bwd_dot_mma`: Dd[b, h, i] = sum_d dO[i, d] O[i, d],
+//     summed in the very order the kernels below sum dP (fp32: one fmaf
+//     chain over d; bf16: the same tensor-core chain, once for each of
+//     kernels 2 and 3). In a row that sees one key O is that key's V, bit
+//     for bit, so dP - Dd is exactly 0 there, as the reference's autodiff
+//     gives (its softmax VJP subtracts sum_k P dP, which is dP when P is
+//     1): the kernels then leave dQ and dK exactly 0, not noise.
 //  2. dK and dV: one block per (key tile of 64, KV head, batch). For each
 //     query head of the GQA group in order, and each query tile that sees
-//     the key tile (causal: from the diagonal on) in order, it recomputes
-//     S = Q K^T and dP = dO V^T, P = exp(S scale - lse), dS = P (dP - Dd),
-//     and accumulates dV += P^T dO and dK += dS^T Q in registers. dK is
+//     the key tile (causal: from the diagonal on; with a window W, up to
+//     the last tile holding a query q with q - key < W for a key of the
+//     tile) in order, it recomputes S = Q K^T and dP = dO V^T, P, dS = P
+//     (dP - Dd), times 1 - t^2 with t = tanh(x / c) under a softcap, and
+//     accumulates dV += P^T dO and dK += dS^T Q in registers. dK is
 //     scaled once at the end.
 //  3. dQ: one block per (query tile of 64, head, batch), the longest
-//     causal tiles first. It loops over the key tiles the rows see,
-//     recomputes P and dS the same way, and accumulates dQ += dS K.
+//     causal tiles first. It loops over the key tiles the rows see (with
+//     a window, from the tile holding the first key its first row sees,
+//     as the forward's `window_start`), recomputes P and dS the same way,
+//     and accumulates dQ += dS K.
 // S and dP are computed twice (kernels 2 and 3): the price of writing dQ
 // with no atomics. Rows that see no key (queries past Sq; the forward
-// writes lse 0 for them) give P = 0, so dQ 0. Head dims 16, 64, 96 and
-// 128 (the configs' and the smoke's); a source of its own
-// (csrc/flash_attention_bwd.cu), so it builds beside the forward's.
+// writes lse 0 for them) give P = 0, so dQ 0. Softcap and window are
+// runtime arguments: one branch a tile picks the capped instructions, so
+// the uncapped tile runs without them, and masks by the window apply on
+// edge tiles only. Head dims 16, 64, 96 and 128 (the configs' and the
+// smoke's); a source of its own (csrc/flash_attention_bwd.cu), so it
+// builds beside the forward's.
 //
-// Bound on the H100: operations (5 causal products' worth of work at the
-// least, against 2 bytes an element read). Two designs, by dtype:
+// Bound on the H100: operations (5 products over the visible (query, key)
+// pairs at the least, against 2 bytes an element read). Two designs, by dtype:
 //
 // bf16, `bwd_dkdv_mma` and `bwd_dq_mma`: the tensor cores (mma.sync
 // m16n8k16, bf16 in, fp32 accumulate), built from the bf16 prefill's
@@ -117,38 +135,48 @@ __device__ __forceinline__ void load_tile_t(const T* __restrict__ x,
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-bwd_dot(const T* __restrict__ o, const T* __restrict__ dout,
+constexpr int kDotRows = 32;        // rows a block of the fp32 bwd_dot
+constexpr int kDotThreads = 128;
+
+// fp32: Dd as one fmaf chain over d = 0 .. D - 1 from 0, the chain
+// `bwd_scores` sums dP[i, j] with (kernel 1 above). 32 rows a block,
+// staged through shared memory so the loads stay coalesced (rows of D + 1
+// floats: the 32 threads read 32 banks), then one thread a row.
+template <int D>
+__global__ void __launch_bounds__(kDotThreads)
+bwd_dot(const float* __restrict__ o, const float* __restrict__ dout,
         float* __restrict__ dd, int b, int sq, int h) {
-  const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * 8
-                        + (threadIdx.x >> 5);      // (b, s, hh) row
-  if (row >= static_cast<long long>(b) * sq * h) return;
-  const T* orow = o + row * D;
-  const T* grow = dout + row * D;
-  float a = 0.f;
-  for (int d = lane; d < D; d += 32)
-    a = fmaf(merge::widen(grow[d]), merge::widen(orow[d]), a);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, off));
-  if (lane == 0) {
-    const int hh = static_cast<int>(row % h);
-    const long long bs = row / h;
-    const int s = static_cast<int>(bs % sq), bb = static_cast<int>(bs / sq);
-    dd[(static_cast<long long>(bb) * h + hh) * sq + s] = a;
+  __shared__ float so[kDotRows][D + 1], sg[kDotRows][D + 1];
+  const long long rows = static_cast<long long>(b) * sq * h;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kDotRows;
+  for (int u = threadIdx.x; u < kDotRows * D; u += kDotThreads) {
+    const int r = u / D, c = u % D;
+    const bool in = r0 + r < rows;
+    so[r][c] = in ? o[(r0 + r) * D + c] : 0.f;
+    sg[r][c] = in ? dout[(r0 + r) * D + c] : 0.f;
   }
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= kDotRows || r0 + r >= rows) return;
+  float a = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) a = fmaf(sg[r][d], so[r][d], a);
+  const long long row = r0 + r;                 // (b, s, hh) row
+  const int hh = static_cast<int>(row % h);
+  const long long bs = row / h;
+  const int s = static_cast<int>(bs % sq), bb = static_cast<int>(bs / sq);
+  dd[(static_cast<long long>(bb) * h + hh) * sq + s] = a;
 }
 
-// S and dP of the tile: rows 4 ty + i, keys tx + 16 j; P and dS from them
+// S and dP of the tile: rows 4 ty + i, keys tx + 16 j; P and dS from them.
+// The softcap's branch holds the whole tile.
 template <int D>
 __device__ __forceinline__ void bwd_scores(
     const float* __restrict__ Qt, const float* __restrict__ dOt,
     const float* __restrict__ Kt, const float* __restrict__ Vt,
     const float* __restrict__ lse_s, const float* __restrict__ dd_s,
-    int q0, int k0, int sq, int sk, int causal, float scale,
-    float (&p)[4][4], float (&ds)[4][4]) {
+    int q0, int k0, int sq, int sk, int causal, float scale, float softcap,
+    int window, float (&p)[4][4], float (&ds)[4][4]) {
   const int tx = threadIdx.x % kBwdT, ty = threadIdx.x / kBwdT;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -177,18 +205,44 @@ __device__ __forceinline__ void bwd_scores(
         dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
       }
   }
+  auto tile = [&](auto cap) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, q = q0 + r;
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, q = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + kBwdT * j;
-      const bool seen = q < sq && key < sk && (!causal || key <= q);
-      p[i][j] = seen ? expf(__fsub_rn(__fmul_rn(s[i][j], scale), lse_s[r]))
-                     : 0.f;
-      ds[i][j] = __fmul_rn(p[i][j], __fsub_rn(dp[i][j], dd_s[r]));
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + kBwdT * j;
+        const bool seen = q < sq && key < sk && (!causal || key <= q)
+                          && (!window || q - key < window);
+        const float x = __fmul_rn(s[i][j], scale);
+        if constexpr (decltype(cap)::value) {
+          // the forward's `soft_cap`: c tanh(x / c)
+          const float t = tanhf(__fdiv_rn(x, softcap));
+          p[i][j] = seen ? expf(__fsub_rn(__fmul_rn(softcap, t), lse_s[r]))
+                         : 0.f;
+          ds[i][j] = __fmul_rn(__fmul_rn(p[i][j],
+                                         __fsub_rn(dp[i][j], dd_s[r])),
+                               __fmul_rn(__fsub_rn(1.f, t),
+                                         __fadd_rn(1.f, t)));
+        } else {
+          p[i][j] = seen ? expf(__fsub_rn(x, lse_s[r])) : 0.f;
+          ds[i][j] = __fmul_rn(p[i][j], __fsub_rn(dp[i][j], dd_s[r]));
+        }
+      }
     }
-  }
+  };
+  if (softcap > 0.f) tile(std::true_type{});
+  else tile(std::false_type{});
+}
+
+// the last query tile of `nqt` (tiles of `bq` rows) that sees a key of
+// [k0, k0 + bk): every one with a window W (query q sees key j iff
+// q - j < W), so the tile of query k0 + bk - 2 + W at the latest
+__device__ __forceinline__ int last_query_tile(int k0, int bk, int bq,
+                                               int nqt, int window) {
+  if (!window) return nqt - 1;
+  const long long t = (static_cast<long long>(k0) + bk - 2 + window) / bq;
+  return t < nqt - 1 ? static_cast<int>(t) : nqt - 1;
 }
 
 template <typename T, int D>
@@ -197,7 +251,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
          const T* __restrict__ v, const T* __restrict__ dout,
          const float* __restrict__ lse, const float* __restrict__ dd,
          T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h,
-         int hk, float scale, int causal) {
+         int hk, float scale, int causal, float softcap, int window) {
   constexpr int DJ = D / kBwdT;         // head dims per thread
   extern __shared__ __align__(16) float smb[];
   float* Kt = smb;
@@ -225,9 +279,10 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nqt = (sq + kBwdB - 1) / kBwdB;
   const int first = causal ? k0 / kBwdB : 0;   // q_offset 0: rows >= k0
+  const int last = last_query_tile(k0, kBwdB, kBwdB, nqt, window);
   for (int r = 0; r < g; ++r) {
     const int hh = kh * g + r;
-    for (int qt = first; qt < nqt; ++qt) {
+    for (int qt = first; qt <= last; ++qt) {
       const int q0 = qt * kBwdB;
       __syncthreads();   // the previous tile's Q, dO, P, dS all read
       load_tile_t<T, D>(q + (static_cast<long long>(b) * sq * h + hh) * D,
@@ -243,7 +298,7 @@ bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       float p[4][4], ds[4][4];
       bwd_scores<D>(Qt, dOt, Kt, Vt, lse_s, dd_s, q0, k0, sq, sk, causal,
-                    scale, p, ds);
+                    scale, softcap, window, p, ds);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = tx + kBwdT * j;
@@ -309,7 +364,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, const T* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ dd,
        T* __restrict__ dq, int sq, int sk, int h, int hk, float scale,
-       int causal) {
+       int causal, float softcap, int window) {
   constexpr int DJ = D / kBwdT;
   extern __shared__ __align__(16) float smb[];
   float* Qt = smb;
@@ -337,6 +392,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     dd_s[tid] = tid < rows ? dd[row] : 0.f;
   }
   const int kend = causal ? min(sk, q0 + rows) : sk;
+  // with a window, from the tile of the first key row q0 sees
+  const int kbeg = window_start(q0, window, kend, kBwdB);
 
   float aq[4][DJ];
 #pragma unroll
@@ -344,7 +401,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) aq[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += kBwdB) {
+  for (int k0 = kbeg; k0 < kend; k0 += kBwdB) {
     __syncthreads();   // Q staged; the previous tile's K, V, dS all read
     load_tile_t<T, D>(k + (static_cast<long long>(b) * sk * hk + kh) * D,
                       Kt, k0, sk, static_cast<long long>(hk) * D);
@@ -353,7 +410,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     float p[4][4], ds[4][4];
     bwd_scores<D>(Qt, dOt, Kt, Vt, lse_s, dd_s, q0, k0, sq, sk, causal,
-                  scale, p, ds);
+                  scale, softcap, window, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -526,6 +583,84 @@ __device__ __forceinline__ float prob(float s, float scale, float lse) {
   return exp2_approx(__fmul_rn(__fsub_rn(__fmul_rn(s, scale), lse), kLog2e));
 }
 
+// P and dS of one logit, s = q.k and dp = dO.v: P as `prob`, 0 where
+// `hidden`, and dS = P (dP - Dd); under the softcap (CAP) the logit is
+// c tanh(s scale (1/c)) as the bf16 forward computes it (`rcap` its
+// correctly rounded 1/c), and dS is also multiplied by
+// 1 - t^2 = (1 - t)(1 + t), t that tanh: the derivative of c tanh(x / c)
+template <bool CAP>
+__device__ __forceinline__ void p_ds(float s, float dp, float lse, float dd,
+                                     float scale, float softcap, float rcap,
+                                     bool hidden, float& p, float& ds) {
+  if constexpr (CAP) {
+    const float t = tanhf(__fmul_rn(__fmul_rn(s, scale), rcap));
+    p = hidden ? 0.f
+               : exp2_approx(__fmul_rn(
+                     __fsub_rn(__fmul_rn(softcap, t), lse), kLog2e));
+    ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dd)),
+                   __fmul_rn(__fsub_rn(1.f, t), __fadd_rn(1.f, t)));
+  } else {
+    p = hidden ? 0.f : prob(s, scale, lse);
+    ds = __fmul_rn(p, __fsub_rn(dp, dd));
+  }
+}
+
+// bf16: Dd twice, each summed as the tensor cores sum dP in the kernel
+// that reads it (kernel 1 above): dd[i] the diagonal of dO O^T (A = dO,
+// B = O, as `bwd_dq_mma`'s dP = dO V^T) and dd[n + i], n = b h sq, that
+// of O dO^T (as `bwd_dkdv_mma`'s dP^T = V dO^T): one m16n8k16 chain over
+// the k-steps 0 .. D / 16 - 1 from 0, fragments in the layout ldmatrix
+// gives those kernels. A warp takes 16 rows and loads their fragments
+// straight from global memory (bf16 pairs); row g's diagonal lands in the
+// lane whose t is g / 2 (column g = 2t + g % 2 of the first 8-column
+// tile), row g + 8's in the same lane's second tile. At q, dO [2, 4096,
+// 32, 96] it takes 0.095 ms where the shuffle-tree dot it replaced took
+// 0.053 (H100, tools/b9bwd_time.py, both checkouts by one clock).
+template <int D>
+__global__ void __launch_bounds__(kMmaBwdThreads)
+bwd_dot_mma(const uint16_t* __restrict__ o,
+            const uint16_t* __restrict__ dout, float* __restrict__ dd,
+            int b, int sq, int h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long n = static_cast<long long>(b) * sq * h;
+  const long long w0 =
+      (static_cast<long long>(blockIdx.x) * kMmaBwdWarps + warp) * 16;
+  if (w0 >= n) return;                        // the whole warp
+  const long long r_lo = w0 + g, r_hi = r_lo + 8;
+  auto ld = [&](const uint16_t* x, long long r, int c) -> uint32_t {
+    return r < n ? *reinterpret_cast<const uint32_t*>(x + r * D + c) : 0u;
+  };
+  float cq[2][4], ck[2][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cq[0][e] = cq[1][e] = ck[0][e] = ck[1][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    const uint32_t ga[4] = {ld(dout, r_lo, c), ld(dout, r_hi, c),
+                            ld(dout, r_lo, c + 8), ld(dout, r_hi, c + 8)};
+    const uint32_t oa[4] = {ld(o, r_lo, c), ld(o, r_hi, c),
+                            ld(o, r_lo, c + 8), ld(o, r_hi, c + 8)};
+    mma_bf16(cq[0], ga, oa[0], oa[2]);        // O rows 0-7 as B
+    mma_bf16(cq[1], ga, oa[1], oa[3]);        // O rows 8-15
+    mma_bf16(ck[0], oa, ga[0], ga[2]);
+    mma_bf16(ck[1], oa, ga[1], ga[3]);
+  }
+  if (t != g >> 1) return;
+  const int e = g & 1;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long row = half ? r_hi : r_lo;  // (b, s, hh) row
+    if (row >= n) continue;
+    const int hh = static_cast<int>(row % h);
+    const long long bs = row / h;
+    const int s = static_cast<int>(bs % sq), bb = static_cast<int>(bs / sq);
+    const long long i = (static_cast<long long>(bb) * h + hh) * sq + s;
+    dd[i] = cq[half][2 * half + e];
+    dd[n + i] = ck[half][2 * half + e];
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kMmaBwdThreads, kMmaBwdMinBlocks)
 bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
@@ -533,7 +668,8 @@ bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ dd,
              uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int sq,
-             int sk, int h, int hk, float scale, int causal) {
+             int sk, int h, int hk, float scale, int causal, float softcap,
+             int window) {
   constexpr int LD = bwd_mma_ld<D>(), KS = D / 16, DT = D / 8;
   constexpr int B = kMmaBwdB, C = dkdv_cols<D>();
   constexpr bool kv_regs = dkdv_kv_regs<D>();
@@ -556,7 +692,8 @@ bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   stage_rows<D>(Vs, v + koff, k0, sk, krs);
   const int nqt = (sq + B - 1) / B;
   const int first = causal ? k0 / B : 0;   // q_offset 0: rows >= k0
-  const int per = nqt > first ? nqt - first : 0;
+  const int last = last_query_tile(k0, B, B, nqt, window);
+  const int per = last >= first ? last - first + 1 : 0;
   const int n = grp * per;   // the group's heads in order, then query tiles
   auto load_step = [&](int it, int buf) {
     const int hh = kh * grp + it / per, q0 = (first + it % per) * B;
@@ -593,6 +730,8 @@ bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   };
   // keys of rows g and g + 8 of this warp's 16
   const int key_lo = k0 + warp * 16 + (lane >> 2), key_hi = key_lo + 8;
+  const bool capped = softcap > 0.f;
+  const float rcap = capped ? __frcp_rn(softcap) : 0.f;
 
   for (int it = 0; it < n; ++it) {
     const int buf = it & 1;
@@ -615,26 +754,34 @@ bwd_dkdv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const float* Lt = Ls + buf * B;
     const float* Dt = Ds + buf * B;
     const bool edge = q0 + B > sq || k0 + B > sk
-                      || (causal && q0 < k0 + B - 1);
+                      || (causal && q0 < k0 + B - 1)
+                      || (window && q0 + B - 1 - k0 >= window);
 #pragma unroll 1
     for (int c0 = 0; c0 < B; c0 += C) {
       // S^T = K Q^T and dP^T = V dO^T: keys (rows) x C queries
       float st[C / 8][4], pt[C / 8][4];
       scores_mma<D, C>(afrag, Qt, Gt, c0, st, pt);
+      // P^T into st, dS^T into pt; the softcap's branch holds the tile
+      auto tile = [&](auto cap) {
 #pragma unroll
-      for (int j = 0; j < C / 8; ++j) {
+        for (int j = 0; j < C / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = c0 + j * 8 + 2 * t + (e & 1);
-          float p = prob(st[j][e], scale, Lt[qc]);
-          if (edge) {
-            const int key = e < 2 ? key_lo : key_hi, pos = q0 + qc;
-            if (pos >= sq || key >= sk || (causal && key > pos)) p = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c0 + j * 8 + 2 * t + (e & 1);
+            bool hidden = false;
+            if (edge) {
+              const int key = e < 2 ? key_lo : key_hi, pos = q0 + qc;
+              hidden = pos >= sq || key >= sk || (causal && key > pos)
+                       || (window && pos - key >= window);
+            }
+            p_ds<decltype(cap)::value>(st[j][e], pt[j][e], Lt[qc], Dt[qc],
+                                       scale, softcap, rcap, hidden,
+                                       st[j][e], pt[j][e]);
           }
-          st[j][e] = p;                                   // P^T
-          pt[j][e] = __fmul_rn(p, __fsub_rn(pt[j][e], Dt[qc]));  // dS^T
         }
-      }
+      };
+      if (capped) tile(std::true_type{});
+      else tile(std::false_type{});
       accum_mma<D, C>(adv, st, Gt, c0);   // dV += P^T dO
       accum_mma<D, C>(adk, pt, Qt, c0);   // dK += dS^T Q
     }
@@ -665,7 +812,7 @@ bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
            const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ dd,
            uint16_t* __restrict__ dq, int sq, int sk, int h, int hk,
-           float scale, int causal) {
+           float scale, int causal, float softcap, int window) {
   constexpr int LD = bwd_mma_ld<D>(), KS = D / 16, DT = D / 8;
   constexpr int B = kMmaBwdB, C = kDqCols;
   extern __shared__ __align__(16) uint16_t smh[];
@@ -689,12 +836,16 @@ bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   stage_rows<D>(Gs, dout + qoff, q0, sq, qrs);
   const int kend = causal ? min(sk, q0 + rows) : sk;
   const int ntiles = (kend + B - 1) / B;
+  // with a window, from the tile of the first key row q0 sees
+  const int t0 = window_start(q0, window, kend, B) / B;
   auto load_tile = [&](int tile, int buf) {
     stage_rows<D>(Ks + buf * B * LD, k + koff, tile * B, kend, krs);
     stage_rows<D>(Vs + buf * B * LD, v + koff, tile * B, kend, krs);
   };
-  if (ntiles > 0) load_tile(0, 0);
+  if (t0 < ntiles) load_tile(t0, 0);
   cp_async_commit();
+  const bool capped = softcap > 0.f;
+  const float rcap = capped ? __frcp_rn(softcap) : 0.f;
 
   // rows g and g + 8 of this warp's 16
   const int r_lo = warp * 16 + (lane >> 2), r_hi = r_lo + 8;
@@ -717,13 +868,13 @@ bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
   };
 
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int buf = tile & 1;
+  for (int tile = t0; tile < ntiles; ++tile) {
+    const int buf = (tile - t0) & 1;
     if (tile + 1 < ntiles) load_tile(tile + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (tile == 0) {
+    if (tile == t0) {
       const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
@@ -734,26 +885,37 @@ bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const int k0 = tile * B;
     const uint16_t* Kt = Ks + buf * B * LD;
     const uint16_t* Vt = Vs + buf * B * LD;
-    const bool edge = k0 + B > kend || (causal && k0 + B - 1 > q0);
+    const bool edge = k0 + B > kend || (causal && k0 + B - 1 > q0)
+                      || (window && q0 + B - 1 - k0 >= window);
 #pragma unroll 1
     for (int c0 = 0; c0 < B; c0 += C) {
       // S = Q K^T and dP = dO V^T: queries (rows) x C keys
       float s[C / 8][4], dp[C / 8][4];
       scores_mma<D, C>(afrag, Kt, Vt, c0, s, dp);
+      // dS into s; the softcap's branch holds the tile
+      auto tile_ds = [&](auto cap) {
 #pragma unroll
-      for (int j = 0; j < C / 8; ++j) {
+        for (int j = 0; j < C / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool hi = e >= 2;
-          float p = prob(s[j][e], scale, hi ? lse_hi : lse_lo);
-          if (edge) {
-            const int key = k0 + c0 + j * 8 + 2 * t + (e & 1);
-            const int pos = q0 + (hi ? r_hi : r_lo);
-            if (key >= kend || (causal && key > pos)) p = 0.f;
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e >= 2;
+            bool hidden = false;
+            if (edge) {
+              const int key = k0 + c0 + j * 8 + 2 * t + (e & 1);
+              const int pos = q0 + (hi ? r_hi : r_lo);
+              hidden = key >= kend || (causal && key > pos)
+                       || (window && pos - key >= window);
+            }
+            float p;
+            p_ds<decltype(cap)::value>(s[j][e], dp[j][e],
+                                       hi ? lse_hi : lse_lo,
+                                       hi ? dd_hi : dd_lo, scale, softcap,
+                                       rcap, hidden, p, s[j][e]);
           }
-          s[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], hi ? dd_hi : dd_lo));
         }
-      }
+      };
+      if (capped) tile_ds(std::true_type{});
+      else tile_ds(std::false_type{});
       accum_mma<D, C>(acc, s, Kt, c0);   // dQ += dS K
     }
     __syncthreads();   // this buffer is refilled two tiles on
@@ -775,20 +937,19 @@ bwd_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 // ---- launch
 
-template <typename T, int D>
-cudaError_t launch_dot(const void* o, const void* dout, float* dd, int b,
-                       int sq, int h, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(b) * sq * h;
-  bwd_dot<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dd, b, sq, h);
-  return cudaGetLastError();
-}
+// the gradient's runtime arguments past the shapes
+struct BwdOpts {
+  float scale;
+  int causal;
+  float softcap;   // 0: none
+  int window;      // 0: none; else only with causal
+};
 
 template <int D>
 int launch_bwd_mma(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* dd, void* dq, void* dk, void* dv, int b, int sq,
-                   int sk, int h, int hk, float scale, int causal,
+                   int sk, int h, int hk, const BwdOpts& a,
                    cudaStream_t stream) {
   static bool done_kv[64], done_q[64];
   auto kkv = bwd_dkdv_mma<D>;
@@ -796,23 +957,28 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
   cudaError_t err = allow_smem(kkv, bwd_dkdv_mma_smem<D>(), done_kv);
   if (err == cudaSuccess)
     err = allow_smem(kq, bwd_dq_mma_smem<D>(), done_q);
-  if (err == cudaSuccess)
-    err = launch_dot<uint16_t, D>(o, dout, dd, b, sq, h, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   using bf = uint16_t;
+  const long long n = static_cast<long long>(b) * sq * h;
+  bwd_dot_mma<D><<<static_cast<unsigned>((n + kMmaBwdB - 1) / kMmaBwdB),
+                   kMmaBwdThreads, 0, stream>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), dd, b, sq, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 gkv((sk + kMmaBwdB - 1) / kMmaBwdB, hk, b);
   kkv<<<gkv, kMmaBwdThreads, bwd_dkdv_mma_smem<D>(), stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dd,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk, h, hk, scale,
-      causal);
+      static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dd + n,
+      static_cast<bf*>(dk), static_cast<bf*>(dv), sq, sk, h, hk, a.scale,
+      a.causal, a.softcap, a.window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 gq((sq + kMmaBwdB - 1) / kMmaBwdB, h, b);
   kq<<<gq, kMmaBwdThreads, bwd_dq_mma_smem<D>(), stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, dd,
-      static_cast<bf*>(dq), sq, sk, h, hk, scale, causal);
+      static_cast<bf*>(dq), sq, sk, h, hk, a.scale, a.causal, a.softcap,
+      a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -820,32 +986,38 @@ template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* dd, void* dq,
                void* dk, void* dv, int b, int sq, int sk, int h, int hk,
-               float scale, int causal, cudaStream_t stream) {
+               const BwdOpts& a, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return launch_bwd_mma<D>(q, k, v, o, dout, lse, dd, dq, dk, dv, b, sq,
-                             sk, h, hk, scale, causal, stream);
+                             sk, h, hk, a, stream);
   } else {
     static bool done_kv[64], done_q[64];
     auto kkv = bwd_dkdv<T, D>;
     auto kq = bwd_dq<T, D>;
     cudaError_t err = allow_smem(kkv, bwd_dkdv_smem<D>(), done_kv);
     if (err == cudaSuccess) err = allow_smem(kq, bwd_dq_smem<D>(), done_q);
-    if (err == cudaSuccess)
-      err = launch_dot<T, D>(o, dout, dd, b, sq, h, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long n = static_cast<long long>(b) * sq * h;
+    bwd_dot<D><<<static_cast<unsigned>((n + kDotRows - 1) / kDotRows),
+                 kDotThreads, 0, stream>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), dd, b,
+        sq, h);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 gkv((sk + kBwdB - 1) / kBwdB, hk, b);
     kkv<<<gkv, kBwdThreads, bwd_dkdv_smem<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, hk, scale,
-        causal);
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, h, hk, a.scale,
+        a.causal, a.softcap, a.window);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 gq((sq + kBwdB - 1) / kBwdB, h, b);
     kq<<<gq, kBwdThreads, bwd_dq_smem<D>(), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dd,
-        static_cast<T*>(dq), sq, sk, h, hk, scale, causal);
+        static_cast<T*>(dq), sq, sk, h, hk, a.scale, a.causal, a.softcap,
+        a.window);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -854,22 +1026,24 @@ template <typename T>
 int backward(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* dd, void* dq, void* dk,
              void* dv, int b, int sq, int sk, int h, int hk, int d,
-             float scale, int causal, void* stream) {
+             const BwdOpts& a, void* stream) {
   if (b == 0 || sq == 0 || sk == 0 || h == 0) return 0;
-  if (hk == 0 || h % hk) return static_cast<int>(cudaErrorInvalidValue);
+  if (hk == 0 || h % hk || !(a.softcap >= 0.f) || a.window < 0
+      || (a.window && !a.causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* ls = static_cast<const float*>(lse);
   auto* ddf = static_cast<float*>(dd);
   switch (d) {
     case 16: return launch_bwd<T, 16>(q, k, v, o, dout, ls, ddf, dq, dk, dv,
-                                      b, sq, sk, h, hk, scale, causal, st);
+                                      b, sq, sk, h, hk, a, st);
     case 64: return launch_bwd<T, 64>(q, k, v, o, dout, ls, ddf, dq, dk, dv,
-                                      b, sq, sk, h, hk, scale, causal, st);
+                                      b, sq, sk, h, hk, a, st);
     case 96: return launch_bwd<T, 96>(q, k, v, o, dout, ls, ddf, dq, dk, dv,
-                                      b, sq, sk, h, hk, scale, causal, st);
+                                      b, sq, sk, h, hk, a, st);
     case 128:
       return launch_bwd<T, 128>(q, k, v, o, dout, ls, ddf, dq, dk, dv, b, sq,
-                                sk, h, hk, scale, causal, st);
+                                sk, h, hk, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -879,9 +1053,11 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 // dq, dk, dv of csrc/flash_attention.cu's prefill function (q_offset 0),
 // all tensors contiguous:
 // q, o, dout, dq [b, sq, h, d]; k, v, dk, dv [b, sk, hk, d], in one dtype;
-// lse [b, h, sq] from the forward; dd, fp32 scratch of b * h * sq floats.
+// lse [b, h, sq] from the forward (`flash_attention_lse_*` with the same
+// softcap and window); dd, fp32 scratch of 2 b h sq floats; softcap >= 0
+// and window >= 0 (0: off; a window only with causal).
 #define B9_BWD_ARGS                                                      \
   const void *q, const void *k, const void *v, const void *o,            \
       const void *dout, const void *lse, void *dd, void *dq, void *dk,   \
       void *dv, int b, int sq, int sk, int h, int hk, int d, float scale, \
-      int causal, void *stream
+      int causal, float softcap, int window, void *stream

@@ -64,8 +64,7 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
     "flash_attention_bf16": ("flash_attention",
                              [_P] * 4 + [_I] * 6 + [_L] * 9
                              + [_F, _I, _I, _F, _I, _P]),
-    # ... then lse [B, H, Sq] fp32 (the prefill design, q_offset 0, no
-    # softcap or window)
+    # ... then lse [B, H, Sq] fp32 (the prefill design, q_offset 0)
     "flash_attention_lse_f32": ("flash_attention",
                                 [_P] * 4 + [_I] * 6 + [_L] * 9
                                 + [_F, _I, _I, _F, _I, _P, _P]),
@@ -73,11 +72,12 @@ SIGNATURES: Dict[str, Tuple[str, List]] = {
                                  [_P] * 4 + [_I] * 6 + [_L] * 9
                                  + [_F, _I, _I, _F, _I, _P, _P]),
     # B9's gradient: q, k, v, o, dout, lse, dd scratch, dq, dk, dv, B,
-    # Sq, Sk, H, HK, D, scale, causal, stream
+    # Sq, Sk, H, HK, D, scale, causal, softcap, window, stream
     "flash_attention_bwd_f32": ("flash_attention_bwd",
-                                [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
+                                [_P] * 10 + [_I] * 6 + [_F, _I, _F, _I, _P]),
     "flash_attention_bwd_bf16": ("flash_attention_bwd",
-                                 [_P] * 10 + [_I] * 6 + [_F, _I, _P]),
+                                 [_P] * 10 + [_I] * 6
+                                 + [_F, _I, _F, _I, _P]),
     # kernel (0 dK / dV, 1 dQ), bf16, D -> the gradient's dynamic
     # shared-memory bytes (reports)
     "flash_attention_bwd_smem": ("flash_attention_bwd", [_I] * 3),

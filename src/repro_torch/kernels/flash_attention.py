@@ -40,10 +40,11 @@ different code, so they agree within a tolerance, not bitwise
 The gradient. When autograd records the call (grad mode on and q, k
 or v requiring grad), `flash_attention` runs `FlashAttentionFn`: its
 forward is the prefill design at any Sq, which also writes each row's
-log-sum-exp of the scaled logits ([B, H, Sq] fp32; 0 for a row that
-sees no key); it saves q, k, v, the output and the LSE. Its backward,
-`flash_attention_backward`, computes dQ, dK and dV of causal (or full)
-GQA attention at q_offset 0, what XLA's autodiff of the reference's
+log-sum-exp of its logits (capped, under a softcap; [B, H, Sq] fp32; 0
+for a row that sees no key); it saves q, k, v, the output and the LSE.
+Its backward, `flash_attention_backward`, computes dQ, dK and dV of
+causal (or full) GQA attention at q_offset 0, with gemma2's softcap and
+sliding window, what XLA's autodiff of the reference's
 `chunked_attention` computes, with three CUDA kernels and no atomics
 (`csrc/flash_attention_bwd.cuh`, head dims BWD_HEAD_DIMS: bf16 on the
 tensor cores, fp32 on the scalar pipes); on CPU tensors it runs
@@ -52,9 +53,8 @@ fp32 (dP - Dd in float64). `flash_attention_grad_plain` runs the
 autograd function with the plain forward and backward on any device
 (the chip smoke compares a train step with it). The reference's Pallas
 kernel has no gradient: its model trains through `chunked_attention`.
-Under autograd, sliding windows and logit softcaps raise
-`NotImplementedError`: their gradient is the next slice (gemma2's
-training, ROADMAP A7).
+Under autograd a `q_offset` other than 0 raises `NotImplementedError`
+(training's forward is a prefill).
 """
 from __future__ import annotations
 
@@ -230,8 +230,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float = 0.0,
     """q [B, Sq, H, D], k, v [B, Sk, HK, D] -> [B, Sq, H, D]."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _grad_supported(q, k, v, q_offset, window, softcap)
-        return FlashAttentionFn.apply(q, k, v, causal, scale, False)
+        window, softcap = _grad_supported(q, k, v, causal, q_offset, window,
+                                          softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, scale, window,
+                                      softcap, False)
     if build.on_host(q, k, v, contiguous=False):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      q_offset=q_offset, window=window,
@@ -284,16 +286,16 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _grad_supported(q, k, v, q_offset: int, window: int,
-                    softcap: float) -> None:
-    if window > 0 or softcap > 0:
-        raise NotImplementedError(
-            "B9's gradient with a sliding window or a logit softcap is the "
-            "next slice (gemma2 training, ROADMAP A7)")
+def _grad_supported(q, k, v, causal: bool, q_offset: int, window: int,
+                    softcap: float) -> Tuple[int, float]:
+    """(window, softcap) as the kernels take them, for a call under
+    autograd; raises on a q_offset other than 0."""
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, q_offset)
     if q_offset:
         raise NotImplementedError(
             "B9's gradient covers q_offset 0 (training's causal prefill)")
+    return window, softcap
 
 
 def _kernel_args(q, scale: float, dims=HEAD_DIMS):
@@ -304,15 +306,18 @@ def _kernel_args(q, scale: float, dims=HEAD_DIMS):
     return d, (scale if scale > 0.0 else d ** -0.5)
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True, scale: float = 0.0
+def flash_attention_lse(q, k, v, *, causal: bool = True, scale: float = 0.0,
+                        window: int = 0, softcap: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the prefill design at q_offset 0 for any Sq, with each
-    row's log-sum-exp [B, H, Sq] fp32. CUDA tensors launch the kernel
-    (counted in `flash_attention.launches`); CPU tensors run the plain
-    version."""
+    row's log-sum-exp [B, H, Sq] fp32 (of the capped logits under a
+    softcap). CUDA tensors launch the kernel (counted in
+    `flash_attention.launches`); CPU tensors run the plain version."""
     if build.on_host(q, k, v, contiguous=False):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, softcap=softcap,
                                      return_lse=True)
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, 0)
     d, scale = _kernel_args(q, scale)
     _check_strided(q, k, v)
@@ -326,25 +331,31 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale: float = 0.0
     code = build.function(symbol)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
         h, hk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(bool(causal)), 0, 0.0, 0, lse.data_ptr(), stream)
+        float(scale), int(bool(causal)), 0, softcap, window, lse.data_ptr(),
+        stream)
     flash_attention.launches += 1
     build.check(code, symbol)
     return out, lse
 
 
 def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
-                                   causal: bool = True, scale: float = 0.0
+                                   causal: bool = True, scale: float = 0.0,
+                                   window: int = 0, softcap: float = 0.0
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
     """(dq, dk, dv) step by step in fp32 torch ops, chunked over
-    queries: Dd = rowsum(dO * O), P = exp(q.k scale - lse) (0 where
-    masked), dP = dO V^T, dS = P (dP - Dd), dV = P^T dO, dK = dS^T Q
+    queries: Dd = rowsum(dO * O), x = q.k scale, the logit s = x, or
+    with a softcap c, s = c tanh(x / c) (the plain forward's), P =
+    exp(s - lse) (0 where masked: causally and, with a window W, where
+    q - key >= W), dP = dO V^T, dS = P (dP - Dd), times (1 - t)(1 + t)
+    with t = tanh(x / c) under the softcap, dV = P^T dO, dK = dS^T Q
     scale, dQ = dS K scale; each cast to its input's dtype. dP and Dd,
     and their difference, are taken in float64: that difference is the
     step that cancels (in a row that sees one key O is that key's V, and
     dS is 0 in exact arithmetic), and float64 rounds it 2^29 times finer
     than the kernels' fp32, so the reference adds no noise of its own
     there."""
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, 0)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
@@ -370,15 +381,25 @@ def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
 
             qc, gc = heads(q), heads(dout)
             lc = lse[:, :, s0:s0 + c].reshape(b, hk, g, c, 1)
-            p = torch.exp(torch.matmul(qc, kf.transpose(-1, -2)) * scale
-                          - lc)
+            x = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+            if softcap:
+                t = torch.tanh(x / softcap)
+                x = softcap * t
+            p = torch.exp(x - lc)
+            del x
             if causal:
                 qpos = s0 + torch.arange(c, device=q.device)
-                p.masked_fill_(kpos[None, :] > qpos[:, None], 0.0)
+                hidden = kpos[None, :] > qpos[:, None]
+                if window:
+                    hidden |= qpos[:, None] - kpos[None, :] >= window
+                p.masked_fill_(hidden, 0.0)
             ddc = dd[:, s0:s0 + c].reshape(b, c, hk, g) \
                 .permute(0, 2, 3, 1).unsqueeze(-1)
             ds = p * (torch.matmul(gc.to(f64), vd.transpose(-1, -2))
                       - ddc).to(f32)
+            if softcap:
+                ds *= (1 - t) * (1 + t)
+                del t
             dv += torch.matmul(p.transpose(-1, -2), gc).sum(dim=2)
             dk += torch.matmul(ds.transpose(-1, -2), qc).sum(dim=2)
             dq[:, s0:s0 + c] = (torch.matmul(ds, kf) * scale) \
@@ -390,18 +411,21 @@ def flash_attention_backward_plain(q, k, v, o, lse, dout, *,
 
 
 def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
-                             scale: float = 0.0
+                             scale: float = 0.0, window: int = 0,
+                             softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` at q_offset 0, given its output
-    `o` and `lse` (`flash_attention_lse`) and the output's gradient.
-    CUDA tensors launch the three backward kernels (one count in
-    `flash_attention_backward.launches`); CPU tensors run the plain
-    version. The kernels read contiguous tensors: non-contiguous ones are
-    copied first."""
+    `o` and `lse` (`flash_attention_lse` with the same window and
+    softcap) and the output's gradient. CUDA tensors launch the three
+    backward kernels (one count in `flash_attention_backward.launches`);
+    CPU tensors run the plain version. The kernels read contiguous
+    tensors: non-contiguous ones are copied first."""
     if build.on_host(q, k, v, o, lse, dout, contiguous=False):
         return flash_attention_backward_plain(q, k, v, o, lse, dout,
-                                              causal=causal, scale=scale)
+                                              causal=causal, scale=scale,
+                                              window=window, softcap=softcap)
+    window, softcap = _options(causal, window, softcap)
     _check(q, k, v, 0)
     d, scale = _kernel_args(q, scale, BWD_HEAD_DIMS)
     b, sq, h, _ = q.shape
@@ -414,7 +438,8 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dd = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # Dd for the dQ kernel, and (bf16) again for the dK / dV kernel
+    dd = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)
     symbol = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
               else "flash_attention_bwd_f32")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -424,7 +449,7 @@ def flash_attention_backward(q, k, v, o, lse, dout, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dd.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, hk, d, float(scale),
-        int(bool(causal)), stream)
+        int(bool(causal)), softcap, window, stream)
     flash_attention_backward.launches += 1
     build.check(code, symbol)
     return dq, dk, dv
@@ -439,15 +464,16 @@ class FlashAttentionFn(torch.autograd.Function):
     any device)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float, plain: bool):
+    def forward(ctx, q, k, v, causal: bool, scale: float, window: int,
+                softcap: float, plain: bool):
+        kw = dict(causal=causal, scale=scale, window=window,
+                  softcap=softcap)
         if plain:
-            out, lse = flash_attention_plain(q, k, v, causal=causal,
-                                             scale=scale, return_lse=True)
+            out, lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
         else:
-            out, lse = flash_attention_lse(q, k, v, causal=causal,
-                                           scale=scale)
+            out, lse = flash_attention_lse(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        ctx.kw, ctx.plain = kw, plain
         return out
 
     @staticmethod
@@ -455,9 +481,8 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         fn = (flash_attention_backward_plain if ctx.plain
               else flash_attention_backward)
-        dq, dk, dv = fn(q, k, v, out, lse, dout, causal=ctx.causal,
-                        scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = fn(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_grad_plain(q, k, v, *, causal: bool = True,
@@ -466,5 +491,7 @@ def flash_attention_grad_plain(q, k, v, *, causal: bool = True,
                                softcap: float = 0.0) -> torch.Tensor:
     """`flash_attention`'s signature, computed by the plain forward and,
     under autograd, the plain backward, on whatever device q lies on."""
-    _grad_supported(q, k, v, q_offset, window, softcap)
-    return FlashAttentionFn.apply(q, k, v, causal, scale, True)
+    window, softcap = _grad_supported(q, k, v, causal, q_offset, window,
+                                      softcap)
+    return FlashAttentionFn.apply(q, k, v, causal, scale, window, softcap,
+                                  True)

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import padded_len
+from repro_torch.kernels.config import block_name
 from repro_torch.kernels.ties import ties_tile
 
 # columns per chunk of the plain versions (bounds their temporaries)
@@ -76,7 +77,8 @@ def _check_inputs(stacked, base) -> None:
 def _check_vectors(block: int, *tensors) -> None:
     """B3-B5 on CUDA read 8 adjacent columns in 16-byte loads."""
     if block % 8:
-        raise ValueError(f"block must be a multiple of 8, got {block}")
+        raise ValueError(f"{block_name(block)}: on CUDA the block must be "
+                         "a multiple of 8")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("stacked, base and the output must be 16-byte "
                          "aligned")

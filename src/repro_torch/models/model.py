@@ -45,12 +45,14 @@ causal cross-entropy, with each sub-layer under
 `torch.utils.checkpoint` (non-reentrant) when `cfg.remat != "none"`,
 the reference's `jax.checkpoint`. Under autograd every attention call
 goes to B9's autograd function (forward with the log-sum-exp,
-hand-written backward); windows and softcaps raise there, so gemma2
-does not train yet (the next slice). `loss` takes the stacked
-`blocks/sub{j}` leaves or, as the train step passes them, a list of
-per-period dicts for each sub-layer (views that are autograd leaves of
-their own, so a layer's gradient lands in its slice of the stacked
-gradient without a full-size zero tensor per layer).
+hand-written backward), with gemma2's softcap and, on its local
+sub-layers, its window: gemma2 trains over its local/global periods,
+sandwich norms, embedding scale and final softcap as the reference's
+`Model.loss` does. `loss` takes the stacked `blocks/sub{j}` leaves or,
+as the train step passes them, a list of per-period dicts for each
+sub-layer (views that are autograd leaves of their own, so a layer's
+gradient lands in its slice of the stacked gradient without a
+full-size zero tensor per layer).
 
 The MoE, MLA, SSM, hybrid, enc-dec and VLM families wait for ROADMAP
 A7.
@@ -148,11 +150,17 @@ class Model:
 
     def loss(self, params, batch):
         """batch: tokens [B, S]. Returns (loss, {"ce", "aux"}): the causal
-        cross-entropy of the training forward; aux is 0 (no MoE)."""
+        cross-entropy of the training forward (`_logits`' head, logit
+        multiplier and final softcap, then the mean over B x (S - 1) of
+        logsumexp - the target's logit, computed by `_HeadCE`); aux is 0
+        (no MoE)."""
+        cfg = self.cfg
         tokens = self._tokens(params, batch["tokens"])
         x = self._embed(params, tokens)
         x = self._run_stack(params, x, mode="train")
-        ce = _causal_ce(self._logits(params, x), tokens)
+        x, head = self._head_inputs(params, x)
+        ce = _HeadCE.apply(x, head, tokens[:, 1:].long(),
+                           float(cfg.logit_mult), float(cfg.final_softcap))
         aux = torch.zeros((), dtype=torch.float32, device=ce.device)
         return ce, {"ce": ce, "aux": aux}
 
@@ -297,18 +305,20 @@ class Model:
         # be a blocking copy, stalling the host on every decode step
         return x.to(cd) * torch.tensor(self.cfg.emb_scale, dtype=cd).item()
 
-    def _logits(self, params, x):
+    def _head_inputs(self, params, x):
+        """The final norm's output and the output head (the embedding's
+        transpose when tied), both in the compute dtype."""
         cfg = self.cfg
         cd = self.compute_dtype
         x = L.rmsnorm(params["final_norm"], x, cfg.rms_eps)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        logits = x.to(cd) @ head.to(cd)
-        logits = logits.to(torch.float32) * cfg.logit_mult
-        if cfg.final_softcap > 0:
-            logits = cfg.final_softcap * torch.tanh(
-                logits / cfg.final_softcap)
-        return logits
+        return x.to(cd), head.to(cd)
+
+    def _logits(self, params, x):
+        x, head = self._head_inputs(params, x)
+        return _head_fp32(x @ head, self.cfg.logit_mult,
+                          self.cfg.final_softcap)[0]
 
     @staticmethod
     def _tokens(params, tokens) -> torch.Tensor:
@@ -387,13 +397,89 @@ def _is_ring(sl: SubLayer, slots: int) -> bool:
     return bool(sl.window) and sl.window <= slots
 
 
-def _causal_ce(logits, tokens):
-    """The reference's causal cross-entropy: mean over B x (S - 1) of
-    logsumexp(pred) - pred[target]. The target logit is gathered where
-    the reference sums pred * one_hot (x + 0 = x: the same value for
-    finite logits, without a [B, S, V] one-hot)."""
-    pred = logits[:, :-1].to(torch.float32)
-    tgt = tokens[:, 1:].long()
-    lse = torch.logsumexp(pred, dim=-1)
-    picked = torch.gather(pred, -1, tgt[..., None])[..., 0]
-    return torch.mean(lse - picked)
+# positions of the head's fp32 stage a chunk: [rows, V] fp32 under 2^28
+# elements (1 GiB)
+_CE_ELEMS = 1 << 28
+
+
+def _ce_chunks(b: int, n: int, v: int):
+    """(batch row, first, end position) chunks over B x n positions."""
+    step = max(1, _CE_ELEMS // max(v, 1))
+    for bi in range(b):
+        for p0 in range(0, n, step):
+            yield bi, p0, min(n, p0 + step)
+
+
+def _head_fp32(rows, mult: float, cap: float):
+    """(logits, tanh) of the head's fp32 stage (`_logits`, `_HeadCE`)
+    for rows of the compute-dtype logits: times the logit multiplier
+    (skipped at 1.0, where it changes no bit), then cap tanh(z / cap)
+    under a final softcap (tanh None without one)."""
+    z = rows.to(torch.float32)
+    if mult != 1.0:
+        z = z * mult
+    if not cap > 0:
+        return z, None
+    t = torch.tanh(z / cap)
+    return cap * t, t
+
+
+class _HeadCE(torch.autograd.Function):
+    """The training loss's tail: logits = x @ head in the compute dtype,
+    then, as `_logits` and the reference's `_causal_ce`, in fp32 the
+    logit multiplier, the final softcap, and the mean over B x (S - 1) of
+    logsumexp(pred) - pred[target] (the target's logit gathered: x + 0 =
+    x, the reference's sum against a one-hot, for finite logits). Only
+    the compute-dtype logits are kept for the backward ([B, S, V]: 4.2 GB
+    in bf16 at gemma2's vocabulary of 256,000 and 8192 tokens, where
+    autograd over the same ops kept two fp32 copies, 16.8 GB, and made as
+    many again in its backward, past the card beside gemma2's training
+    state). The fp32 steps run over chunks of positions (`_ce_chunks`);
+    the backward recomputes them chunk by chunk with autograd's own
+    formulas (softmax times the mean's 1 / N, minus it at the target,
+    then the softcap's c (1 - t^2) / c and the multiplier), writes the
+    logits' gradient over the kept logits in the compute dtype, and
+    takes dx and dhead as one product each, as autograd's matmul
+    backward does."""
+
+    @staticmethod
+    def forward(ctx, x, head, tgt, mult: float, cap: float):
+        """x [B, S, d] and head [d, V] in the compute dtype; tgt [B, S - 1]
+        int64 (the next tokens). Returns the mean cross-entropy."""
+        logits = x @ head
+        b, s, v = logits.shape
+        lse = torch.empty((b, s - 1), dtype=torch.float32,
+                          device=logits.device)
+        ce = torch.empty_like(lse)
+        for bi, p0, p1 in _ce_chunks(b, s - 1, v):
+            z, _ = _head_fp32(logits[bi, p0:p1], mult, cap)
+            lse[bi, p0:p1] = torch.logsumexp(z, dim=-1)
+            ce[bi, p0:p1] = lse[bi, p0:p1] - torch.gather(
+                z, -1, tgt[bi, p0:p1, None])[:, 0]
+        ctx.save_for_backward(x, head, tgt, logits, lse)
+        ctx.mult, ctx.cap = mult, cap
+        return torch.mean(ce)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, tgt, logits, lse = ctx.saved_tensors
+        b, s, v = logits.shape
+        gn = g / lse.numel()                   # the mean's backward
+        for bi, p0, p1 in _ce_chunks(b, s - 1, v):
+            rows = logits[bi, p0:p1]
+            z, t = _head_fp32(rows, ctx.mult, ctx.cap)
+            d = z.sub_(lse[bi, p0:p1, None]).exp_().mul_(gn)
+            d.scatter_add_(-1, tgt[bi, p0:p1, None],
+                           (-gn).expand(p1 - p0, 1))
+            if t is not None:
+                d.mul_(ctx.cap).mul_(t.mul_(t).neg_().add_(1)) \
+                    .div_(ctx.cap)
+            if ctx.mult != 1.0:
+                d.mul_(ctx.mult)
+            rows.copy_(d)
+            del z, t, d
+        logits[:, s - 1:] = 0                  # the last position: no target
+        dl = logits.reshape(-1, v)
+        dx = (dl @ head.T).reshape(x.shape)
+        dhead = x.reshape(-1, x.shape[-1]).T @ dl
+        return dx, dhead, None, None, None

@@ -38,11 +38,16 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
   B9 gradient  the LSE forward and the three backward kernels against
                their plain versions (MHA, GQA, MQA, every head dim, fp32
                and bf16, ragged tiles, one row, non-causal, Minitron-8B's
-               32:8 GQA at D = 128, MiniCPM-2B's 36 heads; q x8 in bf16),
-               bitwise repeatable, and q x8 in fp32 against a float64
-               oracle (ROADMAP C4), reached once each through
-               autograd; two smoke train
-               steps on the card repeat bitwise and match the CPU's
+               32:8 GQA at D = 128, MiniCPM-2B's 36 heads; q x8 in bf16;
+               gemma2's softcap 50 and 2 and windows 1, 5 and 64, one row
+               included, and its 32:16 heads at D = 128), bitwise
+               repeatable, and q x8 in fp32 against a float64 oracle
+               (ROADMAP C4), reached once each through autograd; rows
+               that see one key (one row, a window of 1) give dq and dk
+               of exactly 0 over several seeds, as the reference's
+               autodiff (ROADMAP C5); two smoke train steps on the card
+               (minitron, and gemma2 with its window and softcap
+               binding) repeat bitwise and match the CPU's
   B9           flash_attention against its plain version within a
                tolerance (the two sum and exponentiate differently):
                GQA, MQA, ragged Sq and Sk, every D in HEAD_DIMS, a
@@ -835,10 +840,14 @@ def test_cuda_gemma2_smoke_greedy_decode_equals_cpu():
 # are the small differences of large terms).
 # The bf16 design's tiles under stress (FLASH_BWD_OPTS): a non-causal
 # call, Minitron-8B's GQA (32 heads over 8 KV heads, D = 128) at S = 257,
-# MiniCPM-2B's 36 heads at D = 64; and (FLASH_BWD_PEAKED) q scaled x8,
-# so rows have peaked P and large cancelling dP - Dd: bf16 under the
-# rule above; fp32 against a float64 oracle (the fp32 rule's 1e-5 floor
-# is for gradients of order 1, and at x8 dk reaches 30: ROADMAP C4).
+# MiniCPM-2B's 36 heads at D = 64; gemma2's softcap (50, and 2, which
+# binds on logits of order 1) and sliding window (1: every row one key;
+# 5: within a tile; 64: a tile's width, so whole tiles are skipped),
+# alone and together, its 32:16 heads at D = 128 over 300 rows; and
+# (FLASH_BWD_PEAKED) q scaled x8, so rows have peaked P and large
+# cancelling dP - Dd: bf16 under the rule above; fp32 against a float64
+# oracle (the fp32 rule's 1e-5 floor is for gradients of order 1, and at
+# x8 dk reaches 30: ROADMAP C4).
 FLASH_BWD_SPECS = {
     "mha": (2, 130, 4, 4, 64),
     "gqa": (1, 200, 8, 2, 96),
@@ -849,9 +858,25 @@ FLASH_BWD_SPECS = {
     "full": (2, 130, 4, 2, 64),
     "minitron_gqa": (1, 257, 32, 8, 128),
     "minicpm_heads": (1, 300, 36, 36, 64),
+    "one_row_cap50_win5": (1, 1, 2, 2, 96),
+    "cap50": (2, 129, 4, 1, 128),
+    "cap2": (2, 130, 4, 4, 64),
+    "win1": (2, 130, 4, 2, 64),
+    "win5_cap2": (2, 130, 4, 2, 64),
+    "win64_cap50": (1, 200, 8, 2, 96),
+    "d16_win5_cap50": (2, 37, 4, 2, 16),
+    "gemma2_heads": (1, 300, 32, 16, 128),
 }
 FLASH_BWD_PEAKED = (2, 200, 4, 2, 96)
-FLASH_BWD_OPTS = {"full": {"causal": False}}
+FLASH_BWD_OPTS = {"full": {"causal": False},
+                  "one_row_cap50_win5": {"softcap": 50.0, "window": 5},
+                  "cap50": {"softcap": 50.0}, "cap2": {"softcap": 2.0},
+                  "win1": {"window": 1},
+                  "win5_cap2": {"window": 5, "softcap": 2.0},
+                  "win64_cap50": {"window": 64, "softcap": 50.0},
+                  "d16_win5_cap50": {"window": 5, "softcap": 50.0},
+                  "gemma2_heads": {"window": 64, "softcap": 50.0,
+                                   "scale": 144.0 ** -0.5}}
 
 
 def _bwd_close(got, want):
@@ -881,6 +906,49 @@ def test_cuda_flash_backward_peaked_bf16():
     """The same checks in bf16 with q scaled x8 (the LSE within 8e-5:
     its fp32 rounding scales with the logits)."""
     _check_flash_backward(FLASH_BWD_PEAKED, "bfloat16", q_mult=8.0)
+
+
+# ROADMAP C5: shapes whose rows each see one key (causal, q_offset 0):
+# one row, and a window of 1 over several tiles
+ONE_KEY_ROWS = {"one_row": ((1, 1, 2, 2, 96), {}),
+                "win1": ((2, 130, 4, 2, 64), {"window": 1})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ONE_KEY_ROWS))
+def test_cuda_flash_backward_one_key_rows_exact(case, dtype, softcap):
+    """Exact, over 6 seeds: where each row sees one key, dS is 0 in exact
+    arithmetic, and the reference's autodiff gives dq = dk = 0 (its
+    softmax VJP subtracts sum_k P dP, which is dP when P is 1). The
+    kernels give exactly 0 too: their Dd sums dO . O in the order they
+    sum dP, and O is that key's V bit for bit, so dP - Dd is 0. So does
+    the plain version in bf16 (its float64 sums of bf16 products are
+    exact); dv within the rule of `_bwd_close`."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse)
+    (b, s, h, hk, d), kw = ONE_KEY_ROWS[case]
+    kw = dict(kw, softcap=softcap)
+    dt = getattr(torch, dtype)
+    for seed in range(6):
+        g = torch.Generator().manual_seed(seed)
+        q, k, v, dout = (torch.randn(shape, generator=g).to(dt).cuda()
+                         for shape in ((b, s, h, d), (b, s, hk, d),
+                                       (b, s, hk, d), (b, s, h, d)))
+        out, lse = flash_attention_lse(q, k, v, **kw)
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, **kw)
+        pq, pk, pv = flash_attention_backward_plain(q, k, v, out, lse, dout,
+                                                    **kw)
+        torch.cuda.synchronize()
+        assert int(torch.count_nonzero(dq)) == 0, seed
+        assert int(torch.count_nonzero(dk)) == 0, seed
+        if dtype == "bfloat16":
+            assert int(torch.count_nonzero(pq)) == 0
+            assert int(torch.count_nonzero(pk)) == 0
+        _bwd_close(dv, pv)
+        assert float(dv.abs().max()) > 0
 
 
 def _attention_f64(q, k, v):
@@ -932,7 +1000,8 @@ def test_cuda_flash_backward_peaked_fp32():
         assert torch.equal(_bits(x), _bits(y))
 
 
-def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0):
+def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0, **kw):
+    """`kw`: B9's window, softcap and scale."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_lse)
@@ -943,27 +1012,25 @@ def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0):
                ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
     q = q * q_mult
     dout = torch.randn((b, s, h, d), generator=g).to(dt).cuda()
-    out, lse = flash_attention_lse(q, k, v, causal=causal)
-    assert torch.equal(_bits(out),
-                       _bits(flash_attention(q, k, v, causal=causal)))
-    _, lse_plain = flash_attention_plain(q, k, v, causal=causal,
-                                         return_lse=True)
+    kw = dict(causal=causal, **kw)
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(_bits(out), _bits(flash_attention(q, k, v, **kw)))
+    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True, **kw)
     assert float((lse - lse_plain).abs().max()) <= 1e-5 * q_mult
     before = flash_attention_backward.launches
-    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
+    got = flash_attention_backward(q, k, v, out, lse, dout, **kw)
     assert flash_attention_backward.launches == before + 1
-    want = flash_attention_backward_plain(q, k, v, out, lse, dout,
-                                          causal=causal)
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         _bwd_close(x, y)
-    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_backward(q, k, v, out, lse, dout, **kw)
     for x, y in zip(got, again):
         assert torch.equal(_bits(x), _bits(y))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     f0, b0 = flash_attention.launches, flash_attention_backward.launches
-    grads = torch.autograd.grad(flash_attention(*leaves, causal=causal),
-                                leaves, dout)
+    grads = torch.autograd.grad(flash_attention(*leaves, **kw), leaves,
+                                dout)
     assert flash_attention.launches == f0 + 1
     assert flash_attention_backward.launches == b0 + 1
     for x, y in zip(grads, got):
@@ -1003,6 +1070,43 @@ def test_cuda_train_step_smoke_matches_cpu_and_repeats():
         step = make_train_step(m, total_steps=10)
         for t in toks:
             state, _ = step(state, {"tokens": t})
+        runs.append([x.cpu() for x in pytree.leaves(state)])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= \
+            1e-3 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_gemma2_train_steps_smoke_match_cpu_and_repeat():
+    """gemma2's smoke model with a window of 5 and a softcap of 2.0
+    (fp32 compute, grad_accum 2, a sequence of 24 past the window): two
+    train steps on the card repeat bitwise, launch B9's gradient once a
+    layer a microbatch, and land within 1e-3 of each leaf's largest
+    magnitude of the same steps on the CPU (plain versions), as the
+    minitron test above."""
+    from repro_torch import random as prng
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward)
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = smoke_config("gemma2-27b").replace(
+        compute_dtype="float32", sliding_window=5, attn_softcap=2.0)
+    toks = [np.random.default_rng(i).integers(0, cfg.vocab_size, (4, 24))
+            for i in range(2)]
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        m = Model(cfg)
+        state = init_train_state(m, prng.PRNGKey(0), device=device)
+        step = make_train_step(m, total_steps=10)
+        before = flash_attention_backward.launches
+        for t in toks:
+            state, _ = step(state, {"tokens": t})
+        if device == "cuda":
+            assert flash_attention_backward.launches - before == \
+                2 * cfg.grad_accum * cfg.n_layers
         runs.append([x.cpu() for x in pytree.leaves(state)])
     assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
     for a, b in zip(runs[0], runs[2]):

@@ -225,10 +225,11 @@ def test_flash_ring_decode_matches_chunked_attention():
 
 
 def test_flash_window_options():
-    """Exact: a window needs causal attention (`ValueError`); a window of
-    0 or less is off, as in the reference; `visible_keys` gives the key
-    range the decode design splits; under autograd a window or a
-    softcap raises `NotImplementedError` naming the next slice."""
+    """Exact: a window needs causal attention (`ValueError`, under
+    autograd too); a window of 0 or less is off, as in the reference;
+    `visible_keys` gives the key range the decode design splits; under
+    autograd a window or a softcap runs B9's gradient, whose forward
+    gives the served forward's bits."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(
         np.random.default_rng(5), 1, 3, 9, 2, 1, 16))
     with pytest.raises(ValueError, match="causal"):
@@ -240,9 +241,12 @@ def test_flash_window_options():
     assert visible_keys(1, 100, True, 10, 16) == (0, 11)
     assert visible_keys(3, 9, False, 0, 0) == (0, 9)
     qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(qg, k, v, causal=False, window=4)
     for kw in (dict(window=4), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            flash_attention(qg, k, v, **kw)
+        out = flash_attention(qg, k, v, **kw)
+        assert out.requires_grad
+        assert torch.equal(out.detach(), flash_attention(q, k, v, **kw))
 
 
 # ------------------------------------------------------- prefill / decode

@@ -213,7 +213,8 @@ def test_b9_autograd_function_pieces():
     """The LSE forward equals the served forward bitwise and its LSE the
     rows' log-sum-exp; the backward's pieces compose (the plain
     autograd function gives the same bits as the wrapper on CPU
-    tensors); q_offset, windows and softcaps raise under autograd."""
+    tensors), also with a window, a softcap and both; a q_offset raises
+    under autograd."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)) for shape in ((2, 20, 4, 16), (2, 20, 2, 16),
@@ -235,9 +236,19 @@ def test_b9_autograd_function_pieces():
     for x, y, z in zip(ga, gb, gc):
         assert torch.equal(x, y) and torch.equal(x, z)
     qg = q.clone().requires_grad_()
-    for kw in (dict(q_offset=3), dict(window=4), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError):
-            flash_attention(qg, k, v, **kw)
+    with pytest.raises(NotImplementedError):
+        flash_attention(qg, k, v, q_offset=3)
+    for kw in (dict(window=4), dict(softcap=30.0),
+               dict(window=4, softcap=2.0)):
+        out, lse = flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(out, flash_attention(q, k, v, **kw))
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        b = [t.clone().requires_grad_() for t in (q, k, v)]
+        ga = torch.autograd.grad(flash_attention(*a, **kw), a, g)
+        gb = torch.autograd.grad(flash_attention_grad_plain(*b, **kw), b, g)
+        gc = flash_attention_backward_plain(q, k, v, out, lse, g, **kw)
+        for x, y, z in zip(ga, gb, gc):
+            assert torch.equal(x, y) and torch.equal(x, z)
 
 
 # ---------------------------------------------------------------------------

@@ -2,13 +2,17 @@
 `chip_smoke.py` times it, with the choices of its bf16 design undone one
 at a time.
 
-    python3 tools/b9bwd_time.py [--root DIR] [--variants] [--hashes]
+    python3 tools/b9bwd_time.py [--root DIR] [--variants [NAME ...]]
+                                [--hashes]
 
 Needs one CUDA card and `nvcc`. Prints the card's name and power limit
 first, then one `[b9bwd]` line per reading and, last, one JSON object of
 the readings.
 
-  (always)    `flash_attention_backward` of DIR's `src/repro_torch`
+  (always)    DIR's kernels built (`build.build_all`; where its
+              gradient's source was built now, each instance's ptxas
+              registers and spills printed), then
+              `flash_attention_backward` of DIR's `src/repro_torch`
               (default: this checkout; its kernels build under
               DIR/build/) at the train step's shape, q, k, v, dO
               [2, 4096, 32, 96] causal (a microbatch of TRAIN_4K at
@@ -22,13 +26,18 @@ the readings.
               kernels traced. Point DIR at an unpacked older commit to
               time its kernels by the same clock; run two checkouts in
               turns (parent, change, change, parent) to compare them.
-  --variants  this checkout's gradient source rebuilt with one choice of
-              the bf16 design undone (VARIANTS), each instance's ptxas
-              registers and spills printed, each held to the same rule
-              at the train shape and at small shapes (MHA, GQA, MQA,
-              every head dim, non-causal, q x8, one row), and timed at
-              the train shape in turns. Each variant replaces exact
-              lines of the source and stops if they are not there.
+  --variants  this checkout's gradient source rebuilt with one choice
+              undone (VARIANTS; the NAMEs given, else all), each
+              instance's ptxas registers and spills printed, each held
+              to the same rule, bf16 and fp32, at the train shape and at
+              small shapes (MHA, GQA, MQA, every head dim, non-causal, q
+              x8, one row; q x8 in bf16 only: in fp32 the rule's 1e-5
+              floor is for gradients of order 1, and that case is held
+              to a float64 oracle by tests/test_torch_cuda.py's
+              `test_cuda_flash_backward_peaked_fp32`), and timed at the
+              train shape in turns, its three kernels traced apart. Each variant replaces exact
+              text of the source (every occurrence) and stops if it is
+              not there; "shipped" (the source as it is) always runs.
   --hashes    SHA-256 prefixes of DIR's B9 outputs on seeded inputs:
               the bf16 and fp32 prefill and LSE forward at the serving
               shape, a decode step, and the fp32 gradient at the train
@@ -55,6 +64,12 @@ KV = "constexpr bool dkdv_kv_regs() { return D <= 96; }"
 COLS = "constexpr int dkdv_cols() { return D >= 96 ? 16 : 32; }"
 LB = "__launch_bounds__(kMmaBwdThreads, kMmaBwdMinBlocks)"
 DQ = "constexpr int kDqCols = 32;"
+CAP_F32 = ("if (softcap > 0.f) tile(std::true_type{});\n"
+           "  else tile(std::false_type{});")
+CAP_KV = ("if (capped) tile(std::true_type{});\n"
+          "      else tile(std::false_type{});")
+CAP_Q = ("if (capped) tile_ds(std::true_type{});\n"
+         "      else tile_ds(std::false_type{});")
 VARIANTS = {
     "shipped": [],
     # dK / dV at D = 96: K and V read from shared memory every step, 32
@@ -66,7 +81,18 @@ VARIANTS = {
     # dQ: 16 or 64 keys a step
     "dq16": [(DQ, DQ.replace("32", "16"))],
     "dq64": [(DQ, DQ.replace("32", "64"))],
+    # every design without its softcap branch: the uncapped tile alone
+    # compiled (what the gradient was before it took the softcap)
+    "no_cap": [(CAP_F32, "tile(std::false_type{});"),
+               (CAP_KV, "tile(std::false_type{});"),
+               (CAP_Q, "tile_ds(std::false_type{});")],
+    # every design without the window's mask tests (its loop bounds kept)
+    "no_window": [("&& (!window || q - key < window)", "&& true"),
+                  ("|| (window && pos - key >= window)", "|| false"),
+                  ("|| (window && q0 + B - 1 - k0 >= window)", "|| false")],
 }
+VARIANTS["no_cap_window"] = VARIANTS["no_cap"] + VARIANTS["no_window"]
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 # (b, s, h, hk, d, causal, q scale): the train shape first
 VARIANT_SHAPES = [(B, S, H, H, D, True, 1.0), (2, 130, 4, 4, 64, True, 1.0),
                   (1, 200, 8, 2, 96, True, 1.0),
@@ -78,24 +104,34 @@ VARIANT_SHAPES = [(B, S, H, H, D, True, 1.0), (2, 130, 4, 4, 64, True, 1.0),
 
 
 def beyond(got, want) -> int:
-    """Elements outside chip_smoke.py's bf16 rule."""
+    """Elements outside chip_smoke.py's rule for their dtype."""
     n = 0
     for x, y in zip(got, want):
+        f32 = x.dtype == torch.float32
         x, y = x.float(), y.float()
-        lim = 2.0 ** -7 * y.abs() + chip_smoke.FLASH_BWD_BF16_ATOL * float(
-            y.abs().max())
+        if f32:
+            lim = chip_smoke.FLASH_BWD_F32[0] \
+                + chip_smoke.FLASH_BWD_F32[1] * y.abs()
+        else:
+            lim = 2.0 ** -7 * y.abs() + chip_smoke.FLASH_BWD_BF16_ATOL \
+                * float(y.abs().max())
         n += int(((x - y).abs() > lim).sum())
     return n
 
 
-def variants(out: dict) -> None:
+def variants(out: dict, only) -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_plain, flash_attention_lse)
     cuh = (build.CSRC / "flash_attention_bwd.cuh").read_text()
     dest = build.BUILD_DIR.parent / "b9bwd_variants"
+    unknown = set(only or ()) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"unknown variants {sorted(unknown)}")
+    chosen = {n: subs for n, subs in VARIANTS.items()
+              if not only or n == "shipped" or n in only}
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in chosen.items():
         text = cuh
         for old, new in subs:
             if old not in text:
@@ -120,58 +156,71 @@ def variants(out: dict) -> None:
         info = chip_smoke.ptxas_info(log)
         regs = {k: f"{v.get('regs', '?').split(',')[0]}; "
                    f"{v.get('spill', '?')}"
-                for k, v in sorted(info.items()) if "_mma" in k}
+                for k, v in sorted(info.items()) if "bwd_" in k}
         out[f"variant {name} ptxas"] = regs
         print(f"[b9bwd] variant {name}: " + " | ".join(
             f"{k} {v}" for k, v in regs.items()), flush=True)
-        fn = ctypes.CDLL(str(dest / name / "lib.so")).flash_attention_bwd_bf16
-        fn.argtypes = build.SIGNATURES["flash_attention_bwd_bf16"][1]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(dest / name / "lib.so"))
+        for tag in DTYPES:
+            sym = f"flash_attention_bwd_{tag.replace('fp32', 'f32')}"
+            fn = getattr(lib, sym)
+            fn.argtypes = build.SIGNATURES[sym][1]
+            fn.restype = ctypes.c_int
+            fns[name, tag] = fn
     stream = torch.cuda.current_stream().cuda_stream
 
     def call(fn, q, k, v, o, lse, do, causal):
         b, sq, h, d = q.shape
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        dd = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        dd = torch.empty((2, b, h, sq), dtype=torch.float32, device="cuda")
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq,
                   k.shape[1], h, k.shape[2], d, d ** -0.5, int(causal),
-                  stream)
+                  0.0, 0, stream)
         if code:
             raise RuntimeError(f"launch failed ({code})")
         return dq, dk, dv
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    cases = []
-    for b, s, h, hk, d, causal, mult in VARIANT_SHAPES:
-        q = (torch.randn((b, s, h, d), generator=g, device="cuda")
-             * mult).to(torch.bfloat16)
-        k, v = (torch.randn((b, s, hk, d), generator=g, device="cuda")
-                .to(torch.bfloat16) for _ in range(2))
-        do = torch.randn((b, s, h, d), generator=g,
-                         device="cuda").to(torch.bfloat16)
-        o, lse = flash_attention_lse(q, k, v, causal=causal)
-        want = flash_attention_backward_plain(q, k, v, o, lse, do,
-                                              causal=causal)
-        cases.append(((q, k, v, o, lse, do, causal), want))
-    for name, fn in fns.items():
-        bad = []
-        for args, want in cases:
-            got = call(fn, *args)
-            again = call(fn, *args)
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            bad.append(beyond(got, want) if same else "not repeatable")
-        out[f"variant {name} beyond"] = bad
-        print(f"[b9bwd] variant {name}: elements beyond the rule per shape "
-              f"{bad}", flush=True)
-    args = cases[0][0]
-    for name, fn in list(fns.items()) + list(fns.items())[::-1]:
-        t = chip_smoke.cuda_ms(lambda: call(fn, *args), 10)
-        out.setdefault(f"variant {name} ms", []).append(t)
-        print(f"[b9bwd] variant {name}: {t:.4f} ms at [{B}, {S}, {H}, {D}]",
-              flush=True)
+    for tag, dtype in DTYPES.items():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        cases = []
+        for b, s, h, hk, d, causal, mult in VARIANT_SHAPES:
+            if tag == "fp32" and mult != 1.0:
+                continue                # held to a float64 oracle instead
+            q = (torch.randn((b, s, h, d), generator=g, device="cuda")
+                 * mult).to(dtype)
+            k, v = (torch.randn((b, s, hk, d), generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            do = torch.randn((b, s, h, d), generator=g,
+                             device="cuda").to(dtype)
+            o, lse = flash_attention_lse(q, k, v, causal=causal)
+            want = flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                  causal=causal)
+            cases.append(((q, k, v, o, lse, do, causal), want))
+        mine = [(n, fn) for (n, t), fn in fns.items() if t == tag]
+        for name, fn in mine:
+            bad = []
+            for args, want in cases:
+                got = call(fn, *args)
+                again = call(fn, *args)
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                bad.append(beyond(got, want) if same else "not repeatable")
+            out[f"variant {name} {tag} beyond"] = bad
+            print(f"[b9bwd] variant {name} {tag}: elements beyond the rule "
+                  f"per shape {bad}", flush=True)
+        args = cases[0][0]
+        for name, fn in mine + mine[::-1]:
+            t = chip_smoke.cuda_ms(lambda: call(fn, *args), 10)
+            split = chip_smoke.kernel_split_ms(lambda: call(fn, *args),
+                                               chip_smoke.BWD_KERNELS)
+            out.setdefault(f"variant {name} {tag} ms", []).append(t)
+            out.setdefault(f"variant {name} {tag} split_ms",
+                           []).append(split)
+            print(f"[b9bwd] variant {name} {tag}: {t:.4f} ms at [{B}, {S}, "
+                  f"{H}, {D}]; kernels {split}", flush=True)
+        del cases, args
+        torch.cuda.empty_cache()
 
 
 def hashes(out: dict) -> None:
@@ -206,14 +255,15 @@ def hashes(out: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    metavar="NAME")
     ap.add_argument("--hashes", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b9bwd_time: CUDA is not available", file=sys.stderr)
         return 2
     root = args.root.resolve()
-    if args.variants and root != HERE:
+    if args.variants is not None and root != HERE:
         raise SystemExit("--variants rebuilds this checkout's source")
     sys.path.insert(0, str(root / "src"))
     for name in [m for m in sys.modules if m.startswith("repro_torch")]:
@@ -226,6 +276,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     out: dict = {"root": str(root)}
+    from repro_torch.kernels import build
+    log = build.build_all().get("flash_attention_bwd")
+    if log is not None:                 # built now: its ptxas report
+        regs = {k: f"{v.get('regs', '?').split(',')[0]}; "
+                   f"{v.get('spill', '?')}"
+                for k, v in sorted(chip_smoke.ptxas_info(log).items())
+                if "bwd_" in k}
+        out["ptxas"] = regs
+        print("[b9bwd] ptxas: " + " | ".join(
+            f"{k} {v}" for k, v in regs.items()), flush=True)
     if args.hashes:
         hashes(out)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -240,8 +300,8 @@ def main() -> int:
               f"{res['ms']:.3f} ms (bound {res['bound_ms']:.3f}); kernels "
               f"{res['split_ms']}; SDPA's backward {res['library_ms']:.3f} "
               f"ms", flush=True)
-    if args.variants:
-        variants(out)
+    if args.variants is not None:
+        variants(out, args.variants)
     print(json.dumps(out))
     return 0
 
