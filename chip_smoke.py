@@ -18,7 +18,8 @@ before it and read just after:
            `kernels.slerp_merge(c0, c1)`, `kernels.ties_merge(...,
            trim_method="quantile")` and `kernels.task_arithmetic_merge`;
   int8   the contributions compressed to int8 on the card, merged on
-         arrival (weight_average, task_arithmetic);
+         arrival (weight_average, task_arithmetic) at 8 of the 32
+         layers (all 32 before the qwen3-moe phase came);
   serve  the model served from a merge: replica A adds the K
          contributions in order and replica B in reverse; each resolves
          `MergeSpec("ties", base_ref=...)` (byte-identical trees), then
@@ -57,6 +58,29 @@ before it and read just after:
           local and global, bf16 and fp32; decode over the ring and the
           global cache).
 
+  qwen3-moe  Qwen3-MoE-30B-A3B (configs/qwen3_moe_30b_a3b.py) at full
+          width and depth: 30,532,110,336 bf16 parameters seeded on the
+          card (61.06 GB), `greedy_decode` twice (batch 4, a 4064-token
+          prompt, 32 tokens; B9 at 32 query heads over 4 KV heads on
+          every attention call, exactly 48 x 33 launches a call; 128
+          routed experts, top-8, the gather dispatch), byte-identical
+          tokens and logits, one decode step and one prefill traced
+          (routing / gather kernels a group of their own); a base and 4
+          contributions at 2 of its layers through two replicas in
+          opposite orders, which resolve histogram TIES and
+          weight_average on the kernel routes (B1, B3-B5) to
+          byte-identical trees and serve the TIES trees to
+          byte-identical tokens and logits; at 2 layers the served
+          forward with B9 against its plain version and the gather
+          dispatch against the einsum one; then the int8 weight average
+          of 2 contributions at 11 of its layers, where each stacked
+          expert leaf holds 2,214,592,512 elements (past 2^31), merged
+          on arrival through B2 with no slice densified and held
+          bitwise against `quant_nary_ref` on windows at its start,
+          across 2^31 and at its end. `[kernels]` holds B9 at Qwen3's
+          shapes (H / HK = 8; prefill bf16 and fp32, decode) and B2 on
+          one such expert leaf, bitwise over the whole output.
+
 The consortium (`[gossip]`, full width, 2 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
 attention update each and a dense fine-tune on nodes 0 and 1 (every
@@ -84,9 +108,9 @@ and 512^2, and the five whole-model strategies on the card against the
 CPU at 512^2.
 
 `[durable]` (inside the main paths, after int8) journals the four int8
-payloads, cut to 4 of their 32 layers (`first_layers`; all 32 before
-the gemma2 phase came), through `Replica(path=)`, reopens it, and syncs
-for real: the
+payloads, cut to 2 of their 32 layers (`first_layers`; 4 before the
+qwen3-moe phase came, all 32 before the gemma2 phase), through
+`Replica(path=)`, reopens it, and syncs for real: the
 recovered replica A, its storage handed to a `SyncNode`, and replica B
 on a `keep_quantized` node run an anti-entropy session over
 `PersistentLoopbackTransport` (B's root equal to A's, every chunk
@@ -124,9 +148,10 @@ in-process resolve (byte-identical; the CLI runs beside `[btm]`).
 `[btm]` runs the reference test's Branch-Train-Merge scenario at full
 width, 2 layers: a round, a branch killed, a straggler, an elastic
 join, every alive branch byte-identical after each merge.
-`[gemma2-train]` runs last: Gemma-2 27B at full width and 2 of its 23
-periods (4 layers, local and global in turn; fp32 parameters and
-moments, 55.1 GB of state, bf16 compute, remat), 3 steps of batch 2 x 8192 in
+`[gemma2-train]` runs last: Gemma-2 27B at full width and 1 of its 23
+periods (2 layers, a local and a global one; 2 periods before the
+[qwen3-moe] phase came; fp32 parameters and moments, 37.0 GB of state,
+bf16 compute, remat), 3 steps of batch 2 x 8192 in
 microbatches of 1, every attention call on B9's forward and gradient
 with the softcap and, on the local sub-layer, the 4096-key window; the
 last step traced, and a run resumed from a checkpoint written after
@@ -141,6 +166,7 @@ Needs CUDA, the CUDA toolkit's `nvcc`, and the repository's `src/`.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -285,20 +311,43 @@ GEMMA2 = "gemma2-27b"
 G2_BATCH, G2_PROMPT, G2_GEN = 2, 8160, 32
 G2_MERGE_LAYERS, G2_K, G2_PLAIN_LAYERS = 2, 2, 2
 # [gemma2-train]: Gemma-2 27B trained at full width (fp32 parameters and
-# AdamW moments, bf16 compute, each sub-layer under remat) at 2 of its 23
-# periods (4 layers, each period a local and a global sub-layer:
-# 3,444,650,496 parameters, 55.1 GB of parameters, moments and gradients;
-# an H100 read a peak of 69.47 GB with the logits stage of a microbatch at
-# a vocabulary of 256,000; a third period's 18.1 GB would not fit), batch
-# 2 x 8192 (its context, so the local layers' 4096-key window binds in the
-# backward; at 4096 it would not) in microbatches of 1; 3 steps, the last
-# traced; a checkpoint written after step 2 and restored, step 3 again
-G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 2, 3
+# AdamW moments, bf16 compute, each sub-layer under remat) at 1 of its 23
+# periods (2 layers, a local and a global sub-layer: 2,312,151,552
+# parameters, 37.0 GB of parameters, moments and gradients; 2 periods,
+# 55.1 GB and a peak of 69.47 GB on an H100, until the [qwen3-moe] phase
+# needed their time: the resume's checkpoint is 27.7 GB rather than
+# 41.3), batch 2 x 8192 (its context, so the local layers' 4096-key
+# window binds in the backward; at 4096 it would not) in microbatches of
+# 1; 3 steps, the last traced; a checkpoint written after step 2 and
+# restored, step 3 again
+G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 1, 3
 G2_TRAIN_BATCH, G2_TRAIN_SEQ, G2_TRAIN_ACCUM = 2, 8192, 2
-# [durable] journals and syncs the int8 payloads of 4 of Phi-3-mini's 32
-# layers (all 32 before gemma2's phase, 16 in its first runs): it is
-# host-bound, and the [gemma2] phase needs its time under the limit
-DURABLE_LAYERS = 4
+# [durable] journals and syncs the int8 payloads of 2 of Phi-3-mini's 32
+# layers (4 before the [qwen3-moe] phase, all 32 before gemma2's, 16 in
+# its first runs): it is host-bound, and the later phases need its time
+# under the limit
+DURABLE_LAYERS = 2
+# [main] int8 merges the four int8 payloads at 8 of the 32 layers (all
+# 32 before the [qwen3-moe] phase): its planning digests each payload's
+# dequantized leaves on the host, 39 s of the script at full depth
+INT8_LAYERS = 8
+# [qwen3-moe]: Qwen3-MoE-30B-A3B (configs/qwen3_moe_30b_a3b.py) served at
+# full width and depth in bf16 (30,532,110,336 parameters, 61.06 GB) at
+# Phi-3-mini's serving shape: batch 4, a 4064-token prompt, 32 greedy
+# tokens; a base and Q3_K contributions merged through two replicas at
+# Q3_MERGE_LAYERS of its 48 layers (5 models at full depth would be 305
+# GB); at Q3_PLAIN_LAYERS B9 against its plain version and the gather
+# dispatch against the einsum one; and the int8 weight average of
+# Q3_INT8_K contributions at Q3_INT8_LAYERS layers, where each stacked
+# expert leaf holds 11 x 128 x 2048 x 768 = 2,214,592,512 elements,
+# past 2^31 (a bf16 merge of 2 at that depth needs ~82 GB), each expert
+# leaf held against `quant_nary_ref` on windows of Q3_WINDOW elements
+QWEN3 = "qwen3-moe-30b-a3b"
+Q3_MERGE_LAYERS, Q3_K, Q3_PLAIN_LAYERS = 2, 4, 2
+Q3_INT8_LAYERS, Q3_INT8_K = 11, 2
+Q3_WINDOW = 1 << 20
+EXPERT_LEAVES = tuple(f"['blocks']['sub0']['ffn']['experts']['{w}']"
+                      for w in ("w_down", "w_gate", "w_up"))
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -778,6 +827,8 @@ def phase_kernels(cfg) -> dict:
     phase_perleaf_kernels(rows, g)
     phase_flash_kernel(rows, cfg, g)
     phase_gemma2_flash_kernel(rows, g)
+    phase_qwen3_flash_kernel(rows, g)
+    phase_qwen3_quant_kernel(rows, g)
     phase_flash_backward(rows, cfg, g)
     phase_gemma2_flash_backward(rows, g)
     return rows
@@ -1301,6 +1352,10 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "gossip": (),
                 "serve": ("flash_attention",),
                 "gemma2": ("flash_attention",),
+                "qwen3-moe": ("flash_attention",),
+                "qwen3-moe merge": ("nary_accum", "block_amax",
+                                    "block_hist", "ties_block"),
+                "qwen3-moe int8": ("quant_nary",),
                 "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
@@ -1581,13 +1636,30 @@ def phase_main_path(cfg) -> dict:
         f"{time.perf_counter() - t0:.1f} s "
         f"({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads)")
     del ordered, rep
+    # the int8 merges run at INT8_LAYERS of the 32 layers: the payloads
+    # and the base cut (`first_layers`), the full ones freed
+    cts = [first_layers(ct, INT8_LAYERS) for ct in cts]
+    qbase = first_layers(base, INT8_LAYERS)
     torch.cuda.empty_cache()
-    qids = [int8_eid(e) for e in order]
+    qids = [int8_eid(e, INT8_LAYERS) for e in order]
     qcache = engine.EngineCache()
+
+    def qmerge(name, cfgd, uses_base):
+        def thunk():
+            out = engine.merge(cts, spec=MergeSpec(name, cfgd),
+                               contrib_ids=qids,
+                               base=qbase if uses_base else None,
+                               seed=seed, kernels=True, use_cache=False,
+                               cache=qcache)
+            check_output(name, out, qbase)
+        return thunk
+
     # the first int8 merge pays for planning: digests of the four
     # payloads, dequantized one leaf at a time
+    log(f"[main] int8 path at {INT8_LAYERS} of {cfg.n_layers} layers "
+        f"({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads)")
     paths["int8"] = run_path("int8", [
-        (name, merge_of(cts, qids, name, cfgd, ub, cache=qcache))
+        (name, qmerge(name, cfgd, ub))
         for name, cfgd, ub in QUANT_STRATEGIES], Dispatches(qcache.obs))
     plan = engine.plan_for(cts, contrib_ids=qids, spec=MergeSpec(
         "weight_average"))
@@ -1614,7 +1686,7 @@ def phase_main_path(cfg) -> dict:
     # the phase frees the base, and the payloads: DURABLE_LAYERS of them
     held = {"base": first_layers(base, DURABLE_LAYERS)}
     dcts = [first_layers(ct, DURABLE_LAYERS) for ct in cts]
-    del base, cts
+    del base, qbase, cts
     torch.cuda.empty_cache()
     paths["durable"] = phase_durable(
         dcts, [int8_eid(e, DURABLE_LAYERS) for e in order], held)
@@ -1914,11 +1986,18 @@ def check_served(label: str, tokens, logits, cfg, batch: int = SERVE_BATCH,
                              "the vocabulary")
 
 
+# kernel-name words of the MoE layer's routing and data movement: the
+# router's sort, the positions' scan, the one-hot scatter, and the
+# gathers of the dispatch table, the expert inputs and the combine
+ROUTING_WORDS = ("sort", "scan", "index", "gather", "scatter")
+
+
 def trace_device(label: str, fn, tag: str = "serve",
-                 host: bool = True) -> dict:
+                 host: bool = True, routing: bool = False) -> dict:
     """One warm call of `fn` under `torch.profiler`: its wall time (host
     clock to a synchronize, profiler on), the device time of its kernels
-    by group (B9, B9's gradient where it ran, matrix products, the rest)
+    by group (B9, B9's gradient where it ran, matrix products, with
+    `routing` the MoE routing / gather kernels (ROUTING_WORDS), the rest)
     and its three costliest kernels, the share of the wall time the
     device was idle, and (with `host`) the host's three costliest CUDA
     runtime calls. Without `host` only the device is traced: a train
@@ -1935,7 +2014,8 @@ def trace_device(label: str, fn, tag: str = "serve",
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    groups = {"B9": 0.0, "B9 bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"B9": 0.0, "B9 bwd": 0.0, "matmul": 0.0, "routing": 0.0,
+              "other": 0.0}
     runtime: dict = {}
     kernels: dict = {}
     n = 0
@@ -1952,7 +2032,8 @@ def trace_device(label: str, fn, tag: str = "serve",
                                                 "bwd_dot")) else
             "matmul" if any(w in name for w in ("nvjet", "gemm", "gemv",
                                                 "cutlass", "xmma")) else
-            "other")
+            "routing" if routing and any(w in name for w in ROUTING_WORDS)
+            else "other")
         ms = ev.time_range.elapsed_us() / 1e3
         groups[key] += ms
         kernels[ev.name[:40]] = kernels.get(ev.name[:40], 0.0) + ms
@@ -1967,9 +2048,11 @@ def trace_device(label: str, fn, tag: str = "serve",
                          sorted(d.items(), key=lambda kv: -kv[1])[:3])
 
     bwd = f", B9 bwd {groups['B9 bwd']:.2f}" if groups["B9 bwd"] else ""
+    rt = f", routing/gather {groups['routing']:.2f}" if routing else ""
     log(f"[{tag}] {label}, traced: wall {wall:.2f} ms; {n} kernels, device "
         f"busy {busy:.2f} ms (B9 {groups['B9']:.2f}{bwd}, matmuls "
-        f"{groups['matmul']:.2f}, other {groups['other']:.2f}); device idle "
+        f"{groups['matmul']:.2f}{rt}, other {groups['other']:.2f}); device "
+        "idle "
         f"{max(0.0, 1 - busy / wall):.3f} of the wall time; costliest "
         f"kernels {top(kernels)}; host runtime calls "
         + (top(runtime) if host else "not traced"))
@@ -2107,31 +2190,49 @@ def phase_serve_vs_plain(cfg) -> None:
                     "serve-vs-plain")
 
 
-def served_vs_plain(cfg, batch: dict, tag: str) -> None:
+def served_vs_plain(cfg, batch: dict, tag: str, other=None,
+                    what: str = "B9 vs plain") -> None:
     """`greedy_decode` of 8 tokens with B9 and with its plain version
     (`flash_attention_plain`) on the same bf16 weights
     (`init_from_schema`), in bf16 and fp32 compute: per row, the logits
     within SERVE_LOGIT_LIMIT[cd] at every step while both runs' tokens
     agree, and the tokens equal at every step whose top-2 margin exceeds
-    it."""
+    it. `other(cfg)` gives the model to compare with instead (the MoE
+    layer's einsum dispatch against its gather one).
+
+    With routed experts (`cfg.moe`) a router input a rounding apart can
+    send a token to another expert where two of its probabilities tie,
+    and that moves the output by a whole expert's difference: each run's
+    routing is recorded (`moe_routes`), a row is compared only at the
+    steps before its first routing difference (a token sent to another
+    set of experts), and at that difference every token routed otherwise
+    must have been a near tie (the first run's k-th and (k+1)-th
+    probabilities within FLIP_GAP[cd] of the k-th)."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     from repro_torch.train.serve import greedy_decode
+    if other is None:
+        def other(c):
+            return Model(c, attention=flash_attention_plain)
     params = init_from_schema(Model(cfg).schema(), seed=SEED,
                               device=DEVICE, dtype=torch.bfloat16)
     nb, prompt = batch["tokens"].shape
     steps = 8
     for cd in ("bfloat16", "float32"):
         c = cfg.replace(compute_dtype=cd)
-        kt, kl = greedy_decode(Model(c), params, batch, steps,
-                               return_logits=True)
-        pt, pl = greedy_decode(Model(c, attention=flash_attention_plain),
-                               params, batch, steps, return_logits=True)
+        with moe_routes() as ra:
+            kt, kl = greedy_decode(Model(c), params, batch, steps,
+                                   return_logits=True)
+        with moe_routes() as rb:
+            pt, pl = greedy_decode(other(c), params, batch, steps,
+                                   return_logits=True)
         limit = SERVE_LOGIT_LIMIT[cd]
+        upto, flips = first_route_flips(ra, rb, nb, cfg.n_layers, steps)
+        flip_ok = all(gap <= FLIP_GAP[cd] for _, _, gap, _ in flips)
         worst, compared, bad = 0.0, 0, []
         for r in range(nb):
-            for i in range(steps + 1):
+            for i in range(upto[r]):
                 worst = max(worst, float((kl[i][r] - pl[i][r]).abs().max()))
                 if i == steps:
                     break
@@ -2143,19 +2244,84 @@ def served_vs_plain(cfg, batch: dict, tag: str) -> None:
                     bad.append((r, i))
                     break
         share = float((kt == pt).float().mean())
-        ok = worst <= limit and not bad
-        log(f"[{tag}] {cfg.name} {cd} compute, {cfg.n_layers} layers, batch "
+        ok = worst <= limit and not bad and flip_ok
+        firsts = [(r, i, f"{g:.2e}", t) for r, i, g, t in flips]
+        routing = "" if not cfg.moe else (
+            f"; routing identical in every call of {nb - len(flips)} of "
+            f"{nb} rows" + (f", first differences (row, step, largest "
+                            f"relative top-k gap, limit {FLIP_GAP[cd]}; "
+                            f"tokens routed otherwise) {firsts}, rows "
+                            f"compared up to steps {upto}"
+                            if flips else ""))
+        log(f"[{tag}] {cfg.name} {what}, {cd} compute, {cfg.n_layers} "
+            "layers, batch "
             f"{nb}, prompt {prompt}, {steps} tokens: logits "
             f"max abs diff {worst:.3e} while the tokens agree (limit "
             f"{limit}); {compared} tokens past the margin rule, "
-            f"{len(bad)} differ; {share:.4f} of all tokens agree: "
+            f"{len(bad)} differ; {share:.4f} of all tokens agree{routing}: "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"served forward with B9 vs plain ({cd}) "
-                                 "outside its limit")
+            raise AssertionError(f"served forward, {what} ({cd}), outside "
+                                 "its limit")
         del kt, kl, pt, pl
     del params
     torch.cuda.empty_cache()
+
+
+# a token routed to other experts by two runs of the served forward must
+# have been a near tie: its k-th and (k+1)-th router probabilities within
+# this share of the k-th. fp32: the two attention versions' outputs
+# differ by ~1e-6 of their size, and move the router's probabilities by
+# as much; bf16: by a bf16 ulp (2^-8) of the router's input, times its
+# logits of a few units
+FLIP_GAP = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Records every router call of the MoE layers (`models.moe._router`)
+    made inside the block: per call the top-k indices [G, s, k] and each
+    token's relative gap between its k-th and (k+1)-th probabilities,
+    (p_k - p_{k+1}) / p_k, recomputed from the same fp32 logits."""
+    from repro_torch.models import moe as MOE
+    real = MOE._router
+    calls = []
+
+    def recorded(p, x, m):
+        out = real(p, x, m)
+        probs = torch.softmax(x.to(torch.float32)
+                              @ p["router"].to(torch.float32), dim=-1)
+        top = probs.topk(m.top_k + 1, dim=-1).values
+        calls.append((out[1], (top[..., -2] - top[..., -1]) / top[..., -2]))
+        return out
+
+    MOE._router = recorded
+    try:
+        yield calls
+    finally:
+        MOE._router = real
+
+
+def first_route_flips(ra, rb, nb: int, n_layers: int, steps: int):
+    """(steps to compare per row, [(row, step, largest relative gap,
+    tokens routed otherwise)] at each row's first routing difference) of
+    two recorded runs of
+    `greedy_decode`: call c runs at step c // n_layers (0 the prefill),
+    one router call per MoE layer. A token is routed otherwise when its
+    set of k experts differs (their order within the top k changes only
+    the order the combine sums in). Without routers every row compares
+    all steps + 1 logits."""
+    upto = [steps + 1] * nb
+    flips = []
+    for c, ((ia, gap), (ib, _)) in enumerate(zip(ra, rb)):
+        diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)  # [G, s]
+        for r in range(nb):
+            if upto[r] == steps + 1 and bool(diff[r].any()):
+                upto[r] = c // n_layers
+                flips.append((r, c // n_layers,
+                              float(gap[r][diff[r]].max()),
+                              int(diff[r].sum())))
+    return upto, flips
 
 
 def phase_gemma2() -> dict:
@@ -2335,6 +2501,420 @@ def phase_gemma2_flash_kernel(rows: dict, g) -> None:
     del q, kv
     torch.cuda.empty_cache()
     rows["flash_attention"].update(cases)
+
+
+def phase_qwen3_moe() -> dict:
+    """`[qwen3-moe]`: Qwen3-MoE-30B-A3B on the card. Full depth: its
+    30,532,110,336 parameters seeded in bf16 (`init_from_schema`, 61.06
+    GB), then `greedy_decode` twice (batch 4, a 4064-token prompt from
+    `make_batch`, 32 tokens; every attention call on B9 at H / HK = 8,
+    exactly 48 x 33 launches a call; every FFN the routed experts of
+    `models.moe`, the gather dispatch), byte-identical tokens and
+    logits; the prefill alone for the split; one decode step and one
+    prefill traced, the routing / gather kernels a group of their own.
+    Merged at Q3_MERGE_LAYERS: a base and Q3_K contributions (base + 0.1
+    x a seeded delta) go to two replicas in opposite orders, each
+    resolves histogram TIES and weight_average on the kernel routes
+    (`engine.merge(..., kernels=True)` over its canonical order, B1 and
+    B3-B5 on the multi-leaf groups, the expert leaves alone in theirs on
+    the exact path) to byte-identical trees, and the TIES trees serve
+    byte-identical tokens and logits; at Q3_PLAIN_LAYERS the served
+    forward with B9 against its plain version, and the gather dispatch
+    against the einsum one. Last, `qwen3_int8`."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.strategies import get_strategy
+    from repro_torch.train.serve import greedy_decode
+    cfg = get_config(QWEN3)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    experts = params["blocks"]["sub0"]["ffn"]["experts"]["w_gate"]
+    log(f"[qwen3-moe] {cfg.name}: {n} bf16 parameters ({n * 2 / 1e9:.2f} "
+        f"GB; {cfg.n_layers} layers of attention ({cfg.n_heads} query / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}) and "
+        f"{cfg.moe.num_experts} experts, top-{cfg.moe.top_k}; a stacked "
+        f"expert leaf {list(experts.shape)}, {experts.numel()} elements) "
+        f"seeded in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del experts
+    batch = serve_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    per_call = cfg.n_layers * (SERVE_GEN + 1)
+    out = {}
+
+    def serve(label, m, p, b=batch):
+        def thunk():
+            out[label] = greedy_decode(m, p, b, SERVE_GEN,
+                                       return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1", model, params)),
+             ("greedy_decode 2", serve("2", model, params))]
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path("qwen3-moe", calls, expect={
+        label: {"flash_attention": per_call} for label, _ in calls})
+    serve_peak = torch.cuda.max_memory_allocated()
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served("qwen3-moe", tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError("[qwen3-moe] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch,
+                                   max_len=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
+    log(f"[qwen3-moe] {cfg.n_layers} layers, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT} (expert capacity {_q3_capacity(cfg, SERVE_PROMPT)} "
+        f"slots a prefill group, {_q3_capacity(cfg, 1)} a decode step), "
+        f"{SERVE_GEN} tokens: {per_call} B9 launches a call; tokens and "
+        f"all {SERVE_GEN + 1} logits byte-identical across the two calls; "
+        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
+        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
+        f"alone) + {decode_ms:.2f} ms per decode step; "
+        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s "
+        f"({SERVE_BATCH * SERVE_GEN / (total - t_prefill):.1f} after the "
+        f"prefill); peak {serve_peak / 1e9:.2f} GB over the two calls; "
+        f"tokens[0] {tok1[0].tolist()}")
+    q3_drops(model, params, batch)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, SERVE_PROMPT), tag="qwen3-moe", routing=True)
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=SERVE_PROMPT + SERVE_GEN), tag="qwen3-moe",
+        routing=True)
+    del params, calls      # the thunks hold the 61 GB of weights too
+    torch.cuda.empty_cache()
+
+    # merged at Q3_MERGE_LAYERS through two replicas on the kernel
+    # routes, then served
+    cfg2 = cfg.replace(n_layers=Q3_MERGE_LAYERS)
+    t0 = time.perf_counter()
+    base, contribs = make_models(cfg2, DEVICE, k=Q3_K)
+    rep_a = Replica("qwen3-a", device=DEVICE)
+    eids = [rep_a.contribute(c) for c in contribs]
+    ref_a = rep_a.register_base(base)
+    rep_b = Replica("qwen3-b", device=DEVICE)
+    for c, eid in zip(contribs[::-1], eids[::-1]):
+        rep_b.contribute(c, eid)
+    ref_b = rep_b.register_base(base)
+    if rep_a.merkle_root() != rep_b.merkle_root() or ref_a != ref_b:
+        raise AssertionError("[qwen3-moe] the two replicas disagree on "
+                             "Layer 1")
+    del contribs
+    log(f"[qwen3-moe] merged, {Q3_MERGE_LAYERS} layers: {Q3_K} "
+        f"contributions + base ({sum(t.numel() for t in pytree.leaves(base))}"
+        f" bf16 parameters a model) on two replicas in "
+        f"{time.perf_counter() - t0:.1f} s")
+    merged = {}
+
+    def kernel_merge(label, rep, ref, name, cfgd, uses_base):
+        def thunk():
+            order = canonical_order(rep.state)
+            spec = MergeSpec(name, cfgd, base_ref=ref if uses_base else None)
+            merged[label] = engine.merge(
+                [rep.state.store[e] for e in order], spec=spec,
+                contrib_ids=order, base=base if uses_base else None,
+                seed=seed_from_root(rep.merkle_root()), kernels=True,
+                use_cache=False, cache=rep.cache)
+            check_output(f"qwen3 {label}", merged[label], base)
+        return thunk
+
+    merges = [(f"{name} {rl}", kernel_merge(f"{name} {rl}", rep, ref, name,
+                                            cfgd, ub))
+              for name, cfgd, ub in (STRATEGIES[2], STRATEGIES[0])
+              for rl, rep, ref in (("A", rep_a, ref_a), ("B", rep_b, ref_b))]
+    merge_path = run_path("qwen3-moe merge", merges)
+    for name in ("ties", "weight_average"):
+        differ = same_bytes(merged[f"{name} A"], merged[f"{name} B"])
+        if differ:
+            raise AssertionError(f"[qwen3-moe] {name}: the replicas' trees "
+                                 f"differ in {differ} leaves")
+    plan = engine.plan_for([rep_a.state.store[e] for e in eids],
+                           contrib_ids=eids,
+                           spec=MergeSpec("weight_average"))
+    groups = engine._dispatch_groups(
+        get_strategy("weight_average"), list(plan.tasks),
+        max(t.stacked_nbytes for t in plan.tasks))
+    log(f"[qwen3-moe] merged, {Q3_MERGE_LAYERS} layers: replicas A and B "
+        "(opposite orders) resolve histogram TIES and weight_average on "
+        "the kernel routes to byte-identical trees; groups "
+        f"{[len(g) for g in groups]} (leaves alone take the exact path)")
+    # the thunks hold the replicas (their contributions) and the base
+    del rep_a, rep_b, base, merges, plan, merged["weight_average A"], \
+        merged["weight_average B"]
+    model2 = Model(cfg2)
+    per2 = cfg2.n_layers * (SERVE_GEN + 1)
+    calls = [(f"greedy_decode merged {rl}",
+              serve(rl, model2, merged[f"ties {rl}"])) for rl in ("A", "B")]
+    served_path = run_path("qwen3-moe", calls, expect={
+        label: {"flash_attention": per2} for label, _ in calls})
+    (ta, la), (tb, lb) = out.pop("A"), out.pop("B")
+    check_served("qwen3-moe merged", ta, la[-1], cfg2, SERVE_BATCH,
+                  SERVE_GEN)
+    if not (torch.equal(ta, tb) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(la, lb))):
+        raise AssertionError("[qwen3-moe] the replicas' merged trees "
+                             "served different tokens or logits")
+    log(f"[qwen3-moe] merged TIES trees serve byte-identical tokens and "
+        f"logits ({per2} B9 launches each); tokens[0] {ta[0].tolist()}")
+    del merged, out, la, lb, calls
+    torch.cuda.empty_cache()
+    cfgp = cfg.replace(n_layers=Q3_PLAIN_LAYERS)
+    served_vs_plain(cfgp, batch, "qwen3-vs-plain")
+    served_vs_plain(cfgp, batch, "qwen3-gather-vs-einsum",
+                    other=lambda c: Model(c, moe_impl="einsum"),
+                    what="gather vs einsum dispatch")
+    int8 = qwen3_int8(cfg)
+    launches = {k: path["launches"][k] + merge_path["launches"][k]
+                + served_path["launches"][k] + int8["launches"][k]
+                for k in path["launches"]}
+    return {"launches": launches,
+            "ms": {**path["ms"], **merge_path["ms"], **served_path["ms"],
+                   **int8["ms"]}}
+
+
+def _q3_capacity(cfg, s: int) -> int:
+    from repro_torch.models.moe import _capacity
+    return _capacity(cfg.moe, s)
+
+
+def q3_drops(model, params, batch) -> None:
+    """The routing of the served prompt's first MoE layer, read apart:
+    the share of assignments dropped at the capacity (prefill groups
+    are batch rows of SERVE_PROMPT tokens)."""
+    from repro_torch import pytree
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    cfg = model.cfg
+    with torch.inference_mode():
+        bp = pytree.tree_map(lambda t: t[0], params["blocks"]["sub0"])
+        x = model._embed(params, batch["tokens"])
+        h = L.rmsnorm(bp["pre_norm"], x, cfg.rms_eps)
+        x = x + model._apply_mixer(model.layout[0], bp, h, mode="train",
+                                   cache=None, pos=None)
+        h = L.rmsnorm(bp["ffn_norm"], x, cfg.rms_eps)
+        _, idx, aux = MOE._router(bp["ffn"], h, cfg.moe)
+        c = _q3_capacity(cfg, x.shape[1])
+        _, keep, _, used = MOE._dispatch(idx, cfg.moe.num_experts, c)
+        dropped = int((~keep).sum())
+        log(f"[qwen3-moe] routing of layer 0 of the served prompt: "
+            f"capacity {c} slots an expert a group; "
+            f"{dropped} of {keep.numel()} assignments dropped "
+            f"({dropped / keep.numel():.4f}); slots used "
+            f"{int(used.sum())} of {used.numel()}; aux {float(aux):.4f}")
+
+
+def qwen3_int8(cfg) -> dict:
+    """The int8 weight average over expert leaves past 2^31 elements:
+    Qwen3-MoE at Q3_INT8_LAYERS of its 48 layers (each stacked expert
+    leaf 11 x 128 x 2048 x 768 = 2,214,592,512 elements), a base and
+    Q3_INT8_K contributions (base + 0.1 x a seeded delta) made on the
+    card and compressed to int8 one at a time, contributed to a
+    `Replica` (eids given) with the base registered, then weight_average
+    through `engine.merge(..., kernels=True)` with a batch cap of two
+    expert leaves, so every group holds more than one leaf and every
+    leaf merges on arrival through B2 (`quant_nary`, no base row: the
+    weight average needs none): engine_quant_leaves_merged_total counts
+    every leaf and no slice is densified. Each expert leaf of the merged
+    tree is held bitwise against `quant_nary_ref` on three block-aligned
+    windows, [0, 2^20), [2^31 - 2^20, 2^31 + 2^20) and [N - 2^20, N), on
+    the payloads' own int8 rows and scales."""
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.core import engine
+    from repro_torch.core.compression import compress_tree
+    from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.kernels.ref import quant_nary_ref
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    cfgq = cfg.replace(n_layers=Q3_INT8_LAYERS)
+    schema = Model(cfgq).schema()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = init_from_schema(schema, seed=SEED, device=DEVICE,
+                            dtype=torch.bfloat16)
+    cts = []
+    for j in range(Q3_INT8_K):
+        delta = init_from_schema(schema, seed=SEED + 1 + j, device=DEVICE,
+                                 dtype=torch.bfloat16)
+        c = pytree.tree_map(lambda b, d: b + d * 0.1, base, delta)
+        del delta
+        cts.append(compress_tree(c))
+        del c
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(base))
+    big = max(t.numel() for t in pytree.leaves(base))
+    log(f"[qwen3-moe] int8, {Q3_INT8_LAYERS} layers: a base ({n} bf16 "
+        f"parameters, {n * 2 / 1e9:.2f} GB; each expert leaf {big} "
+        f"elements, {'past' if big > 2 ** 31 else 'within'} 2^31) and "
+        f"{Q3_INT8_K} contributions made and compressed to int8 on the "
+        f"card ({sum(ct.nbytes() for ct in cts) / 1e9:.2f} GB of payloads) "
+        f"in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    rep = Replica("qwen3-int8", device=DEVICE)
+    t0 = time.perf_counter()
+    for j, ct in enumerate(cts):
+        rep.contribute(ct, int8_eid(f"qwen3-moe contribution {j}",
+                                    Q3_INT8_LAYERS))
+    ref = rep.register_base(base)
+    log(f"[qwen3-moe] int8: {Q3_INT8_K} payloads contributed (eids "
+        "given; planning digests each dequantized leaf) and the base "
+        f"registered ({ref[:16]}…) in {time.perf_counter() - t0:.1f} s")
+    del cts
+    order = canonical_order(rep.state)
+    payloads = [rep.state.store[e] for e in order]
+    cap = 2 * Q3_INT8_K * big
+    disp = Dispatches(rep.cache.obs)
+    merged_before = rep.cache.obs.counter(
+        "engine_quant_leaves_merged_total").value()
+    dequant_before = rep.cache.stats["dequant_leaves"]
+    out = {}
+
+    def thunk():
+        out["tree"] = engine.merge(
+            payloads, spec=MergeSpec("weight_average"), contrib_ids=order,
+            seed=seed_from_root(rep.merkle_root()), kernels=True,
+            use_cache=False, max_batch_bytes=cap, cache=rep.cache)
+
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path("qwen3-moe int8", [("weight_average", thunk)], disp)
+    peak = torch.cuda.max_memory_allocated()
+    tree = out.pop("tree")
+    check_output("qwen3 int8 weight_average", tree, base)
+    nleaves = len(pytree.leaves(base))
+    merged = rep.cache.obs.counter(
+        "engine_quant_leaves_merged_total").value() - merged_before
+    dequant = rep.cache.stats["dequant_leaves"] - dequant_before
+    if merged != nleaves or dequant != 0 or \
+            path["launches"]["quant_nary"] < 1:
+        raise AssertionError(
+            f"[qwen3-moe] int8: {merged} of {nleaves} leaves merged on "
+            f"arrival, {dequant} slices densified, "
+            f"{path['launches']['quant_nary']} quant_nary launches")
+    w = torch.full((Q3_INT8_K,), 1.0 / Q3_INT8_K, dtype=torch.float32,
+                   device=DEVICE)
+    flat = dict(zip(pytree.leaf_paths(pytree.flatten(base)[1]),
+                    pytree.leaves(tree)))
+    qflat = [dict(zip(pytree.leaf_paths(p.treedef), p.leaves))
+             for p in payloads]
+    checked = []
+    for path_ in EXPERT_LEAVES:
+        got = flat[path_].reshape(-1)
+        nn = got.numel()
+        rows = [q[path_] for q in qflat]
+        scales = torch.stack([r.scale for r in rows]).to(torch.float32)
+        for lo, hi in ((0, Q3_WINDOW), (2 ** 31 - Q3_WINDOW,
+                                        2 ** 31 + Q3_WINDOW),
+                       (nn - Q3_WINDOW, nn)):
+            lo, hi = max(lo, 0), min(hi, nn)
+            if lo >= hi:
+                raise AssertionError(f"[qwen3-moe] int8 {path_}: no "
+                                     f"window at [{lo}, {hi})")
+            q = torch.stack([r.q.reshape(-1)[lo:hi] for r in rows])
+            want = quant_nary_ref(q, scales, torch.zeros(
+                hi - lo, dtype=torch.float32, device=DEVICE), w).to(
+                got.dtype)
+            if not torch.equal(bits(got[lo:hi]), bits(want)):
+                raise AssertionError(f"[qwen3-moe] int8 {path_} [{lo}, "
+                                     f"{hi}) != quant_nary_ref")
+            checked.append((lo, hi))
+    log(f"[qwen3-moe] int8 weight_average over {Q3_INT8_K} payloads, "
+        f"{Q3_INT8_LAYERS} layers: {merged:.0f} of {nleaves} leaves merged "
+        f"on arrival (engine_quant_leaves_merged_total), {dequant} slices "
+        f"densified, quant_nary launches {path['launches']['quant_nary']} "
+        f"(batch cap {cap / 1e9:.2f} GB: two expert leaves); peak "
+        f"{peak / 1e9:.2f} GB; each of the {len(EXPERT_LEAVES)} expert "
+        f"leaves bitwise quant_nary_ref on the windows {checked[:3]}")
+    del tree, flat, qflat, payloads, rep, base
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_qwen3_flash_kernel(rows: dict, g) -> None:
+    """B9 at Qwen3-MoE's serving shapes (32 query heads over 4 KV heads
+    of 128: H / HK = 8), held against its plain version and timed beside
+    `scaled_dot_product_attention(enable_gqa=True)`: the prefill's q
+    [4, 4064, 32, 128], k, v [4, 4064, 4, 128], causal, bf16 and fp32;
+    a decode step's q [4, 1, 32, 128] over a 4096-slot cache at
+    q_offset 4063 (the decode design's 16-row instance with 8 rows
+    live)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN3)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cases = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        qkv = [randn(SERVE_BATCH, SERVE_PROMPT, n, d, dtype=dtype)
+               for n in (h, hk, hk)]
+        cases[f"qwen3 prefill {tag}"] = flash_case(
+            *qkv, 0, floor=FLASH_BF16_FLOOR["gemma2"])
+        del qkv
+        torch.cuda.empty_cache()
+    q = randn(SERVE_BATCH, 1, h, d)
+    kv = [randn(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, hk, d)
+          for _ in range(2)]
+    cases["qwen3 decode bf16"] = flash_case(q, *kv, SERVE_PROMPT - 1)
+    del q, kv
+    torch.cuda.empty_cache()
+    rows["flash_attention"].update(cases)
+
+
+def phase_qwen3_quant_kernel(rows: dict, g) -> None:
+    """B2 on a batch of one Qwen3-MoE expert leaf at Q3_INT8_LAYERS
+    layers, Q3_INT8_K int8 rows of 2,214,592,512 elements (past 2^31),
+    without a base row (the weight average's launch): bitwise against
+    its plain version over the whole output, then timed."""
+    from repro_torch.kernels import quant as Q
+    from repro_torch.kernels.config import kernel_env
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN3)
+    dev = torch.device(DEVICE)
+    block = kernel_env.block
+    n = Q3_INT8_LAYERS * cfg.moe.num_experts * cfg.d_model \
+        * cfg.moe.d_ff_expert
+    k = Q3_INT8_K
+    q = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand((k,), generator=g, device=dev) * 1e-3 + 1e-5
+    smeta = scales.expand(n // block, k).contiguous()
+    w = torch.full((k,), 1.0 / k, device=dev)
+    log(f"[kernels] quant_nary on a Qwen3-MoE expert leaf at "
+        f"{Q3_INT8_LAYERS} layers: [{k}, {n}] int8 ({n - 2 ** 31} columns "
+        "past 2^31), no base row")
+    hold_and_time(rows, "quant_nary",
+                  lambda: Q.quant_nary(q, None, smeta, w, block),
+                  lambda: Q.quant_nary_plain(q, None, smeta, w, block),
+                  k * n + n * 4 + smeta.numel() * 4 + k * 4, 4 * k * n,
+                  "src/repro_torch/csrc/quant.cu",
+                  "src/repro/kernels/quant.py:36",
+                  library_note=NO_LIBRARY["quant_nary"],
+                  into="qwen3 expert leaf")
+    del q, smeta
+    torch.cuda.empty_cache()
 
 
 def search_path(ordered, order, base, ref, seed, cache) -> dict:
@@ -3037,9 +3617,9 @@ def phase_durable(cts: list, eids, held: dict) -> dict:
                 weight_average(state, engine.EngineCache()))
 
     # one launch per fused group of the payloads' leaves, at
-    # DURABLE_LAYERS = 4 (the engine's packing: int8 payloads priced at
+    # DURABLE_LAYERS = 2 (the engine's packing: int8 payloads priced at
     # a byte an element, decompressed ones at bf16's two; groups of 5 and
-    # 2 leaves, 5 leaves alone)
+    # 3 leaves, 4 leaves alone; at 4 layers groups of 5 and 2, 5 alone)
     quant = {"quant_nary": 2}
     dense = {"nary_accum": 2}
     try:
@@ -4005,6 +4585,7 @@ def main() -> int:
     serve = timed(phase_serve, cfg)
     timed(phase_serve_vs_plain, cfg)
     gemma2 = timed(phase_gemma2)
+    qwen3 = timed(phase_qwen3_moe)
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
@@ -4016,7 +4597,8 @@ def main() -> int:
     g2train = timed(phase_gemma2_train)
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name] for p in
-                              (main, serve, gemma2, train, btm, g2train))
+                              (main, serve, gemma2, qwen3, train, btm,
+                               g2train))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

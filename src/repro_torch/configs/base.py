@@ -5,8 +5,9 @@ Every architecture is a `ModelConfig` and every workload cell a
 `ShapeSpec`, plain frozen dataclasses copied field for field from the
 reference so the two describe the same model and the same batch. The
 port registers the configurations it can run (the plain dense family:
-Phi-3-mini, MiniCPM-2B, Minitron-8B; and Gemma-2 27B's local/global
-layout); the rest arrive with ROADMAP A7.
+Phi-3-mini, MiniCPM-2B, Minitron-8B; Gemma-2 27B's local/global
+layout; and Qwen3-MoE-30B-A3B's token-choice experts); the rest arrive
+with ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -173,7 +174,8 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma2_27b, minicpm_2b, minitron_8b, phi3_mini_3_8b)
+        gemma2_27b, minicpm_2b, minitron_8b, phi3_mini_3_8b,
+        qwen3_moe_30b_a3b)
 
 
 # ---------------------------------------------------------------------------

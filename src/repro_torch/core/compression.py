@@ -14,8 +14,17 @@ one element id everywhere.
 
 The port keeps `q` as an int8 tensor on the leaf's device and `scale`
 as a 0-dim fp32 tensor beside it: the merge engine's `quant_nary`
-kernel reads the int8 rows in place. Top-k sparsification
-(`topk_sparsify`) is not ported (ROADMAP A5).
+kernel reads the int8 rows in place.
+
+Top-k sparsification of task-vector deltas (`topk_sparsify`,
+`topk_reconstruct`): per leaf, the m = max(1, int(n * k_frac)) entries
+of tau = leaf - base (fp32) with the largest |tau|, ties broken by the
+lower index (a stable sort of -|tau| on the leaf's device, the
+reference's `lexsort` order), as (indices int32 [m] ascending, values
+fp32 [m], n), bit for bit the reference's. The indices are int32 as in
+the reference, so a leaf of more than 2^31 - 1 elements (Qwen3-MoE's
+stacked experts hold 9.66e9) raises `ValueError` where the reference's
+`astype(np.int32)` would wrap (ROADMAP C).
 """
 from __future__ import annotations
 
@@ -102,3 +111,45 @@ def compressed_tree_from_structure(structure: Any) -> CompressedTree:
     if not all(isinstance(leaf, CompressedLeaf) for leaf in leaves):
         raise TypeError("structure leaves must all be CompressedLeaf")
     return CompressedTree(leaves, treedef)
+
+
+# ---------------------------------------------------------------------------
+# Top-k sparsification of task-vector deltas
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _topk_leaf(x: torch.Tensor, b: torch.Tensor, k_frac: float):
+    tau = (x.to(torch.float32) - b.to(torch.float32)).reshape(-1)
+    n = tau.numel()
+    if n > _INT32_MAX:
+        raise ValueError(
+            f"a leaf of {n} elements: top-k indices are int32, which "
+            f"address at most {_INT32_MAX} elements")
+    m = max(1, int(n * k_frac))
+    order = torch.sort(-tau.abs(), stable=True).indices[:m]
+    idx = torch.sort(order).values
+    return idx.to(torch.int32), tau[idx], n
+
+
+def topk_sparsify(tree: Any, base: Any, k_frac: float = 0.05) -> Any:
+    """Per leaf: keep the top k_frac fraction of |leaf - base| entries.
+
+    Returns a pytree of (indices int32 [m], values fp32 [m], size)
+    tuples, the tensors on the leaf's device. Deterministic: ties are
+    broken by index (a stable sort of -|tau|). Raises `ValueError` for a
+    leaf of more than 2^31 - 1 elements."""
+    return pytree.tree_map(lambda x, b: _topk_leaf(x, b, k_frac), tree,
+                           base)
+
+
+def topk_reconstruct(sparse_tree: Any, base: Any) -> Any:
+    """base + the scattered values, per leaf, in fp32 and the base's
+    shape."""
+    def leaf(b: torch.Tensor, sp) -> torch.Tensor:
+        idx, vals, size = sp
+        tau = torch.zeros((size,), dtype=torch.float32, device=b.device)
+        tau[idx.long()] = vals.to(torch.float32)
+        return (b.to(torch.float32).reshape(-1) + tau).reshape(b.shape)
+    return pytree.tree_map(leaf, base, sparse_tree)

@@ -10,6 +10,8 @@
 // fp32 base once and the fp32 output written once, at 4 flops per stacked
 // element. The dequantized stack never exists in device memory: each
 // thread widens its int8 values in registers.
+// A null `base` is a zero base: the kernel reads none (weight_average over
+// int8 payloads), with the same arithmetic as over a row of zeros.
 // Design: one thread owns 16 adjacent columns (one 16-byte load per row),
 // all in one `block`-wide tile, so one scale per row serves all 16; it
 // loops over the k rows in index order with the fp32 accumulator in
@@ -36,7 +38,12 @@ __global__ void quant_nary_kernel(const int8_t* __restrict__ q,
     const long long c = v * VEC;
     const float* srow = scale_meta + (c / block) * k;
     float b[VEC], acc[VEC];
-    merge::load_row<VEC>(base + c, b);
+    if (base != nullptr) {
+      merge::load_row<VEC>(base + c, b);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) b[j] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
     for (int i = 0; i < k; ++i) {
@@ -65,7 +72,7 @@ __global__ void quant_nary_kernel(const int8_t* __restrict__ q,
 }  // namespace
 
 // `np` and `block` must be multiples of 16 and every pointer 16-byte
-// aligned (the Python wrapper checks all three).
+// aligned (the Python wrapper checks all three); `base` may be null.
 extern "C" int quant_nary(const void* q, const void* base,
                           const void* scale_meta, const void* w, void* out,
                           int k, long long np, int block, void* stream) {

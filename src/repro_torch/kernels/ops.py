@@ -54,13 +54,16 @@ def _kernel_dtype(x: torch.Tensor) -> torch.dtype:
 
 def _flat_batch(leaves: Sequence[Rows],
                 base_leaves: Sequence[Optional[torch.Tensor]],
-                block: int, dtype: Optional[torch.dtype] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor, List[int], List[int]]:
+                block: int, dtype: Optional[torch.dtype] = None,
+                zero_base: bool = True
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor], List[int],
+                           List[int]]:
     """(stacked [k, Np], base [Np] fp32, lengths, offsets): leaf j's
     rows start at column offsets[j], zero-padded to a block multiple; a
     None base leaf stays zero. The stack keeps fp32 and bf16 rows as
     they are and widens any other type to fp32, unless `dtype` names its
-    type."""
+    type. Without `zero_base`, a batch whose base leaves are all None
+    gets base None (no zero row is made)."""
     lengths = [int(rows[0].numel()) for rows in leaves]
     _, _, total = batch_layout(lengths, block)
     first = leaves[0][0]
@@ -68,7 +71,8 @@ def _flat_batch(leaves: Sequence[Rows],
         dtype = _kernel_dtype(first)
     k = len(leaves[0])
     stacked = torch.zeros((k, total), dtype=dtype, device=first.device)
-    base = torch.zeros((total,), dtype=torch.float32, device=first.device)
+    base = None if not zero_base and all(b is None for b in base_leaves) \
+        else torch.zeros((total,), dtype=torch.float32, device=first.device)
     offsets = []
     off = 0
     for rows, b, n in zip(leaves, base_leaves, lengths):
@@ -143,18 +147,20 @@ def quant_batch_merge(q_leaves: Sequence[Rows],
                       block: Optional[int] = None) -> List[torch.Tensor]:
     """int8 merge-on-arrival over many leaves in one `quant_nary`
     launch. `q_leaves[j]`: leaf j's k int8 rows; `scales[j]`: [k] fp32
-    dequantization scales; `weights`: k scalars. Bitwise per leaf equal
-    to `ref.quant_nary_ref`. Returns unpadded fp32 1-D tensors."""
+    dequantization scales; `weights`: k scalars; base leaves all None
+    launch the kernel without a base row (a zero base). Bitwise per leaf
+    equal to `ref.quant_nary_ref`. Returns unpadded fp32 1-D tensors."""
     block = kernel_env.block if block is None else block
     if q_leaves[0][0].dtype != torch.int8:
         raise TypeError(f"q rows must be int8, got {q_leaves[0][0].dtype}")
-    stacked, base, lengths, offsets = _flat_batch(q_leaves, base_leaves,
-                                                  block, torch.int8)
+    stacked, base, lengths, offsets = _flat_batch(
+        q_leaves, base_leaves, block, torch.int8, zero_base=False)
     leaf_id, _, _ = batch_layout(lengths, block)
-    lid = torch.tensor(leaf_id, dtype=torch.int64, device=base.device)
+    dev = stacked.device
+    lid = torch.tensor(leaf_id, dtype=torch.int64, device=dev)
     scale_meta = torch.stack([s.reshape(-1).to(torch.float32)
                               for s in scales])[lid].contiguous()
-    w = torch.tensor(list(weights), dtype=torch.float32, device=base.device)
+    w = torch.tensor(list(weights), dtype=torch.float32, device=dev)
     out = quant_nary(stacked, base, scale_meta, w, block)
     return _split_flat(out, lengths, offsets)
 

@@ -20,9 +20,15 @@ whose `jnp.sum` order XLA does not pin, the port holds a tolerance.
 
 Layout: `q` [k, Np] int8 holds L leaves, each zero-padded to a multiple
 of `block`; `scale_meta` [Np / block, k] fp32 is each tile's leaf's
-per-contribution scale; `base` [Np] fp32; `weights` [k] fp32.
+per-contribution scale; `base` [Np] fp32, or None for a zero base (the
+kernel then reads no base: weight_average over int8 payloads needs none,
+and a zero fp32 row beside Qwen3-MoE's 2.2e9-element expert leaves would
+take 8.9 GB a leaf); `weights` [k] fp32. Offsets are 64-bit throughout,
+so a batch may pass 2^31 elements.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,10 +38,13 @@ from repro_torch.kernels import build
 _PLAIN_CHUNK = 1 << 24
 
 
-def quant_nary_plain(q: torch.Tensor, base: torch.Tensor,
+def quant_nary_plain(q: torch.Tensor, base: Optional[torch.Tensor],
                      scale_meta: torch.Tensor, weights: torch.Tensor,
                      block: int) -> torch.Tensor:
-    """[Np] fp32; `nary_accum_plain` on the rows dequantized per tile."""
+    """[Np] fp32; `nary_accum_plain` on the rows dequantized per tile
+    (a None base reads as zeros)."""
+    if base is None:
+        base = torch.zeros(q.shape[1], dtype=torch.float32, device=q.device)
     out = torch.empty_like(base)
     nb = q.shape[1] // block
     step = max(1, _PLAIN_CHUNK // block)
@@ -53,39 +62,45 @@ def quant_nary_plain(q: torch.Tensor, base: torch.Tensor,
 
 
 def _check(q, base, scale_meta, weights, block) -> None:
-    if q.dim() != 2 or base.dim() != 1 or weights.dim() != 1 \
-            or scale_meta.dim() != 2:
+    if q.dim() != 2 or (base is not None and base.dim() != 1) \
+            or weights.dim() != 1 or scale_meta.dim() != 2:
         raise ValueError("expected q [k, Np], base [Np], scale_meta "
                          "[nb, k], weights [k]")
     k, np_ = q.shape
     if np_ % block or block % 16:
         raise ValueError(f"Np={np_} must be a multiple of block={block}, "
                          "itself a multiple of 16")
-    if base.shape[0] != np_ or weights.shape[0] != k \
+    if (base is not None and base.shape[0] != np_) \
+            or weights.shape[0] != k \
             or tuple(scale_meta.shape) != (np_ // block, k):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, base "
-                         f"{tuple(base.shape)}, scale_meta "
+                         f"{None if base is None else tuple(base.shape)}, "
+                         "scale_meta "
                          f"{tuple(scale_meta.shape)}, weights "
                          f"{tuple(weights.shape)}")
     if q.dtype != torch.int8:
         raise TypeError(f"q must be int8, got {q.dtype}")
     if not all(t.dtype == torch.float32 for t in (base, scale_meta,
-                                                  weights)):
+                                                  weights)
+               if t is not None):
         raise TypeError("base, scale_meta and weights must be fp32")
 
 
-def quant_nary(q: torch.Tensor, base: torch.Tensor, scale_meta: torch.Tensor,
-               weights: torch.Tensor, block: int) -> torch.Tensor:
+def quant_nary(q: torch.Tensor, base: Optional[torch.Tensor],
+               scale_meta: torch.Tensor, weights: torch.Tensor,
+               block: int) -> torch.Tensor:
     """The int8 n-ary accumulate: the CUDA kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    plain version on CPU tensors. `base` None is a zero base."""
     _check(q, base, scale_meta, weights, block)
-    if build.on_host(q, base, scale_meta, weights):
+    operands = [t for t in (q, base, scale_meta, weights) if t is not None]
+    if build.on_host(*operands):
         return quant_nary_plain(q, base, scale_meta, weights, block)
-    if q.data_ptr() % 16 or base.data_ptr() % 16:
+    if q.data_ptr() % 16 or (base is not None and base.data_ptr() % 16):
         raise ValueError("q and base must be 16-byte aligned")
-    out = torch.empty_like(base)
+    out = torch.empty(q.shape[1], dtype=torch.float32, device=q.device)
     fn = build.function("quant_nary")
-    code = fn(q.data_ptr(), base.data_ptr(), scale_meta.data_ptr(),
+    code = fn(q.data_ptr(), 0 if base is None else base.data_ptr(),
+              scale_meta.data_ptr(),
               weights.data_ptr(), out.data_ptr(), q.shape[0], q.shape[1],
               block, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "quant_nary")

@@ -8,6 +8,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-30b-a3b --smoke --device cpu
 
 Runs on CUDA unless `--device` names another device; without CUDA the
 default raises. Weights come from `init_from_schema(seed=0)`, one seeded
@@ -16,7 +18,9 @@ the reference's); the prompt batch from `make_batch`. At full size that
 bounds what fits one card: gemma2-27b's 27,227,128,320 fp32 parameters
 take 108.9 GB, past an H100's 80 GB, so on one card the CLI serves it
 at smoke size only (`chip_smoke.py` serves the full model from bf16
-weights, `init_from_schema(..., dtype=torch.bfloat16)`, 54.45 GB).
+weights, `init_from_schema(..., dtype=torch.bfloat16)`, 54.45 GB), and
+so is qwen3-moe-30b-a3b (30,532,110,336 parameters: 122.1 GB in fp32,
+61.06 GB in bf16).
 """
 from __future__ import annotations
 

@@ -1,14 +1,19 @@
-"""The dense model family (`repro.models.model`, `family == "dense"`):
-its parameter layout and its serving path, prefill and decode, with
-gemma2's local/global layout.
+"""The dense and MoE model families (`repro.models.model`, `family` of
+"dense", and "moe" without MLA): their parameter layout and their
+serving path, prefill and decode, with gemma2's local/global layout and
+Qwen3-MoE's routed experts.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
 does, in the reference's period layout (`period_layout`): a period of
 sub-layers repeated `n_periods` times, one `blocks/sub{j}` subtree per
 sub-layer whose leaves carry [n_periods, ...]. The plain dense family
-has one sub-layer (`sub0`, n_periods = n_layers); gemma2's
-`local_global_pattern` has two, `sub0` attending within its sliding
-window and `sub1` globally (n_periods = n_layers // 2), and with
+has one sub-layer (`sub0`, n_periods = n_layers), and so does the MoE
+family, whose sub-layer's FFN is `models.moe`'s routed experts
+(`moe_block`, the gather dispatch unless `Model(moe_impl="einsum")`;
+groups are the batch rows, so a decode step routes each row's token
+alone); gemma2's `local_global_pattern` has two, `sub0` attending
+within its sliding window and `sub1` globally (n_periods = n_layers //
+2), and with
 `sandwich_norms` each sub-layer norms its mixer's and its FFN's output
 (`post_mixer_norm`, `post_ffn_norm`) before the residual add. The stack
 runs as a Python loop over periods and, in each, over the sub-layers'
@@ -54,8 +59,13 @@ sub-layer (views that are autograd leaves of their own, so a layer's
 gradient lands in its slice of the stacked gradient without a
 full-size zero tensor per layer).
 
-The MoE, MLA, SSM, hybrid, enc-dec and VLM families wait for ROADMAP
-A7.
+Each MoE sub-layer's router adds its Switch load-balancing term; `loss`
+returns the cross-entropy plus `router_aux_coef` times their sum over
+layers (under remat the term leaves each checkpointed layer beside its
+output), as the reference's `Model.loss` does.
+
+The MLA (DeepSeek-V2), SSM, hybrid, enc-dec and VLM families wait for
+ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -71,19 +81,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import BY_NAME
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.schema import init_from_key, PDef
 
 
 @dataclass(frozen=True)
 class SubLayer:
     mixer: str            # attn (the other mixers wait for ROADMAP A7)
-    ffn: str              # dense
+    ffn: str              # dense | moe
     window: int = 0       # sliding window for attn (0 = global)
 
 
 def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
     """Returns (sub-layers of one period, n_periods) for the stack: the
-    reference's layouts of the dense family."""
+    reference's layouts of the dense family and of MoE without MLA."""
+    if cfg.family == "moe":
+        return [SubLayer("attn", "moe")], cfg.n_layers
     if cfg.local_global_pattern:
         return [SubLayer("attn", "dense", window=cfg.sliding_window),
                 SubLayer("attn", "dense", window=0)], cfg.n_layers // 2
@@ -99,27 +112,31 @@ def _stack(schema: Any, n: int) -> Any:
 
 class Model:
     def __init__(self, cfg: ModelConfig,
-                 attention: Optional[Callable] = None):
-        if cfg.family != "dense" or cfg.pad_heads_to_tp:
+                 attention: Optional[Callable] = None,
+                 moe_impl: str = "gather"):
+        if cfg.family not in ("dense", "moe") or cfg.mla is not None \
+                or cfg.pad_heads_to_tp:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense layouts (plain and gemma2's "
-                "local/global) are ported; the other families wait for "
-                "ROADMAP A7")
+                "local/global) and MoE without MLA are ported; the other "
+                "families wait for ROADMAP A7")
         self.cfg = cfg
         self.compute_dtype = BY_NAME[cfg.compute_dtype]
         self.attention = attention or flash_attention
+        self.moe_impl = moe_impl
         self.layout, self.n_periods = period_layout(cfg)
 
     # ------------------------------------------------------------- schema
 
-    def _sublayer_schema(self) -> dict:
+    def _sublayer_schema(self, sl: SubLayer) -> dict:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         sub: Dict[str, Any] = {
             "pre_norm": L.rmsnorm_def(d),
             "attn": L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02),
             "ffn_norm": L.rmsnorm_def(d),
-            "ffn": L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02),
+            "ffn": (MOE.moe_def(cfg) if sl.ffn == "moe" else
+                    L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02)),
         }
         if cfg.sandwich_norms:
             sub["post_mixer_norm"] = L.rmsnorm_def(d)
@@ -129,8 +146,8 @@ class Model:
     def schema(self) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        period = {f"sub{j}": self._sublayer_schema()
-                  for j in range(len(self.layout))}
+        period = {f"sub{j}": self._sublayer_schema(sl)
+                  for j, sl in enumerate(self.layout)}
         sc: Dict[str, Any] = {
             "embed": PDef((cfg.vocab_size, d), ("tp", None), scale=0.02),
             "final_norm": L.rmsnorm_def(d),
@@ -149,20 +166,23 @@ class Model:
     # ------------------------------------------------------------ training
 
     def loss(self, params, batch):
-        """batch: tokens [B, S]. Returns (loss, {"ce", "aux"}): the causal
-        cross-entropy of the training forward (`_logits`' head, logit
-        multiplier and final softcap, then the mean over B x (S - 1) of
-        logsumexp - the target's logit, computed by `_HeadCE`); aux is 0
-        (no MoE)."""
+        """batch: tokens [B, S]. Returns (loss, {"ce", "aux"}): ce, the
+        causal cross-entropy of the training forward (`_logits`' head,
+        logit multiplier and final softcap, then the mean over B x (S - 1)
+        of logsumexp - the target's logit, computed by `_HeadCE`); aux,
+        the routers' load-balancing terms summed over the MoE layers (0
+        without MoE); loss = ce + router_aux_coef x aux."""
         cfg = self.cfg
         tokens = self._tokens(params, batch["tokens"])
         x = self._embed(params, tokens)
-        x = self._run_stack(params, x, mode="train")
+        x, aux = self._run_stack(params, x, mode="train")
         x, head = self._head_inputs(params, x)
         ce = _HeadCE.apply(x, head, tokens[:, 1:].long(),
                            float(cfg.logit_mult), float(cfg.final_softcap))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce, {"ce": ce, "aux": aux}
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        total = ce + cfg.moe.router_aux_coef * aux if cfg.moe else ce
+        return total, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------- sub-layers
 
@@ -247,6 +267,8 @@ class Model:
 
     def _apply_sublayer(self, sl: SubLayer, p, x, *, mode, cache=None,
                         pos=None):
+        """(x, aux): the sub-layer's output and its router's
+        load-balancing term (None for a dense FFN)."""
         cfg = self.cfg
         # the scale rounded to the residual's dtype, as a weak-typed
         # Python float meets a bf16 array in the reference
@@ -257,10 +279,15 @@ class Model:
             mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.rms_eps)
         x = x + rs * mix
         h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
-        y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
+        aux = None
+        if sl.ffn == "moe":
+            y, aux = MOE.moe_block(p["ffn"], h, cfg, self.compute_dtype,
+                                   impl=self.moe_impl)
+        else:
+            y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
         if cfg.sandwich_norms:
             y = L.rmsnorm(p["post_ffn_norm"], y, cfg.rms_eps)
-        return x + rs * y
+        return x + rs * y, aux
 
     # ------------------------------------------------------------ drivers
 
@@ -269,9 +296,12 @@ class Model:
         order, one layer's views of the stacked leaves at a time.
         `caches`: {"sub{j}": (k, v)} of [n_periods, ...] tensors. In
         training each layer runs under `checkpoint` unless `cfg.remat`
-        is "none" (its activations are recomputed in the backward)."""
+        is "none" (its activations are recomputed in the backward).
+        Returns (x, aux): aux sums the MoE layers' router terms in layer
+        order (None without MoE layers)."""
         blocks = params["blocks"]
         remat = mode == "train" and self.cfg.remat != "none"
+        aux_sum = None
         for i in range(self.n_periods):
             for j, sl in enumerate(self.layout):
                 name = f"sub{j}"
@@ -279,15 +309,17 @@ class Model:
                 bp = sub[i] if isinstance(sub, list) else \
                     pytree.tree_map(lambda t: t[i], sub)
                 if remat:
-                    x = checkpoint(functools.partial(self._train_layer, sl),
-                                   bp, x, use_reentrant=False,
-                                   preserve_rng_state=False)
-                    continue
-                cache = None if caches is None else \
-                    (caches[name][0][i], caches[name][1][i])
-                x = self._apply_sublayer(sl, bp, x, mode=mode, cache=cache,
-                                         pos=pos)
-        return x
+                    x, aux = checkpoint(
+                        functools.partial(self._train_layer, sl), bp, x,
+                        use_reentrant=False, preserve_rng_state=False)
+                else:
+                    cache = None if caches is None else \
+                        (caches[name][0][i], caches[name][1][i])
+                    x, aux = self._apply_sublayer(sl, bp, x, mode=mode,
+                                                  cache=cache, pos=pos)
+                if aux is not None:
+                    aux_sum = aux if aux_sum is None else aux_sum + aux
+        return x, aux_sum
 
     def _train_layer(self, sl, bp, x):
         return self._apply_sublayer(sl, bp, x, mode="train")
@@ -340,8 +372,8 @@ class Model:
         caches = self.init_cache(b, max(max_len or s, s),
                                  device=params["embed"].device)
         x = self._embed(params, tokens)
-        x = self._run_stack(params, x, mode="prefill",
-                            caches=caches["blocks"])
+        x, _ = self._run_stack(params, x, mode="prefill",
+                               caches=caches["blocks"])
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], caches
 
@@ -370,8 +402,8 @@ class Model:
                 f"a decode step of {s} tokens on a sliding-window ring "
                 "cache; step one token at a time")
         x = self._embed(params, tokens)
-        x = self._run_stack(params, x, mode="decode",
-                            caches=caches["blocks"], pos=int(pos))
+        x, _ = self._run_stack(params, x, mode="decode",
+                               caches=caches["blocks"], pos=int(pos))
         return self._logits(params, x)[:, 0], caches
 
     # ------------------------------------------------------------- cache

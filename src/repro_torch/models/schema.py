@@ -12,7 +12,11 @@ two initialisers materialize tensors on a device:
     `torch.Generator` on the device, seeded from the run seed and a hash
     of the leaf's path, so a leaf's values do not depend on which other
     leaves exist or in which order they are made. Its values differ
-    from the reference's: the chip smoke's random full-size models.
+    from the reference's: the chip smoke's random full-size models. A
+    leaf of more than 2^32 elements (Qwen3-MoE's stacked experts, 9.66e9)
+    is drawn one slice of its leading axis at a time, each slice from
+    its own generator, so its fp32 draw never takes more than a slice
+    (a whole draw would take 38.6 GB beside the model).
 """
 from __future__ import annotations
 
@@ -84,6 +88,18 @@ def init_from_key(schema, key: prng.Key, *, device: Any = "cuda") -> dict:
     return out
 
 
+# leaves above this many elements are drawn a leading-axis slice at a
+# time (`init_from_schema`)
+_WHOLE_DRAW_ELEMS = 1 << 32
+
+
+def _draw(shape, seed: int, scale: float, dt, device) -> torch.Tensor:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float32,
+                       device=device).mul_(scale).to(dt)
+
+
 def init_from_schema(schema, *, seed: int, device: Any = "cuda",
                      dtype: Optional[torch.dtype] = None):
     """Materialize parameters from a schema (deterministic per path).
@@ -91,15 +107,21 @@ def init_from_schema(schema, *, seed: int, device: Any = "cuda",
     out = {}
     for path, pdef in _flatten_schema(schema):
         dt = dtype if dtype is not None else BY_NAME[pdef.dtype]
+        n = param_count(pdef)
         if pdef.init == "zeros":
             leaf = torch.zeros(pdef.shape, dtype=dt, device=device)
         elif pdef.init == "ones":
             leaf = torch.ones(pdef.shape, dtype=dt, device=device)
+        elif n > _WHOLE_DRAW_ELEMS and len(pdef.shape) > 1:
+            name = pytree.keystr(path)
+            leaf = torch.empty(pdef.shape, dtype=dt, device=device)
+            for i in range(pdef.shape[0]):
+                leaf[i] = _draw(pdef.shape[1:],
+                                _leaf_seed(seed, f"{name}[{i}]"),
+                                pdef.scale, dt, device)
         else:
-            g = torch.Generator(device=device)
-            g.manual_seed(_leaf_seed(seed, pytree.keystr(path)))
-            leaf = torch.randn(pdef.shape, generator=g, dtype=torch.float32,
-                               device=device).mul_(pdef.scale).to(dt)
+            leaf = _draw(pdef.shape, _leaf_seed(seed, pytree.keystr(path)),
+                         pdef.scale, dt, device)
         _insert(out, path, leaf)
     return out
 

@@ -154,10 +154,11 @@ def make_train_step(model: Model, total_steps: int = 10000,
                 loss.backward()
                 del live, loss
                 if n == 1:
-                    ce_sum, aux_sum = mets["ce"].detach(), mets["aux"]
+                    ce_sum = mets["ce"].detach()
+                    aux_sum = mets["aux"].detach()
                 else:
                     ce_sum = ce_sum + mets["ce"].detach()
-                    aux_sum = aux_sum + mets["aux"]
+                    aux_sum = aux_sum + mets["aux"].detach()
                 if not direct:
                     for a, g in zip(pytree.leaves(acc), pytree.leaves(grads)):
                         a.add_(g.to(acc_dtype))

@@ -20,7 +20,17 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                tile, blocks of 1000 and 4104 columns, k = 40; B4's plan in
                the CUDA source equals `hist_plan`; a stack 2 bytes into
                its buffer, or a block not a multiple of 8, raises
-  quant_nary   B2, k in {1, 3, 4, 16}, leaves around the tile edge
+  quant_nary   B2, k in {1, 3, 4, 16}, leaves around the tile edge, with
+               and without a base row; batches whose element offsets
+               pass 2^31 (a row past 2^31, and a third row starting
+               past it), bitwise over the whole output (skipped, and
+               saying so, on a card with less than 24 GB free)
+  MoE          Qwen3-MoE's smoke block on the card: `moe_gather` and
+               `moe_einsum` give the same bytes on two calls, the
+               dispatch integers (positions, keep, the [G, E, C] table,
+               used slots) equal the CPU's, and the outputs the CPU's
+               within a tolerance; the smoke model's greedy decode on
+               the card gives the CPU's tokens in fp32
   dare_block   B6, fp32 and bf16, seeds near the uint32 wrap
   ties_leaf    B7, k in {1, 2, 4} (and 16), fp32 and bf16, a ragged leaf
   slerp        B8 reduce and combine, fp32 and bf16, u == v included
@@ -146,6 +156,38 @@ def test_cuda_quant_nary_equals_plain(k):
     got = quant.quant_nary(*args, BLOCK)
     assert quant.quant_nary.launches == before + 1
     assert torch.equal(got, quant.quant_nary_plain(*args, BLOCK))
+    # no base row: a zero base, read by neither
+    args[1] = None
+    got = quant.quant_nary(*args, BLOCK)
+    assert torch.equal(got, quant.quant_nary_plain(*args, BLOCK))
+    assert torch.equal(got, quant.quant_nary(
+        args[0], torch.zeros_like(base.cuda()), *args[2:], BLOCK))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1, 2 ** 31 + 2 ** 20),
+                                 (3, 2 ** 30 + 2 ** 20)])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_cuda_quant_nary_past_2_31(k, n, with_base):
+    """B2 over element offsets past 2^31: one row of 2^31 + 2^20
+    columns, and three rows of 2^30 + 2^20 (the third starts past
+    2^31), bitwise equal to the plain version over the whole output.
+    Needs about 24 GB of the card: skipped, saying so, with less free."""
+    need = 24 * 2 ** 30
+    if torch.cuda.mem_get_info()[0] < need:
+        pytest.skip(f"needs {need / 2 ** 30:.0f} GiB free on the card")
+    g = torch.Generator(device="cuda").manual_seed(k)
+    q = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    smeta = (torch.rand((n // BLOCK, k), generator=g, device="cuda")
+             * 1e-3 + 1e-5)
+    w = torch.rand((k,), generator=g, device="cuda")
+    base = torch.randn((n,), generator=g, device="cuda") \
+        if with_base else None
+    got = quant.quant_nary(q, base, smeta, w, BLOCK)
+    want = quant.quant_nary_plain(q, base, smeta, w, BLOCK)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(got[-BLOCK:]).all())
 
 
 @pytest.mark.cuda
@@ -658,6 +700,11 @@ FLASH_SPECS = {
     "decode_pos0": (2, 1, 64, 8, 2, 96, True, 0),
     "decode_full_cache": (2, 1, 4096, 8, 2, 96, True, 4095),
     "decode_gqa4": (2, 1, 4096, 8, 2, 128, True, 3000),
+    # Qwen3-MoE's 32 query heads over 4 KV heads of 128 (H / HK = 8):
+    # a ragged prefill, and decode over a 4096-slot cache at position
+    # 4063 (the 16-row decode instance with 8 rows live)
+    "qwen3_prefill": (2, 300, 300, 32, 4, 128, True, 0),
+    "qwen3_decode": (2, 1, 4096, 32, 4, 128, True, 4063),
 }
 
 
@@ -1494,3 +1541,77 @@ def test_cuda_sim_epidemic_equals_cpu():
         return rounds, g.roots(), log, g.bytes_sent
 
     assert run("cuda") == run("cpu")
+
+
+# ---------------------------------------------------------------- MoE
+
+
+def _moe_case(dtype, cf=0.5):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("qwen3-moe-30b-a3b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 40, 64), generator=g)
+    p = {"router": 0.5 * torch.randn((64, 4), generator=g),
+         "experts": {k: 0.1 * torch.randn(s, generator=g) for k, s in (
+             ("w_gate", (4, 64, 64)), ("w_up", (4, 64, 64)),
+             ("w_down", (4, 64, 64)))}}
+    return cfg, x.to(dtype), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["gather", "einsum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_block_repeats_and_equals_cpu(impl, dtype):
+    """Qwen3-MoE's smoke block with drops (capacity factor 0.5) on the
+    card: two calls give the same bytes; the dispatch integers equal
+    the CPU's exactly; the output equals the CPU's within 1e-5 in fp32
+    and two bf16 ulps of the largest magnitude in bf16 (the two
+    devices' matmuls sum in other orders)."""
+    from repro_torch.models import moe as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, x, p = _moe_case(dtype)
+    fn = M.moe_gather if impl == "gather" else M.moe_einsum
+    pc = pytree.tree_map(lambda t: t.cuda(), p)
+    y1, a1 = fn(pc, x.cuda(), cfg, dtype)
+    y2, a2 = fn(pc, x.cuda(), cfg, dtype)
+    assert torch.equal(_bits(y1), _bits(y2)) and torch.equal(a1, a2)
+    yc, ac = fn(p, x, cfg, dtype)
+    err = float((y1.cpu().float() - yc.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5
+    else:
+        assert err <= 2 * 2.0 ** -7 * float(yc.float().abs().max())
+    assert abs(float(a1) - float(ac)) <= 1e-6
+    _, idx, _ = M._router(p, x, cfg.moe)
+    c = M._capacity(cfg.moe, x.shape[1])
+    want = M._dispatch(idx, cfg.moe.num_experts, c)
+    got = M._dispatch(idx.cuda(), cfg.moe.num_experts, c)
+    assert int((~want[1]).sum()) > 0          # tokens dropped
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_qwen3_smoke_greedy_decode_equals_cpu():
+    """Qwen3-MoE's smoke config, fp32 compute: greedy_decode of 8 tokens
+    past a 24-token prompt on the card launches B9 once per layer per
+    step and gives the CPU's tokens."""
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("qwen3-moe-30b-a3b").replace(compute_dtype="float32")
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+    batch = make_batch(cfg, ShapeSpec("s", 24, 3, "prefill"))
+    want = greedy_decode(model, params, batch, 8)
+    before = flash_attention.launches
+    got = greedy_decode(model, pytree.tree_map(lambda t: t.cuda(), params),
+                        batch, 8)
+    assert flash_attention.launches - before == cfg.n_layers * 9
+    assert got.is_cuda and torch.equal(got.cpu(), want)

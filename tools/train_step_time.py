@@ -93,7 +93,7 @@ def tail_readings(cfg, out: dict, device: str = "cuda") -> None:
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     model = Model(cfg)
-    model._run_stack = lambda params, x, **kw: x       # the tail alone
+    model._run_stack = lambda params, x, **kw: (x, None)   # the tail alone
     cd = model.compute_dtype
     schema = {k: v for k, v in model.schema().items() if k != "blocks"}
     params = init_from_schema(schema, seed=chip_smoke.SEED, device=device,
