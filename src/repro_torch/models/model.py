@@ -1,7 +1,7 @@
-"""The dense and MoE model families (`repro.models.model`, `family` of
-"dense", and "moe" without MLA): their parameter layout and their
-serving path, prefill and decode, with gemma2's local/global layout and
-Qwen3-MoE's routed experts.
+"""The dense, MoE and SSM model families (`repro.models.model`, `family`
+of "dense", "moe" without MLA, and "ssm"): their parameter layout and
+their serving path, prefill and decode, with gemma2's local/global
+layout, Qwen3-MoE's routed experts and Mamba2's SSD mixers.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
 does, in the reference's period layout (`period_layout`): a period of
@@ -13,7 +13,8 @@ family, whose sub-layer's FFN is `models.moe`'s routed experts
 groups are the batch rows, so a decode step routes each row's token
 alone); gemma2's `local_global_pattern` has two, `sub0` attending
 within its sliding window and `sub1` globally (n_periods = n_layers //
-2), and with
+2); the SSM family has one, a Mamba2 mixer (`models.mamba`, its
+parameters under `mixer`) and no FFN; and with
 `sandwich_norms` each sub-layer norms its mixer's and its FFN's output
 (`post_mixer_norm`, `post_ffn_norm`) before the residual add. The stack
 runs as a Python loop over periods and, in each, over the sub-layers'
@@ -21,8 +22,9 @@ views of those leaves, where the reference scans. `Model` stays a class
 over the parameter pytree, as `Replica.resolve` returns it; it runs
 under `torch.inference_mode()` on the device the parameters lie on.
 
-The KV cache has the reference's structure, `{"blocks": {"sub{j}": (k,
-v)}}` with k, v of [n_periods, B, slots, HK, D] in the compute dtype:
+The cache has the reference's structure, `{"blocks": {"sub{j}": (k,
+v)}}` for an attention sub-layer, with k, v of [n_periods, B, slots, HK,
+D] in the compute dtype:
 `max_len` slots for a global sub-layer, min(window, max_len) for a local
 one, a ring buffer once the window fits (slot i holds the newest
 position p with p = i mod window). Prefill allocates it zeroed at
@@ -41,7 +43,14 @@ unless the caller passes a function of its signature. Decode attention
 over a ring needs no mode of its own: every filled slot lies inside the
 window, so the visible slots are 0 .. min(pos, w - 1), B9's causal mask
 at q_offset = min(pos, w - 1) (the reference's `kv_positions = pos -
-(pos - i) mod w`).
+(pos - i) mod w`). A Mamba sub-layer's cache is (ssm, conv): the SSM
+state [n_periods, B, H, P, N] in fp32 and the conv's last d_conv - 1
+inputs [n_periods, B, d_conv - 1, conv_dim] in the compute dtype, both
+written in place by prefill (the prompt's final state) and by each
+decode step (the recurrent update); it has no slots, so no length
+bounds a decode, and a step of more than one token on it raises
+`ValueError` (the reference's recurrent branch reads token 0 alone and
+its reshape then fails).
 
 Training: `init(key)` draws the reference's parameters bit for bit
 (threefry, per leaf `fold_in(key, SHA-256(path)[:4])`); `loss` is the
@@ -64,7 +73,7 @@ returns the cross-entropy plus `router_aux_coef` times their sum over
 layers (under remat the term leaves each checkpointed layer beside its
 output), as the reference's `Model.loss` does.
 
-The MLA (DeepSeek-V2), SSM, hybrid, enc-dec and VLM families wait for
+The MLA (DeepSeek-V2), hybrid, enc-dec and VLM families wait for
 ROADMAP A7.
 """
 from __future__ import annotations
@@ -81,20 +90,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import BY_NAME
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models.schema import init_from_key, PDef
 
 
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str            # attn (the other mixers wait for ROADMAP A7)
-    ffn: str              # dense | moe
+    mixer: str            # attn | mamba (the others wait for ROADMAP A7)
+    ffn: str              # dense | moe | none
     window: int = 0       # sliding window for attn (0 = global)
 
 
 def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
     """Returns (sub-layers of one period, n_periods) for the stack: the
-    reference's layouts of the dense family and of MoE without MLA."""
+    reference's layouts of the dense family, of MoE without MLA and of
+    the SSM family."""
+    if cfg.family == "ssm":
+        return [SubLayer("mamba", "none")], cfg.n_layers
     if cfg.family == "moe":
         return [SubLayer("attn", "moe")], cfg.n_layers
     if cfg.local_global_pattern:
@@ -114,12 +127,12 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None,
                  moe_impl: str = "gather"):
-        if cfg.family not in ("dense", "moe") or cfg.mla is not None \
-                or cfg.pad_heads_to_tp:
+        if cfg.family not in ("dense", "moe", "ssm") \
+                or cfg.mla is not None or cfg.pad_heads_to_tp:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense layouts (plain and gemma2's "
-                "local/global) and MoE without MLA are ported; the other "
-                "families wait for ROADMAP A7")
+                "local/global), MoE without MLA and the SSM family are "
+                "ported; the other families wait for ROADMAP A7")
         self.cfg = cfg
         self.compute_dtype = BY_NAME[cfg.compute_dtype]
         self.attention = attention or flash_attention
@@ -131,16 +144,19 @@ class Model:
     def _sublayer_schema(self, sl: SubLayer) -> dict:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        sub: Dict[str, Any] = {
-            "pre_norm": L.rmsnorm_def(d),
-            "attn": L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02),
-            "ffn_norm": L.rmsnorm_def(d),
-            "ffn": (MOE.moe_def(cfg) if sl.ffn == "moe" else
-                    L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02)),
-        }
+        sub: Dict[str, Any] = {"pre_norm": L.rmsnorm_def(d)}
+        if sl.mixer == "mamba":
+            sub["mixer"] = M.mamba_def(cfg)
+        else:
+            sub["attn"] = L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02)
+        if sl.ffn != "none":
+            sub["ffn_norm"] = L.rmsnorm_def(d)
+            sub["ffn"] = (MOE.moe_def(cfg) if sl.ffn == "moe" else
+                          L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02))
         if cfg.sandwich_norms:
             sub["post_mixer_norm"] = L.rmsnorm_def(d)
-            sub["post_ffn_norm"] = L.rmsnorm_def(d)
+            if sl.ffn != "none":
+                sub["post_ffn_norm"] = L.rmsnorm_def(d)
         return sub
 
     def schema(self) -> dict:
@@ -187,13 +203,27 @@ class Model:
     # --------------------------------------------------------- sub-layers
 
     def _apply_mixer(self, sl: SubLayer, p, x, *, mode, cache, pos):
-        """Attention, plain or within `sl.window`; `mode` is "train",
-        "prefill" or "decode". `cache` (prefill and decode): this
-        layer's (k, v) views of [B, slots, HK, D], written in place.
-        Returns the mixer's output."""
+        """Attention, plain or within `sl.window`, or a Mamba2 mixer;
+        `mode` is "train", "prefill" or "decode". `cache` (prefill and
+        decode): this layer's views, written in place: (k, v) of [B,
+        slots, HK, D], or (ssm, conv) for a Mamba mixer. Returns the
+        mixer's output."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
+        if sl.mixer == "mamba":
+            if mode == "train":
+                return M.mamba_block(p["mixer"], x, cfg, cd)[0]
+            ssm, conv = cache
+            decode = mode == "decode"
+            out, (new_ssm, new_conv) = M.mamba_block(
+                p["mixer"], x, cfg, cd,
+                ssm_state=ssm if decode else None,
+                conv_cache=conv if decode else None,
+                decode_pos=pos if decode else None)
+            ssm.copy_(new_ssm)
+            conv.copy_(new_conv)
+            return out
         if mode == "decode":
             k_cache, v_cache = cache
             k_new, v_new = self._project_kv(p["attn"], x, rope=True,
@@ -268,7 +298,7 @@ class Model:
     def _apply_sublayer(self, sl: SubLayer, p, x, *, mode, cache=None,
                         pos=None):
         """(x, aux): the sub-layer's output and its router's
-        load-balancing term (None for a dense FFN)."""
+        load-balancing term (None for a dense FFN or none)."""
         cfg = self.cfg
         # the scale rounded to the residual's dtype, as a weak-typed
         # Python float meets a bf16 array in the reference
@@ -278,6 +308,8 @@ class Model:
         if cfg.sandwich_norms:
             mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.rms_eps)
         x = x + rs * mix
+        if sl.ffn == "none":
+            return x, None
         h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
         aux = None
         if sl.ffn == "moe":
@@ -384,14 +416,15 @@ class Model:
         Returns (logits [B, V] fp32, caches), the caches written in place.
         Raises `ValueError` when the step's positions pos .. pos + s - 1
         run past the global caches (the reference clamps the slot to the
-        last one), or when a step of s > 1 tokens meets a ring cache.
+        last one), or when a step of s > 1 tokens meets a ring cache or
+        an SSM cache.
         """
         tokens = self._tokens(params, token)
         s = tokens.shape[1]
-        slots = [caches["blocks"][f"sub{j}"][0].shape[2]
-                 for j in range(len(self.layout))]
-        rings = [_is_ring(sl, n) for sl, n in zip(self.layout, slots)]
-        held = [n for n, ring in zip(slots, rings) if not ring]
+        attn = [(sl, caches["blocks"][f"sub{j}"][0].shape[2])
+                for j, sl in enumerate(self.layout) if sl.mixer == "attn"]
+        rings = [_is_ring(sl, n) for sl, n in attn]
+        held = [n for (_, n), ring in zip(attn, rings) if not ring]
         if int(pos) < 0 or (held and int(pos) + s > min(held)):
             raise ValueError(
                 f"decode at position {int(pos)} of {s} token(s) does not "
@@ -401,6 +434,11 @@ class Model:
             raise ValueError(
                 f"a decode step of {s} tokens on a sliding-window ring "
                 "cache; step one token at a time")
+        if s > 1 and len(attn) < len(self.layout):
+            raise ValueError(
+                f"a decode step of {s} tokens on an SSM cache (its "
+                "recurrent update takes one token); step one token at a "
+                "time")
         x = self._embed(params, tokens)
         x, _ = self._run_stack(params, x, mode="decode",
                                caches=caches["blocks"], pos=int(pos))
@@ -411,11 +449,22 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, *,
                    device: Any = "cuda"):
         """Zeroed cache pytree for decode: max_len slots per global
-        sub-layer, min(window, max_len) per local one."""
+        sub-layer, min(window, max_len) per local one, and per Mamba
+        sub-layer its SSM state (fp32) and conv cache."""
         cfg = self.cfg
         kw = dict(dtype=self.compute_dtype, device=device)
         blocks = {}
         for j, sl in enumerate(self.layout):
+            if sl.mixer == "mamba":
+                m = cfg.mamba
+                _, n_heads, conv_dim = M.mamba_dims(cfg)
+                blocks[f"sub{j}"] = (
+                    torch.zeros((self.n_periods, batch_size, n_heads,
+                                 m.head_dim, m.d_state),
+                                dtype=torch.float32, device=device),
+                    torch.zeros((self.n_periods, batch_size, m.d_conv - 1,
+                                 conv_dim), **kw))
+                continue
             slots = min(sl.window, max_len) if sl.window else max_len
             shape = (self.n_periods, batch_size, slots, cfg.n_kv_heads,
                      cfg.resolved_head_dim)

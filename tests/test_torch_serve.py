@@ -500,14 +500,15 @@ def test_serve_cli_defaults_to_cuda():
 def test_model_scope():
     """The families still to port raise, naming ROADMAP A7 (training is
     ported: tests/test_torch_train.py; MoE without MLA since PR 27,
-    tests/test_torch_moe.py, which holds the rest of the refusals).
+    tests/test_torch_moe.py, which holds the rest of the refusals; the
+    SSM family, tests/test_torch_mamba.py).
     Sandwich norms (gemma2's) on this
     config: `Model.init` bitwise the reference's, prefill logits within
     LIMITS in fp32 (tests/test_torch_gemma2.py holds
     gemma2's whole layout). The cache has the reference's structure and
     shapes."""
     with pytest.raises(NotImplementedError, match="A7"):
-        Model(smoke_config(ARCH).replace(family="ssm"))
+        Model(smoke_config(ARCH).replace(family="encdec"))
     cfg, jcfg = _configs(2, "bfloat16")
     scfg, sjcfg = (c.replace(sandwich_norms=True, compute_dtype="float32")
                    for c in (cfg, jcfg))
