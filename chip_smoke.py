@@ -103,6 +103,27 @@ before it and read just after:
           finite (the reference's masked decay gives a NaN gradient at
           chunk 256), every leaf changed, step 1 bitwise on a rerun.
 
+  jamba   Jamba-1.5-Large-398B (configs/jamba_1_5_large_398b.py), the
+          hybrid family, at full width: one period of 4 sub-layers
+          (attention + dense FFN, Mamba + MoE, Mamba + dense FFN, Mamba
+          + MoE: the reference's smoke wiring of the hybrid;
+          22,978,081,664 bf16 parameters, 45.96 GB; the config's own
+          period of 8 is 90.3 GB) seeded on the card, `greedy_decode`
+          twice (batch 4, a 4096-token prompt, 32 tokens; B9 on the
+          attention sub-layer, exactly 33 launches a call),
+          byte-identical tokens and logits, one decode step and one
+          prefill traced; at 2 sub-layers (attention + dense, Mamba +
+          MoE) the served forward with B9 against its plain version,
+          and two fine-tunes that leave the three expert leaves
+          (3,221,225,472 elements each, past 2^31) to the base land on
+          two replicas in opposite orders, which resolve histogram
+          TIES and weight_average on the kernel routes (B1, B3-B5) to
+          byte-identical trees whose expert leaves are the base's own
+          tensors, each held leaf by leaf against the exact route; the
+          TIES trees serve byte-identical tokens and logits.
+          `[kernels]` holds B9 at Jamba's shapes (64 query heads over
+          8 KV heads of 128; prefill and decode, bf16).
+
 The consortium (`[gossip]`, full width, 2 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
 attention update each and a dense fine-tune on nodes 0 and 1 (every
@@ -170,7 +191,7 @@ in-process resolve (byte-identical; the CLI runs beside `[btm]`).
 `[btm]` runs the reference test's Branch-Train-Merge scenario at full
 width, 1 layer: a round, a branch killed, a straggler, an elastic
 join, every alive branch byte-identical after each merge.
-`[gemma2-train]` runs last: Gemma-2 27B at full width and 1 of its 23
+`[gemma2-train]` runs next: Gemma-2 27B at full width and 1 of its 23
 periods (2 layers, a local and a global one; 2 periods before the
 [qwen3-moe] phase came; fp32 parameters and moments, 37.0 GB of state,
 bf16 compute, remat), 3 steps of batch 2 x 8192 in
@@ -179,7 +200,17 @@ with the softcap and, on the local sub-layer, the 4096-key window; the
 last step traced, and a run resumed from a checkpoint written after
 step 2 bitwise the uninterrupted run. `[kernels]` holds B9's gradient
 at that microbatch (local and global, bf16 and fp32) beside
-`flex_attention`'s backward.
+`flex_attention`'s backward. `[qwen3-moe-train]` runs last: the
+Qwen3-MoE smoke model's loss, aux term and gradients on the card
+against the CPU, then Qwen3-MoE-30B-A3B at full width and 4 of its 48
+layers (3,114,813,440 fp32 parameters and moments, 49.8 GB of state,
+bf16 compute, remat) for 3 steps of batch 4 x 4096 in microbatches of
+2 under torch's deterministic mode (the gather dispatch's backward, an
+accumulating index-put, on torch's sorted path), the last traced with
+the routing / gather kernels a group of their own, a run resumed from a
+checkpoint written after step 2 with every leaf's bit fingerprint the
+uninterrupted run's, and one Branch-Train-Merge round at 1 layer whose
+merge is bitwise a `Replica`'s weight_average.
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -400,6 +431,40 @@ M2_TRAIN_BATCH, M2_TRAIN_SEQ, M2_TRAIN_ACCUM, M2_TRAIN_STEPS = 4, 4096, 2, 3
 # other orders); the limits are 5-8 times those
 M2_DUAL_TOL = {"logits": 5e-5, "state": 2e-5, "conv": 1e-5}
 M2_CPU_TOL = {"logits": 5e-5, "state": 2e-5, "conv": 1e-5}
+# [qwen3-moe-train]: Qwen3-MoE-30B-A3B trained at full width (fp32
+# parameters and AdamW moments, bf16 compute, each layer under remat) at
+# Q3_TRAIN_LAYERS of its 48 layers (623.1e6 parameters a layer and
+# 622.3e6 of embedding and head, 16 bytes each: 29.9 GB of state at 2
+# layers, 49.8 GB at 4), batch 4 x 4096 in 2 microbatches, 3 steps, the
+# last traced; a checkpoint written after step 2 and restored, step 3
+# again. Q3_CHECK: the smoke model on the card against the CPU (loss,
+# aux, every gradient; the CPU tests' limits against JAX). Q3_BTM_*: one
+# Branch-Train-Merge round at full width and Q3_BTM_LAYERS layer (each
+# branch holds its own parameters and moments: a base state and two
+# branches of 1.245e9 parameters at 12 bytes, 44.8 GB, two 5.0 GB
+# contributions, the merge and the step's gradients)
+Q3_TRAIN_LAYERS = 4
+Q3_TRAIN_BATCH, Q3_TRAIN_SEQ, Q3_TRAIN_ACCUM, Q3_TRAIN_STEPS = 4, 4096, 2, 3
+Q3_BTM_LAYERS, Q3_BTM_BRANCHES, Q3_BTM_BATCH, Q3_BTM_SEQ = 1, 2, 4, 512
+Q3_CHECK_LIMITS = {"loss": 1e-6, "aux": 1e-6, "grad": 2e-5}
+# [jamba]: Jamba-1.5-Large-398B (configs/jamba_1_5_large_398b.py), the
+# hybrid family, at full width. Served: one period of 4 sub-layers wired
+# as the reference's smoke_config wires the hybrid (attention at 0, MoE
+# at 1 and 3: attention + dense FFN, Mamba + MoE, Mamba + dense FFN,
+# Mamba + MoE), 22,978,081,664 bf16 parameters (45.96 GB; the config's
+# own period of 8 holds 45,137,317,248, 90.3 GB, past the card), batch
+# 4, a 4096-token prompt (a multiple of the 256-token SSD chunk), 32
+# tokens. At JB_MERGE_CUT (attention + dense, Mamba + MoE;
+# 11,898,463,872 parameters, 23.8 GB) the served forward with B9
+# against its plain version, and the merge: a bf16 base and two
+# fine-tunes that touch every leaf but the three expert leaves
+# (2,234,787,456 parameters, 4.47 GB each; an expert leaf holds
+# 3,221,225,472 elements, past 2^31, and a base, two dense
+# contributions and an output would be 4 x 23.8 GB)
+JAMBA = "jamba-1.5-large-398b"
+JB_SERVE_CUT = dict(n_layers=4, hybrid_period=4, hybrid_attn_index=0)
+JB_MERGE_CUT = dict(n_layers=2, hybrid_period=2, hybrid_attn_index=0)
+JB_PROMPT, JB_K = 4096, 2
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -881,6 +946,7 @@ def phase_kernels(cfg) -> dict:
     phase_gemma2_flash_kernel(rows, g)
     phase_qwen3_flash_kernel(rows, g)
     phase_qwen3_quant_kernel(rows, g)
+    phase_jamba_flash_kernel(rows, g)
     phase_flash_backward(rows, cfg, g)
     phase_gemma2_flash_backward(rows, g)
     return rows
@@ -1411,6 +1477,9 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "mamba2": (),
                 "mamba2 merge": ("nary_accum", "block_amax", "block_hist",
                                  "ties_block"),
+                "jamba": ("flash_attention",),
+                "jamba merge": ("nary_accum", "block_amax", "block_hist",
+                                "ties_block"),
                 "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
@@ -1481,19 +1550,30 @@ T8_NODES, T8_SIDE = 10, 64
 T9_SIZES, T9_SIDE = (2, 5, 10, 20, 30, 50), 64
 
 
-def sparse_update(cfg, base, seed: int) -> dict:
-    """An adapter update of the attention leaves by `make_models`'
-    recipe: base + 0.1 x a delta drawn as the schema initialises those
-    leaves from `seed`, in bf16 on the device."""
+def sparse_update(cfg, base, seed: int, keep=None) -> dict:
+    """A fine-tune of the leaves whose keystr path `keep` admits (by
+    default the attention projections, SPARSE_LEAVES: an adapter update)
+    by `make_models`' recipe: base + 0.1 x a delta drawn as the schema
+    initialises those leaves from `seed` (per path, so the same values
+    as in a whole draw), in bf16 on the device."""
     from repro_torch import pytree
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
-    attn = Model(cfg).schema()["blocks"]["sub0"]["attn"]
-    delta = init_from_schema({"blocks": {"sub0": {"attn": attn}}},
-                             seed=seed, device=DEVICE,
-                             dtype=base["embed"].dtype)
-    attn_base = {"blocks": {"sub0": {"attn": base["blocks"]["sub0"]["attn"]}}}
-    return pytree.tree_map(lambda d, b: b + d * 0.1, delta, attn_base)
+    keep = keep or (lambda path: path in SPARSE_LEAVES)
+
+    def kept(node, path=""):
+        if not isinstance(node, dict):
+            return node if keep(path) else None
+        out = {k: kept(v, f"{path}['{k}']") for k, v in node.items()}
+        return {k: v for k, v in out.items() if v is not None} or None
+
+    delta = init_from_schema(kept(Model(cfg).schema()), seed=seed,
+                             device=DEVICE, dtype=base["embed"].dtype)
+    flat, treedef = pytree.flatten_with_path(delta)
+    bleaves = {pytree.keystr(p): t
+               for p, t in pytree.flatten_with_path(base)[0]}
+    return treedef.unflatten([bleaves[pytree.keystr(p)] + d * 0.1
+                              for p, d in flat])
 
 
 def same_bytes(a, b) -> int:
@@ -2111,7 +2191,8 @@ def trace_device(label: str, fn, tag: str = "serve",
         f"{max(0.0, 1 - busy / wall):.3f} of the wall time; costliest "
         f"kernels {top(kernels)}; host runtime calls "
         + (top(runtime) if host else "not traced"))
-    return {"wall_ms": wall, "kernels": n, "groups": groups}
+    return {"wall_ms": wall, "kernels": n, "groups": groups,
+            "by_kernel": kernels}
 
 
 def phase_serve(cfg) -> dict:
@@ -2260,9 +2341,13 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
     and that moves the output by a whole expert's difference: each run's
     routing is recorded (`moe_routes`), a row is compared only at the
     steps before its first routing difference (a token sent to another
-    set of experts), and at that difference every token routed otherwise
-    must have been a near tie (the first run's k-th and (k+1)-th
-    probabilities within FLIP_GAP[cd] of the k-th)."""
+    set of experts; in the stack's last sub-layer, when it is a MoE one,
+    only the compared last position's; in a decode step, only while the
+    two runs have fed the row the same tokens: `first_route_flips`), and
+    at that
+    difference every token routed otherwise must have been a near tie
+    (the first run's k-th and (k+1)-th probabilities within FLIP_GAP[cd]
+    of the k-th)."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
@@ -2270,9 +2355,12 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
     if other is None:
         def other(c):
             return Model(c, attention=flash_attention_plain)
-    params = init_from_schema(Model(cfg).schema(), seed=SEED,
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=SEED,
                               device=DEVICE, dtype=torch.bfloat16)
     nb, prompt = batch["tokens"].shape
+    # router calls a forward: one a MoE sub-layer
+    n_moe = model.n_periods * sum(sl.ffn == "moe" for sl in model.layout)
     steps = 8
     for cd in ("bfloat16", "float32"):
         c = cfg.replace(compute_dtype=cd)
@@ -2283,7 +2371,10 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
             pt, pl = greedy_decode(other(c), params, batch, steps,
                                    return_logits=True)
         limit = SERVE_LOGIT_LIMIT[cd]
-        upto, flips = first_route_flips(ra, rb, nb, cfg.n_layers, steps)
+        same = (kt == pt).to(torch.int32).cumprod(dim=1).sum(dim=1)
+        upto, flips = first_route_flips(ra, rb, nb, n_moe, steps,
+                                        tail=model.layout[-1].ffn == "moe",
+                                        fed=[int(n) for n in same])
         flip_ok = all(gap <= FLIP_GAP[cd] for _, _, gap, _ in flips)
         worst, compared, bad = 0.0, 0, []
         for r in range(nb):
@@ -2357,23 +2448,35 @@ def moe_routes():
         MOE._router = real
 
 
-def first_route_flips(ra, rb, nb: int, n_layers: int, steps: int):
+def first_route_flips(ra, rb, nb: int, n_moe: int, steps: int,
+                      tail: bool = False, fed=None):
     """(steps to compare per row, [(row, step, largest relative gap,
     tokens routed otherwise)] at each row's first routing difference) of
-    two recorded runs of
-    `greedy_decode`: call c runs at step c // n_layers (0 the prefill),
-    one router call per MoE layer. A token is routed otherwise when its
-    set of k experts differs (their order within the top k changes only
-    the order the combine sums in). Without routers every row compares
-    all steps + 1 logits."""
+    two recorded runs of `greedy_decode`: call c runs at step c // n_moe
+    (0 the prefill), one router call per MoE sub-layer, n_moe of them a
+    forward. A token is routed otherwise when its set of k experts
+    differs (their order within the top k changes only the order the
+    combine sums in). With `tail` the stack's last sub-layer is a MoE
+    one: no mixer follows it, so a token it routes otherwise moves only
+    that token's own output, and in its calls only the last position
+    (the one whose logits are compared, and whose token is fed on)
+    counts. `fed[r]`: how many of row r's first generated tokens the two
+    runs share; a decode step's routing is compared only while they
+    have fed the row the same tokens (past the first token that
+    differs, the row's comparison has stopped). Without routers every
+    row compares all steps + 1 logits."""
     upto = [steps + 1] * nb
     flips = []
     for c, ((ia, gap), (ib, _)) in enumerate(zip(ra, rb)):
         diff = (ia.sort(-1).values != ib.sort(-1).values).any(-1)  # [G, s]
+        if tail and c % n_moe == n_moe - 1:
+            diff, gap = diff[:, -1:], gap[:, -1:]
         for r in range(nb):
+            if fed is not None and c // n_moe > fed[r]:
+                continue
             if upto[r] == steps + 1 and bool(diff[r].any()):
-                upto[r] = c // n_layers
-                flips.append((r, c // n_layers,
+                upto[r] = c // n_moe
+                flips.append((r, c // n_moe,
                               float(gap[r][diff[r]].max()),
                               int(diff[r].sum())))
     return upto, flips
@@ -2863,6 +2966,36 @@ def phase_qwen3_flash_kernel(rows: dict, g) -> None:
     rows["flash_attention"].update(cases)
 
 
+def phase_jamba_flash_kernel(rows: dict, g) -> None:
+    """B9 at Jamba-1.5-Large's serving shapes (64 query heads over 8 KV
+    heads of 128: H / HK = 8, as Qwen3's, twice the heads), held against
+    its plain version and timed beside
+    `scaled_dot_product_attention(enable_gqa=True)`: the prefill's q
+    [4, 4096, 64, 128], k, v [4, 4096, 8, 128], causal, bf16; a decode
+    step's q [4, 1, 64, 128] over the 4128-slot cache at q_offset
+    4095."""
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cases = {}
+    qkv = [randn(SERVE_BATCH, JB_PROMPT, n, d) for n in (h, hk, hk)]
+    cases["jamba prefill bf16"] = flash_case(
+        *qkv, 0, floor=FLASH_BF16_FLOOR["gemma2"])
+    del qkv
+    torch.cuda.empty_cache()
+    q = randn(SERVE_BATCH, 1, h, d)
+    kv = [randn(SERVE_BATCH, JB_PROMPT + SERVE_GEN, hk, d) for _ in range(2)]
+    cases["jamba decode bf16"] = flash_case(q, *kv, JB_PROMPT - 1)
+    del q, kv
+    torch.cuda.empty_cache()
+    rows["flash_attention"].update(cases)
+
+
 def phase_qwen3_quant_kernel(rows: dict, g) -> None:
     """B2 on a batch of one Qwen3-MoE expert leaf at Q3_INT8_LAYERS
     layers, Q3_INT8_K int8 rows of 2,214,592,512 elements (past 2^31),
@@ -3165,6 +3298,9 @@ def hold_leaves_vs_exact(tag: str, label: str, exact, kern,
     worst = (0.0, "", 0, 0)
     failed = []
     for (path, e), k in zip(pairs, pytree.leaves(kern)):
+        if e is k:       # one tensor in both trees (a leaf inherited)
+            total += e.numel()
+            continue
         e32, k32 = e.to(torch.float32), k.to(torch.float32)
         d = (e32 - k32).abs()
         n = int((d > LIN_ATOL + LIN_RTOL * e32.abs()).sum())
@@ -3197,8 +3333,9 @@ def merge_and_serve(cfg, k: int, tag: str, batch: dict,
     `make_models`, bf16) at `cfg`'s depth go to two replicas in opposite
     orders (B given A's eids, as a sync delivers them); each resolves
     histogram TIES and weight_average on the kernel routes
-    (`engine.merge(..., kernels=True)` over its canonical order; path
-    f"{tag} merge") to byte-identical trees, each held leaf by leaf
+    (`engine.merge(..., kernels=True)` over its canonical order, with the
+    registered base's leaf digests; path f"{tag} merge") to
+    byte-identical trees, each held leaf by leaf
     against replica A's exact route (`hold_leaves_vs_exact`), and the
     TIES trees serve byte-identical tokens and logits through
     `greedy_decode` (path `tag`, each call launching exactly
@@ -3236,7 +3373,8 @@ def merge_and_serve(cfg, k: int, tag: str, batch: dict,
                 [rep.state.store[e] for e in order], spec=spec,
                 contrib_ids=order, base=base if uses_base else None,
                 seed=seed_from_root(rep.merkle_root()), kernels=True,
-                use_cache=False, cache=rep.cache)
+                use_cache=False, cache=rep.cache,
+                base_digests=rep.base_digests(ref) if uses_base else None)
             check_output(f"{tag} {label}", merged[label], base)
         return thunk
 
@@ -4896,24 +5034,43 @@ def phase_gemma2_train() -> dict:
     G2_TRAIN_PERIODS of its 23 periods (a local sub-layer, window 4096,
     and a global one, each with the attention softcap, sandwich norms;
     the tied 256,000-row embedding, the final softcap), fp32 parameters
-    and moments, bf16 compute, remat, from `init_from_schema`; then
-    G2_TRAIN_STEPS steps of `make_train_step` at batch G2_TRAIN_BATCH x
-    G2_TRAIN_SEQ in microbatches of G2_TRAIN_BATCH / G2_TRAIN_ACCUM on
-    `SyntheticTask` batches. Per step: loss, grad norm, seconds, tokens
-    per second, peak device memory; the last step traced. B9's forward
-    and backward launch exactly as the layers, microbatches and remat
-    ask (the window and softcap on the kernels: B9's gradient raises
-    nowhere and never gives way to its plain version on CUDA tensors).
-    Resume: a checkpoint written after step G2_TRAIN_STEPS - 1, the
-    finished state fingerprinted (`bits_fingerprint`), the checkpoint
-    restored and the last step run again: every leaf's fingerprint the
-    uninterrupted run's."""
+    and moments, bf16 compute, remat, through `train_resume` at batch
+    G2_TRAIN_BATCH x G2_TRAIN_SEQ in G2_TRAIN_ACCUM microbatches (B9's
+    gradient with the window and softcap raises nowhere and never gives
+    way to its plain version on CUDA tensors)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(GEMMA2).replace(n_layers=2 * G2_TRAIN_PERIODS,
+                                     grad_accum=G2_TRAIN_ACCUM)
+    windows = [sl.window for sl in Model(cfg).layout]
+    return train_resume(
+        "gemma2-train", cfg, G2_TRAIN_STEPS, G2_TRAIN_BATCH, G2_TRAIN_SEQ,
+        G2_TRAIN_ACCUM, f"{G2_TRAIN_PERIODS} of 23 periods (sub-layers "
+        f"with windows {windows}; depth cut so that 16 bytes a parameter "
+        f"and the logits stage of a {G2_TRAIN_SEQ}-token microbatch fit "
+        "80 GB)")
+
+
+def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
+                 accum: int, cut: str, routing: bool = False) -> dict:
+    """`cfg` trained on the card at full width (fp32 parameters and
+    moments, bf16 compute, remat) from `init_from_schema`: `steps` steps
+    of `make_train_step` at batch `batch_size` x `seq` in `accum`
+    microbatches on `SyntheticTask` batches. Per step: loss, grad norm,
+    seconds, tokens per second, peak device memory; the last step
+    traced (with `routing`, the MoE routing / gather kernels a group of
+    their own). B9's forward and backward launch exactly as the
+    attention sub-layers, microbatches and remat ask; every parameter
+    leaf changes. Resume: a checkpoint written after step `steps` - 1,
+    the finished state fingerprinted (`bits_fingerprint`), the
+    checkpoint restored and the last step run again: every leaf's
+    fingerprint the uninterrupted run's. Returns {"launches",
+    "traced"}."""
     import gc
     import shutil
     import tempfile
     from repro_torch import kernels, pytree
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.core import engine
     from repro_torch.data.synthetic import SyntheticTask
     from repro_torch.models.model import Model
@@ -4923,8 +5080,6 @@ def phase_gemma2_train() -> dict:
     engine.clear_cache()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(GEMMA2).replace(n_layers=2 * G2_TRAIN_PERIODS,
-                                     grad_accum=G2_TRAIN_ACCUM)
     model = Model(cfg)
     torch.cuda.reset_peak_memory_stats()
     held0 = torch.cuda.memory_allocated()
@@ -4933,29 +5088,26 @@ def phase_gemma2_train() -> dict:
         model.schema(), seed=SEED, device=DEVICE), device=DEVICE)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in pytree.leaves(state["params"]))
-    log(f"[gemma2-train] {cfg.name} at full width, {model.n_periods} of 23 "
-        f"periods (sub-layers with windows "
-        f"{[sl.window for sl in model.layout]}; depth cut so that 16 bytes "
-        f"a parameter and the logits stage of a {G2_TRAIN_SEQ}-token "
-        f"microbatch fit 80 GB), {n:,} parameters {cfg.param_dtype}, "
-        f"moments {cfg.opt_state_dtype}, compute {cfg.compute_dtype}, remat "
-        f"{cfg.remat}: state in {time.perf_counter() - t0:.1f} s, "
+    log(f"[{tag}] {cfg.name} at full width, {cut}, {n:,} parameters "
+        f"{cfg.param_dtype}, moments {cfg.opt_state_dtype}, compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat}: state in "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
         f"({held0 / 1e9:.2f} GB before it)")
     before = leaf_samples(state["params"])
-    step_fn = make_train_step(model, total_steps=G2_TRAIN_STEPS,
-                              grad_accum=G2_TRAIN_ACCUM)
-    task = SyntheticTask(cfg.vocab_size, G2_TRAIN_SEQ, task_id=0)
+    step_fn = make_train_step(model, total_steps=steps, grad_accum=accum)
+    task = SyntheticTask(cfg.vocab_size, seq, task_id=0)
 
     def batch(i):
-        return {"tokens": torch.as_tensor(task.batch(i, G2_TRAIN_BATCH),
+        return {"tokens": torch.as_tensor(task.batch(i, batch_size),
                                           device=DEVICE)}
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_g2ckpt_")
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    traced = {}
     try:
         kernels.reset_launch_counts()
         ckpt_path, t_save = None, 0.0
-        for i in range(G2_TRAIN_STEPS):
+        for i in range(steps):
             b = batch(i)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4965,24 +5117,25 @@ def phase_gemma2_train() -> dict:
                 mets.update(step_fn(state, b)[1])
                 torch.cuda.synchronize()
 
-            last = i == G2_TRAIN_STEPS - 1
+            last = i == steps - 1
             t0 = time.perf_counter()
             if last:
-                trace_device(f"train step {i + 1}", step,
-                             tag="gemma2-train", host=False)
+                traced = trace_device(f"train step {i + 1}", step, tag=tag,
+                                      host=False, routing=routing)
             else:
                 step()
             dt = time.perf_counter() - t0
             loss = float(mets["loss"])
             gnorm = float(mets["grad_norm"])
-            log(f"[gemma2-train] step {i + 1}: loss {loss:.4f}, grad norm "
+            aux = f", aux {float(mets['aux']):.4f}" if cfg.moe else ""
+            log(f"[{tag}] step {i + 1}: loss {loss:.4f}{aux}, grad norm "
                 f"{gnorm:.4f}, {dt:.2f} s{' (traced)' if last else ''}, "
-                f"{G2_TRAIN_BATCH * G2_TRAIN_SEQ / dt:.0f} tokens/s, peak "
+                f"{batch_size * seq / dt:.0f} tokens/s, peak "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
-                raise AssertionError(f"gemma2 train step {i + 1}: loss "
-                                     f"{loss}, grad norm {gnorm}")
-            if i == G2_TRAIN_STEPS - 2:
+                raise AssertionError(f"{tag} step {i + 1}: loss {loss}, "
+                                     f"grad norm {gnorm}")
+            if i == steps - 2:
                 t0 = time.perf_counter()
                 ckpt_path = save_checkpoint(
                     tmp, state, i + 1, metadata={"data_step": i + 1})
@@ -4994,20 +5147,22 @@ def phase_gemma2_train() -> dict:
         if min(shares) == 0.0:
             raise AssertionError(f"a parameter leaf did not change: "
                                  f"{shares}")
-        if int(state["step"]) != G2_TRAIN_STEPS:
+        if int(state["step"]) != steps:
             raise AssertionError(f"step counter {int(state['step'])}")
-        micro = G2_TRAIN_STEPS * G2_TRAIN_ACCUM * cfg.n_layers
+        attn = model.n_periods * sum(sl.mixer == "attn"
+                                     for sl in model.layout)
+        micro = steps * accum * attn
         want = {"flash_attention": micro * (2 if cfg.remat != "none"
                                             else 1),
                 "flash_attention_backward": micro}
         got = {k: counts[k] for k in want}
-        log(f"[gemma2-train] launches {got} (expected {want}: "
-            f"{cfg.n_layers} layers x {G2_TRAIN_ACCUM} microbatches x "
-            f"{G2_TRAIN_STEPS} steps, the forward again in each remat); "
-            f"every parameter leaf changed (shares of sampled elements "
-            f"changed {min(shares):.4f}-{max(shares):.4f})")
+        log(f"[{tag}] launches {got} (expected {want}: {attn} attention "
+            f"layers x {accum} microbatches x {steps} steps, the forward "
+            "again in each remat); every parameter leaf changed (shares "
+            f"of sampled elements changed {min(shares):.4f}-"
+            f"{max(shares):.4f})")
         if got != want:
-            raise AssertionError(f"gemma2 train launches {got} != {want}")
+            raise AssertionError(f"{tag} launches {got} != {want}")
         del before, after
         # resume: the finished state's fingerprints, the checkpoint back
         # on the card (two states do not fit), the last step again
@@ -5022,24 +5177,436 @@ def phase_gemma2_train() -> dict:
                                          device=DEVICE)
         torch.cuda.synchronize()
         t_restore = time.perf_counter() - t0
-        for i in range(int(meta["data_step"]), G2_TRAIN_STEPS):
+        for i in range(int(meta["data_step"]), steps):
             state, _ = step_fn(state, batch(i))
         got = [bits_fingerprint(t) for t in pytree.leaves(state)]
         same = sum(x == y for x, y in zip(got, want))
         size = sum(os.path.getsize(os.path.join(ckpt_path, f))
                    for f in os.listdir(ckpt_path))
-        log(f"[gemma2-train] resume: {G2_TRAIN_STEPS} steps straight vs "
-            f"{G2_TRAIN_STEPS - 1} + save ({size / 1e9:.2f} GB, {t_save:.1f} "
-            f"s) + restore ({t_restore:.1f} s) + 1: {same} of {len(want)} "
-            f"leaves (params, m, v, step) with the uninterrupted run's bit "
-            f"fingerprint (bits_fingerprint, not an element-wise "
+        log(f"[{tag}] resume: {steps} steps straight vs {steps - 1} + save "
+            f"({size / 1e9:.2f} GB, {t_save:.1f} s) + restore "
+            f"({t_restore:.1f} s) + 1: {same} of {len(want)} leaves "
+            "(params, m, v, step) with the uninterrupted run's bit "
+            "fingerprint (bits_fingerprint, not an element-wise "
             f"comparison; {t_print:.1f} s for the state)")
         if same != len(want):
-            raise AssertionError("gemma2: resume differs from the "
+            raise AssertionError(f"{tag}: resume differs from the "
                                  "uninterrupted run")
         del state
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "traced": traced}
+
+
+def phase_jamba() -> dict:
+    """`[jamba]`: Jamba-1.5-Large-398B, the hybrid family, on the card at
+    full width. Served at JB_SERVE_CUT (one period of 4 sub-layers:
+    attention + dense FFN, Mamba + MoE, Mamba + dense FFN, Mamba + MoE)
+    seeded in bf16 (`init_from_schema`, 45.96 GB): `greedy_decode`
+    twice (batch 4, a JB_PROMPT-token prompt, 32 tokens; B9 on the
+    attention sub-layer, 33 launches a call; the SSD on the Mamba
+    sub-layers; the gather dispatch on the MoE FFNs), byte-identical
+    tokens and logits; the prefill alone for the split; one decode step
+    and one prefill traced (routing / gather kernels a group of their
+    own). At JB_MERGE_CUT the served forward with B9 against its plain
+    version (`served_vs_plain`), then `jamba_merge`."""
+    import gc
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.models import mamba
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(JAMBA)
+    cfg = full.replace(**JB_SERVE_CUT)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    d_inner, heads, conv_dim = mamba.mamba_dims(cfg)
+    experts = params["blocks"]["sub1"]["ffn"]["experts"]["w_gate"]
+    log(f"[jamba] {cfg.name}: {n} bf16 parameters ({n * 2 / 1e9:.2f} GB) "
+        f"at full width, one period of "
+        f"{[f'{sl.mixer}+{sl.ffn}' for sl in model.layout]} (the config's "
+        f"{full.n_layers} layers in periods of {full.hybrid_period} hold "
+        f"{count_params(full)[0]}); attention {cfg.n_heads} query / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, RoPE "
+        f"theta {cfg.rope_theta:g} (the reference's default); Mamba "
+        f"d_inner {d_inner}, {heads} heads of {cfg.mamba.head_dim}, "
+        f"d_state {cfg.mamba.d_state}, conv {conv_dim}; "
+        f"{cfg.moe.num_experts} experts of {cfg.moe.d_ff_expert}, top-"
+        f"{cfg.moe.top_k}, a stacked expert leaf {list(experts.shape)} "
+        f"({experts.numel()} elements); seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del experts
+    batch = serve_batch(cfg, SERVE_BATCH, JB_PROMPT)
+    attn = model.n_periods * sum(sl.mixer == "attn" for sl in model.layout)
+    per_call = attn * (SERVE_GEN + 1)
+    out = {}
+
+    def serve(label):
+        def thunk():
+            out[label] = greedy_decode(model, params, batch, SERVE_GEN,
+                                       return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path("jamba", calls, expect={
+        label: {"flash_attention": per_call} for label, _ in calls})
+    serve_peak = torch.cuda.max_memory_allocated()
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served("jamba", tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError("[jamba] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch,
+                                   max_len=JB_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in pytree.leaves(caches)) / 1e9
+    log(f"[jamba] {cfg.n_layers} sub-layers, batch {SERVE_BATCH}, prompt "
+        f"{JB_PROMPT} (expert capacity {_q3_capacity(cfg, JB_PROMPT)} slots "
+        f"a prefill group, {_q3_capacity(cfg, 1)} a decode step), "
+        f"{SERVE_GEN} tokens: {per_call} B9 launches a call; tokens and "
+        f"all {SERVE_GEN + 1} logits byte-identical across the two calls; "
+        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
+        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
+        f"alone) + {decode_ms:.2f} ms per decode step; "
+        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s; cache "
+        f"{cache_gb:.3f} GB (KV, SSM states, conv caches); peak "
+        f"{serve_peak / 1e9:.2f} GB over the two calls; tokens[0] "
+        f"{tok1[0].tolist()}")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, JB_PROMPT), tag="jamba", routing=True)
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=JB_PROMPT + SERVE_GEN), tag="jamba",
+        routing=True)
+    del params, calls      # the thunks hold the weights too
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg2 = full.replace(**JB_MERGE_CUT)
+    served_vs_plain(cfg2, batch, "jamba-vs-plain")
+    merged = jamba_merge(cfg2, batch)
+    launches = {k: path["launches"][k] + merged["launches"][k]
+                for k in path["launches"]}
+    return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
+
+
+def jamba_merge(cfg, batch: dict) -> dict:
+    """The merge of the paper's sparse contributions at `cfg`'s cut: a
+    bf16 base and JB_K fine-tunes of every leaf but the three expert
+    leaves (`sparse_update`) land on two replicas in opposite orders
+    (`contribute(..., leaves=...)`, B given A's eids); each resolves
+    histogram TIES and weight_average on the kernel routes
+    (`engine.merge(..., kernels=True, coverages=...)` over its canonical
+    order, with the registered base's leaf digests; B1 and B3-B5 on the
+    covered leaves' groups) to byte-identical trees whose expert leaves
+    are the base's own tensors (inherited, not copied); each tree held
+    leaf by leaf against replica A's exact `Replica.resolve`
+    (`hold_leaves_vs_exact`); the TIES trees served byte-identical."""
+    import gc
+    from repro_torch import pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.core import engine
+    from repro_torch.core.hashing import leaf_paths_of
+    from repro_torch.core.resolve import canonical_order, seed_from_root
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    tag = "jamba"
+    t0 = time.perf_counter()
+    base = init_from_schema(Model(cfg).schema(), seed=SEED, device=DEVICE,
+                            dtype=torch.bfloat16)
+    tunes = [sparse_update(cfg, base, SEED + 1 + j,
+                           keep=lambda path: "['experts']" not in path)
+             for j in range(JB_K)]
+    cov = leaf_paths_of(tunes[0])
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    rep_a = Replica(f"{tag}-a", device=DEVICE)
+    t0 = time.perf_counter()
+    eids = [rep_a.contribute(t, leaves=cov) for t in tunes]
+    t_contrib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_a = rep_a.register_base(base)
+    t_base = time.perf_counter() - t0
+    rep_b = Replica(f"{tag}-b", device=DEVICE)
+    for t, eid in zip(tunes[::-1], eids[::-1]):
+        rep_b.contribute(t, eid, leaves=cov)
+    ref_b = rep_b.register_base(base)
+    if rep_a.merkle_root() != rep_b.merkle_root() or ref_a != ref_b:
+        raise AssertionError(f"[{tag}] the two replicas disagree on Layer 1")
+    paths = [pytree.keystr(p) for p, _ in pytree.flatten_with_path(base)[0]]
+    inherited = [i for i, p in enumerate(paths) if p not in set(cov)]
+    n_base = sum(t.numel() for t in pytree.leaves(base))
+    n_tune = sum(t.numel() for t in pytree.leaves(tunes[0]))
+    where = f"merged at {cfg.n_layers} sub-layers"
+    log(f"[{tag}] {where}: a base of {n_base} bf16 parameters and {JB_K} "
+        f"fine-tunes of {n_tune} ({len(cov)} of {len(paths)} leaves; the "
+        f"{len(inherited)} expert leaves left to the base) made in "
+        f"{t_make:.1f} s, contributed to A in {t_contrib:.1f} s, the base "
+        f"registered in {t_base:.1f} s (its leaf digests kept for the "
+        "planner) on each of two replicas")
+    del tunes
+    merged = {}
+
+    def kernel_merge(label, rep, ref, name, cfgd):
+        def thunk():
+            order = canonical_order(rep.state)
+            covs = rep.state.coverage()
+            merged[label] = engine.merge(
+                [rep.state.store[e] for e in order],
+                spec=MergeSpec(name, cfgd), contrib_ids=order, base=base,
+                seed=seed_from_root(rep.merkle_root()), kernels=True,
+                use_cache=False, cache=rep.cache,
+                coverages=[covs.get(e) for e in order],
+                base_digests=rep.base_digests(ref))
+        return thunk
+
+    merges = [(f"{name} {rl}", kernel_merge(f"{name} {rl}", rep, ref, name,
+                                            cfgd))
+              for name, cfgd, _ in (STRATEGIES[2], STRATEGIES[0])
+              for rl, rep, ref in (("A", rep_a, ref_a), ("B", rep_b, ref_b))]
+    merge_path = run_path(f"{tag} merge", merges)
+    base_leaves = pytree.leaves(base)
+    for label, tree in merged.items():
+        check_output(f"{tag} {label}", tree, base)
+        leaves = pytree.leaves(tree)
+        if not all(leaves[i] is base_leaves[i] for i in inherited):
+            raise AssertionError(f"[{tag}] {label}: an expert leaf is not "
+                                 "the base's own tensor")
+    for name in ("ties", "weight_average"):
+        differ = same_bytes(merged[f"{name} A"], merged[f"{name} B"])
+        if differ:
+            raise AssertionError(f"[{tag}] {name}: the replicas' trees "
+                                 f"differ in {differ} leaves")
+    for name, cfgd, _ in (STRATEGIES[2], STRATEGIES[0]):
+        t0 = time.perf_counter()
+        exact = rep_a.resolve(MergeSpec(name, cfgd, base_ref=ref_a),
+                              use_cache=False)
+        t_exact = time.perf_counter() - t0
+        if not all(pytree.leaves(exact)[i] is base_leaves[i]
+                   for i in inherited):
+            raise AssertionError(f"[{tag}] exact {name}: an expert leaf is "
+                                 "not the base's own tensor")
+        hold_leaves_vs_exact(tag, f"{where}, {name} (exact resolve "
+                             f"{t_exact:.1f} s)", exact,
+                             merged[f"{name} A"], ties=name == "ties")
+        del exact
+    log(f"[{tag}] {where}: replicas A and B (opposite orders) resolve "
+        "histogram TIES and weight_average on the kernel routes to "
+        f"byte-identical trees; the {len(inherited)} expert leaves "
+        f"({sum(base_leaves[i].numel() for i in inherited)} elements) are "
+        "the base's tensors in every tree, the resolve copies none")
+    del rep_a, rep_b, merges, merged["weight_average A"], \
+        merged["weight_average B"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg)
+    out = {}
+
+    def serve(rl):
+        def thunk():
+            out[rl] = greedy_decode(model, merged[f"ties {rl}"], batch,
+                                    SERVE_GEN, return_logits=True)
+        return thunk
+
+    attn = model.n_periods * sum(sl.mixer == "attn" for sl in model.layout)
+    launches = {"flash_attention": attn * (SERVE_GEN + 1)}
+    calls = [(f"greedy_decode merged {rl}", serve(rl)) for rl in ("A", "B")]
+    served = run_path(tag, calls, expect={label: launches for label, _ in
+                                          calls})
+    (ta, la), (tb, lb) = out.pop("A"), out.pop("B")
+    check_served(f"{tag} merged", ta, la[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    if not (torch.equal(ta, tb) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(la, lb))):
+        raise AssertionError(f"[{tag}] the replicas' merged trees served "
+                             "different tokens or logits")
+    log(f"[{tag}] merged TIES trees serve byte-identical tokens and logits "
+        f"(launches {launches} each); tokens[0] {ta[0].tolist()}")
+    del merged, out, la, lb, calls, base, base_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {n: merge_path["launches"][n]
+                         + served["launches"][n]
+                         for n in merge_path["launches"]},
+            "ms": {**merge_path["ms"], **served["ms"]}}
+
+
+def phase_qwen3_moe_train() -> dict:
+    """[qwen3-moe-train]: Qwen3-MoE-30B-A3B trained on the card. First
+    `q3_train_check` (the smoke model, card against CPU); then
+    `train_resume` at full width and Q3_TRAIN_LAYERS of its 48 layers
+    (routed experts, the gather dispatch, the routers' aux term in the
+    loss; the train step's deterministic mode gives the gather's
+    backward, an accumulating index-put, torch's sorted path, so the
+    resume is bitwise), the traced step's routing / gather kernels a
+    group of their own; then `q3_btm`."""
+    from repro_torch.configs import get_config
+    q3_train_check()
+    cfg = get_config(QWEN3).replace(n_layers=Q3_TRAIN_LAYERS,
+                                    grad_accum=Q3_TRAIN_ACCUM)
+    out = train_resume(
+        "qwen3-moe-train", cfg, Q3_TRAIN_STEPS, Q3_TRAIN_BATCH,
+        Q3_TRAIN_SEQ, Q3_TRAIN_ACCUM, f"{Q3_TRAIN_LAYERS} of 48 layers "
+        f"(16 bytes a parameter; {cfg.moe.num_experts} experts, top-"
+        f"{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor})",
+        routing=True)
+    t = out["traced"]
+    if t:
+        busy = sum(t["groups"].values())
+        routing = sorted(((k, v) for k, v in t["by_kernel"].items()
+                          if any(w in k.lower() for w in ROUTING_WORDS)),
+                         key=lambda kv: -kv[1])
+        index = sum(v for k, v in routing if "index" in k.lower())
+        log(f"[qwen3-moe-train] the traced step's routing / gather "
+            f"kernels {t['groups']['routing']:.2f} ms, "
+            f"{t['groups']['routing'] / busy:.3f} of the busy "
+            f"{busy:.2f} ms (the deterministic index-put backward's and "
+            f"the gathers' kernels, names with 'index' {index:.2f} ms, "
+            f"{index / busy:.3f}); costliest: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in routing[:4]))
+    btm = q3_btm(cfg)
+    return {"launches": {k: out["launches"][k] + btm["launches"][k]
+                         for k in out["launches"]}}
+
+
+def q3_train_check() -> None:
+    """Qwen3-MoE's smoke model with drops (capacity factor 0.5), the
+    router at 50x its init, fp32 compute, remat: `Model.loss` and its
+    gradients on the card, under the train step's deterministic mode,
+    against the same on the CPU (the kernels' plain versions there):
+    ce and the total within Q3_CHECK_LIMITS["loss"] relative, aux within
+    Q3_CHECK_LIMITS["aux"], each leaf's gradient within
+    Q3_CHECK_LIMITS["grad"] of its largest magnitude (the CPU tests'
+    limits against JAX)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import pytree
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import _deterministic
+    cfg = smoke_config(QWEN3).replace(compute_dtype="float32", remat="full")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=SEED, device="cpu")
+    params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 64))
+    got = []
+    for device in (DEVICE, "cpu"):
+        p = pytree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(), params)
+        with _deterministic(torch.device(device)):
+            loss, mets = model.loss(p, {"tokens": toks})
+            loss.backward()
+        got.append(([float(loss.detach()), float(mets["ce"].detach()),
+                     float(mets["aux"].detach())],
+                    [t.grad.cpu() for t in pytree.leaves(p)]))
+    (lc, gc), (lh, gh) = got
+    rel = [abs(a - b) / abs(b) for a, b in zip(lc[:2], lh[:2])]
+    aux = abs(lc[2] - lh[2])
+    grad = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                1e-30)
+               for a, b in zip(gc, gh))
+    ok = max(rel) <= Q3_CHECK_LIMITS["loss"] and \
+        aux <= Q3_CHECK_LIMITS["aux"] and grad <= Q3_CHECK_LIMITS["grad"]
+    log(f"[qwen3-moe-train] smoke model ({cfg.n_layers} layers, capacity "
+        f"factor 0.5), card vs CPU: loss {lc[0]:.6f} / {lh[0]:.6f} "
+        f"(relative {rel[0]:.2e}), ce {rel[1]:.2e}, aux {lc[2]:.6f} / "
+        f"{lh[2]:.6f} ({aux:.2e}), gradients {grad:.2e} of a leaf's "
+        f"largest magnitude at worst over {len(gc)} leaves (limits "
+        f"{Q3_CHECK_LIMITS}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("qwen3-moe train check: card vs CPU outside "
+                             "the limits")
+
+
+def q3_btm(cfg) -> dict:
+    """One Branch-Train-Merge round of Qwen3-MoE at full width and
+    Q3_BTM_LAYERS layer: Q3_BTM_BRANCHES branches from one seeded base
+    (each its own parameters and moments), a train step each at batch
+    Q3_BTM_BATCH x Q3_BTM_SEQ, contributions gossiped, every branch
+    resolving weight_average: the branches byte-identical, gossip
+    converged, and the merged model bitwise what the port's `Replica`
+    resolves over the same contributions under their eids."""
+    import gc
+    from repro_torch import kernels, pytree
+    from repro_torch.api import MergeSpec, Replica
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.btm import BranchTrainMerge
+    gc.collect()
+    torch.cuda.empty_cache()
+    bc = cfg.replace(n_layers=Q3_BTM_LAYERS)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    btm = BranchTrainMerge(
+        bc, n_branches=Q3_BTM_BRANCHES, strategy="weight_average",
+        merge_every=1, batch_size=Q3_BTM_BATCH, seq_len=Q3_BTM_SEQ,
+        device=DEVICE, params=init_from_schema(Model(bc).schema(),
+                                               seed=SEED, device=DEVICE))
+    t_setup = time.perf_counter() - t0
+    contributed = []
+    for node in btm.net.nodes:
+        def spy(c, *a, _fn=node.contribute, **k):
+            eid = _fn(c, *a, **k)
+            contributed.append((c, eid))
+            return eid
+        node.contribute = spy
+    t0 = time.perf_counter()
+    rec = btm.train_round()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    first = pytree.leaves(btm.branches[0].state["params"])
+    same = all(all(torch.equal(bits(x), bits(y)) for x, y in
+                   zip(first, pytree.leaves(b.state["params"])))
+               for b in btm.branches[1:])
+    conv = btm.net.converged()
+    rep = Replica("qwen3-btm-check", device=DEVICE)
+    for c, eid in contributed:
+        rep.contribute(c, eid)
+    merged = rep.resolve(MergeSpec("weight_average"))
+    equal = all(torch.equal(bits(x), bits(y.to(x.dtype)))
+                for x, y in zip(first, pytree.leaves(merged)))
+    n = sum(t.numel() for t in first)
+    log(f"[qwen3-moe-train] btm: {Q3_BTM_BRANCHES} branches at "
+        f"{Q3_BTM_LAYERS} layer ({n:,} fp32 parameters a branch, set up "
+        f"in {t_setup:.1f} s), one round of a step each (batch "
+        f"{Q3_BTM_BATCH} x {Q3_BTM_SEQ}) and a merge in {dt:.1f} s, peak "
+        f"{peak / 1e9:.2f} GB; losses "
+        + ", ".join(f"{i}: {v:.4f}" for i, v in sorted(rec["losses"].items()))
+        + f"; branches byte-identical: {same}; gossip converged: {conv}; "
+        f"the merge bitwise a Replica's weight_average over the "
+        f"{len(contributed)} contributions: {equal}")
+    if not (same and conv and equal and len(contributed) == Q3_BTM_BRANCHES):
+        raise AssertionError("qwen3-moe btm round: branches, gossip or the "
+                             "Replica's resolve disagree")
+    counts = kernels.launch_counts()
+    del btm, rep, merged, first, contributed
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": counts}
@@ -5072,6 +5639,7 @@ def main() -> int:
     gemma2 = timed(phase_gemma2)
     qwen3 = timed(phase_qwen3_moe)
     mamba2 = timed(phase_mamba2)
+    jamba = timed(phase_jamba)
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
@@ -5081,10 +5649,11 @@ def main() -> int:
     btm = timed(phase_btm, cfg)
     timed(phase_merge_cli, pending)
     g2train = timed(phase_gemma2_train)
+    q3train = timed(phase_qwen3_moe_train)
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name] for p in
-                              (main, serve, gemma2, qwen3, mamba2, train,
-                               btm, g2train))
+                              (main, serve, gemma2, qwen3, mamba2, jamba,
+                               train, btm, g2train, q3train))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -33,7 +33,7 @@ deployment. `detach()` takes state and storage back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -42,7 +42,8 @@ from repro_torch.api.spec import MergeSpec
 from repro_torch.core.compression import (
     CompressedLeaf, CompressedTree, to_device)
 from repro_torch.core.engine import CacheInfo, EngineCache
-from repro_torch.core.hashing import pytree_digest
+from repro_torch.core.hashing import (pytree_digest,
+                                     pytree_digest_and_leaves)
 from repro_torch.core.state import CRDTMergeState
 from repro_torch.core.trust import TrustState
 from repro_torch.obs import MetricsRegistry
@@ -80,6 +81,7 @@ class Replica:
         self.cache = cache if cache is not None else EngineCache(
             obs=self.obs)
         self._bases: Dict[str, Any] = {}
+        self._base_digests: Dict[str, Tuple[bytes, ...]] = {}
         self._node = None                  # attached net.SyncNode
         self._storage = None               # core.journal.DurableStore
         self._closed = False
@@ -205,9 +207,18 @@ class Replica:
         """Pin a base model; returns its content ref for
         `MergeSpec(base_ref=...)`."""
         payload = self._to_device(payload)
-        ref = pytree_digest(payload).hex()
+        digest, leaves = pytree_digest_and_leaves(payload)
+        ref = digest.hex()
         self._bases[ref] = payload
+        self._base_digests[ref] = tuple(leaves)
         return ref
+
+    def base_digests(self, ref: str) -> Tuple[bytes, ...]:
+        """A registered base's leaf digests in flatten order (taken once,
+        at `register_base`), for a caller that merges through the engine
+        itself: `engine.merge(..., base_digests=...)` then hashes no
+        base leaf."""
+        return self._base_digests[ref]
 
     # --------------------------------------------------------- resolve
 
@@ -224,6 +235,7 @@ class Replica:
                 f"MergeSpec({spec!r}) — not {type(spec).__name__}")
         from repro_torch.core.resolve import resolve_spec
         verify_base = True
+        digests = None
         if base is None and spec.base_ref is not None:
             try:
                 base = self._bases[spec.base_ref]
@@ -232,13 +244,16 @@ class Replica:
                     f"base_ref {spec.base_ref[:16]}… not registered on "
                     "this replica; call register_base(payload) first"
                     ) from None
-            # keyed by its digest at register_base time: no re-hash
+            # keyed by its digest at register_base time: no re-hash,
+            # neither of the whole base nor of its leaves
             verify_base = False
+            digests = self._base_digests[spec.base_ref]
         elif base is not None:
             base = self._to_device(base)
         return resolve_spec(self.state, spec, base=base, trust=self.trust,
                             fetch=self._fetch_hook(), cache=self.cache,
-                            use_cache=use_cache, verify_base=verify_base)
+                            use_cache=use_cache, verify_base=verify_base,
+                            base_digests=digests)
 
     def _fetch_hook(self):
         # the node's counted wrapper, so Replica-routed and node-routed

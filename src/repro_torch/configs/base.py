@@ -174,8 +174,8 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma2_27b, mamba2_780m, minicpm_2b, minitron_8b, phi3_mini_3_8b,
-        qwen3_moe_30b_a3b)
+        gemma2_27b, jamba_1_5_large_398b, mamba2_780m, minicpm_2b,
+        minitron_8b, phi3_mini_3_8b, qwen3_moe_30b_a3b)
 
 
 # ---------------------------------------------------------------------------

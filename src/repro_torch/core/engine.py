@@ -337,9 +337,13 @@ def plan_merge(metas: Sequence[ContribMeta],
                reduction: Optional[str] = None,
                spec: Optional[MergeSpec] = None,
                coverages: Optional[Sequence[Optional[Tuple[str, ...]]]]
-               = None, **cfg) -> MergePlan:
+               = None, base_digests: Optional[Sequence[bytes]] = None,
+               **cfg) -> MergePlan:
     """Emit a per-leaf merge plan from contribution metadata (canonical
     order). Payloads are not needed to plan — only their digests.
+    `base_digests`: the base's leaf digests in flatten order where the
+    caller holds them (a replica's registered base), sparing a hash of
+    the whole base on every plan.
 
     `coverages` (parallel to `metas`) marks sparse contributions: the
     keystr leaf paths a contribution carries, or None for dense. Each
@@ -419,6 +423,11 @@ def plan_merge(metas: Sequence[ContribMeta],
                                  m.scale_of(local)))
         if base is None:
             base_frags: Sequence[bytes] = [_NO_BASE] * n_leaves
+        elif base_digests is not None:
+            if len(base_digests) != n_leaves:
+                raise ValueError(f"{len(base_digests)} base digests for "
+                                 f"{n_leaves} leaves")
+            base_frags = base_digests
         else:
             base_frags = tensor_digests(treedef.flatten_up_to(base))
         tasks = []
@@ -458,13 +467,14 @@ def plan_for(contribs: Sequence[Any],
              reduction: Optional[str] = None,
              spec: Optional[MergeSpec] = None,
              coverages: Optional[Sequence[Optional[Tuple[str, ...]]]]
-             = None, **cfg) -> MergePlan:
+             = None, base_digests: Optional[Sequence[bytes]] = None,
+             **cfg) -> MergePlan:
     """Convenience planner over resident payloads (ids memoize digests)."""
     ids: Sequence[Optional[str]] = contrib_ids or [None] * len(contribs)
     metas = [contrib_meta(c, eid=e) for c, e in zip(contribs, ids)]
     return plan_merge(metas, strategy_name, base=base, seed=seed,
                       reduction=reduction, spec=spec, coverages=coverages,
-                      **cfg)
+                      base_digests=base_digests, **cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -1201,6 +1211,7 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
           cache: Optional[EngineCache] = None,
           key: Optional[bytes] = None,
           coverages: Optional[Sequence[Optional[Tuple[str, ...]]]] = None,
+          base_digests: Optional[Sequence[bytes]] = None,
           **cfg) -> Any:
     """Merge an ORDERED contribution list through the engine.
 
@@ -1208,7 +1219,8 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
     (`sparse_reference_apply` with `coverages`). `kernels=True` is the
     reference's `pallas=True` (see execute_plan). Takes a MergeSpec
     (`spec=`) or a strategy name + kwargs. `coverages` marks sparse
-    contributions (see plan_merge). A whole-model strategy densifies
+    contributions and `base_digests` passes the base's leaf digests (see
+    plan_merge). A whole-model strategy densifies
     them first and is one dispatch (`whole_model_dispatches`) with one
     cache entry under `model_key`; `key` passes a key the caller has
     already made (resolve's cache probe), and without the cache no key
@@ -1242,7 +1254,8 @@ def merge(contribs: Sequence[Any], strategy_name: Optional[str] = None, *,
         return out
     cache.stats["planned_merges"] += 1
     plan = plan_for(contribs, contrib_ids=contrib_ids,
-                    base=base, seed=seed, spec=spec, coverages=coverages)
+                    base=base, seed=seed, spec=spec, coverages=coverages,
+                    base_digests=base_digests)
     return execute_plan(plan, contribs, base=base, use_cache=use_cache,
                         max_batch_bytes=max_batch_bytes, kernels=kernels,
                         cache=cache)

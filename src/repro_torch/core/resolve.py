@@ -31,7 +31,7 @@ when some leaf has to recompute.
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -92,7 +92,9 @@ def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
                seed: int, *, base: Any, fetch: Optional[FetchHook],
                cache: Optional[EngineCache], use_cache: bool,
                base_digest: Optional[bytes] = None,
-               coverages: Coverages = None) -> Tuple[Any, Dict[str, Any]]:
+               coverages: Coverages = None,
+               base_digests: Optional[Sequence[bytes]] = None
+               ) -> Tuple[Any, Dict[str, Any]]:
     """Merge the ordered id list through the planner/executor engine.
     Returns (merged, store) — the store may have grown by fetched
     payloads, which grouped resolves reuse.
@@ -143,7 +145,8 @@ def _merge_ids(store: Dict[str, Any], ids: List[str], spec: MergeSpec,
         for i in unknown:
             metas[i] = engine.contrib_meta(store[i], eid=i)
     plan = engine.plan_merge([metas[i] for i in ids], base=base, seed=seed,
-                             spec=spec, coverages=covs)
+                             spec=spec, coverages=covs,
+                             base_digests=base_digests)
     absent = [i for i in ids if i not in store]
     if absent:
         if use_cache:
@@ -165,7 +168,9 @@ def _grouped_resolve(store: Dict[str, Any], ids: List[str],
                      fetch: Optional[FetchHook],
                      cache: Optional[EngineCache], use_cache: bool,
                      base_digest: Optional[bytes] = None,
-                     coverages: Coverages = None) -> Any:
+                     coverages: Coverages = None,
+                     base_digests: Optional[Sequence[bytes]] = None
+                     ) -> Any:
     """Two-level resolve (paper §7.2 L3 mitigation 2): sub-groups of
     `spec.group_size` over the canonical order resolve first; a second
     pass merges the sub-group outputs with seed + 1. Both passes run
@@ -178,17 +183,20 @@ def _grouped_resolve(store: Dict[str, Any], ids: List[str],
                                 seed, base=base, fetch=fetch, cache=cache,
                                 use_cache=use_cache,
                                 base_digest=base_digest,
-                                coverages=coverages)
+                                coverages=coverages,
+                                base_digests=base_digests)
         firsts.append(out)
     return engine.merge(firsts, base=base, seed=seed + 1,
-                        use_cache=use_cache, spec=spec, cache=cache)
+                        use_cache=use_cache, spec=spec, cache=cache,
+                        base_digests=base_digests)
 
 
 def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
                  base: Any = None, trust: Any = None,
                  fetch: Optional[FetchHook] = None,
                  cache: Optional[EngineCache] = None,
-                 use_cache: bool = True, verify_base: bool = True) -> Any:
+                 use_cache: bool = True, verify_base: bool = True,
+                 base_digests: Optional[Sequence[bytes]] = None) -> Any:
     """Compute the merged model the spec describes, over the state's
     converged visible set, on the exact path (the reference runs its
     Replica's resolve without `pallas=True` too).
@@ -202,7 +210,11 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
     `net.SyncNode` pulls them over the network). Payloads are needed
     only for leaf tasks that miss the cache: a warm re-resolve on a
     replica that has shed its blobs fetches nothing. Without a hook, a
-    needed but missing payload raises KeyError."""
+    needed but missing payload raises KeyError.
+
+    `base_digests`: the base's leaf digests in flatten order where the
+    caller holds them (a replica's registered base), so no plan hashes
+    the base again."""
     if not isinstance(spec, MergeSpec):
         raise TypeError(f"resolve_spec() requires a MergeSpec, got "
                         f"{type(spec).__name__}")
@@ -245,10 +257,12 @@ def resolve_spec(state: CRDTMergeState, spec: MergeSpec, *,
                                 fetch=fetch, cache=cache,
                                 use_cache=use_cache,
                                 base_digest=base_digest,
-                                coverages=coverages)
+                                coverages=coverages,
+                                base_digests=base_digests)
     out, _ = _merge_ids(state.store, ids, spec, seed, base=base,
                         fetch=fetch, cache=cache, use_cache=use_cache,
-                        base_digest=base_digest, coverages=coverages)
+                        base_digest=base_digest, coverages=coverages,
+                        base_digests=base_digests)
     return out
 
 

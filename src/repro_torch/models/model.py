@@ -1,7 +1,8 @@
-"""The dense, MoE and SSM model families (`repro.models.model`, `family`
-of "dense", "moe" without MLA, and "ssm"): their parameter layout and
-their serving path, prefill and decode, with gemma2's local/global
-layout, Qwen3-MoE's routed experts and Mamba2's SSD mixers.
+"""The dense, MoE, SSM and hybrid model families (`repro.models.model`,
+`family` of "dense", "moe" without MLA, "ssm" and "hybrid"): their
+parameter layout and their serving path, prefill and decode, with
+gemma2's local/global layout, Qwen3-MoE's routed experts, Mamba2's SSD
+mixers and Jamba's periods that mix them.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
 does, in the reference's period layout (`period_layout`): a period of
@@ -14,7 +15,11 @@ groups are the batch rows, so a decode step routes each row's token
 alone); gemma2's `local_global_pattern` has two, `sub0` attending
 within its sliding window and `sub1` globally (n_periods = n_layers //
 2); the SSM family has one, a Mamba2 mixer (`models.mamba`, its
-parameters under `mixer`) and no FFN; and with
+parameters under `mixer`) and no FFN; the hybrid family (Jamba) has
+`hybrid_period`, attention at `hybrid_attn_index` and a Mamba2 mixer
+elsewhere, each with an FFN that is routed experts where j % interval
+== offset % interval and dense otherwise (n_periods = n_layers //
+hybrid_period); and with
 `sandwich_norms` each sub-layer norms its mixer's and its FFN's output
 (`post_mixer_norm`, `post_ffn_norm`) before the residual add. The stack
 runs as a Python loop over periods and, in each, over the sub-layers'
@@ -70,11 +75,11 @@ full-size zero tensor per layer).
 
 Each MoE sub-layer's router adds its Switch load-balancing term; `loss`
 returns the cross-entropy plus `router_aux_coef` times their sum over
-layers (under remat the term leaves each checkpointed layer beside its
-output), as the reference's `Model.loss` does.
+the MoE sub-layers (under remat the term leaves each checkpointed layer
+beside its output), as the reference's `Model.loss` does (its dense
+sub-layers add exact zeros).
 
-The MLA (DeepSeek-V2), hybrid, enc-dec and VLM families wait for
-ROADMAP A7.
+The MLA (DeepSeek-V2), enc-dec and VLM families wait for ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -104,10 +109,18 @@ class SubLayer:
 
 def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
     """Returns (sub-layers of one period, n_periods) for the stack: the
-    reference's layouts of the dense family, of MoE without MLA and of
-    the SSM family."""
+    reference's layouts of the dense family, of MoE without MLA, of the
+    SSM family and of the hybrid family."""
     if cfg.family == "ssm":
         return [SubLayer("mamba", "none")], cfg.n_layers
+    if cfg.family == "hybrid":
+        per = []
+        for j in range(cfg.hybrid_period):
+            mixer = "attn" if j == cfg.hybrid_attn_index else "mamba"
+            ffn = "moe" if (cfg.moe and j % cfg.moe.interval == cfg.moe.offset
+                            % cfg.moe.interval) else "dense"
+            per.append(SubLayer(mixer, ffn))
+        return per, cfg.n_layers // cfg.hybrid_period
     if cfg.family == "moe":
         return [SubLayer("attn", "moe")], cfg.n_layers
     if cfg.local_global_pattern:
@@ -127,12 +140,13 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None,
                  moe_impl: str = "gather"):
-        if cfg.family not in ("dense", "moe", "ssm") \
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
                 or cfg.mla is not None or cfg.pad_heads_to_tp:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense layouts (plain and gemma2's "
-                "local/global), MoE without MLA and the SSM family are "
-                "ported; the other families wait for ROADMAP A7")
+                "local/global), MoE without MLA, the SSM family and the "
+                "hybrid family are ported; the other families wait for "
+                "ROADMAP A7")
         self.cfg = cfg
         self.compute_dtype = BY_NAME[cfg.compute_dtype]
         self.attention = attention or flash_attention

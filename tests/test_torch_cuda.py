@@ -30,7 +30,13 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                dispatch integers (positions, keep, the [G, E, C] table,
                used slots) equal the CPU's, and the outputs the CPU's
                within a tolerance; the smoke model's greedy decode on
-               the card gives the CPU's tokens in fp32
+               the card gives the CPU's tokens in fp32; its loss and
+               gradients under the train step's deterministic mode
+               equal the CPU's within the CPU tests' limits, and two
+               train steps repeat bitwise on the card
+  hashing      `tensor_digest` of CUDA leaves (through the page-locked
+               staging buffers, on the hashing threads) equals the
+               CPU's
   dare_block   B6, fp32 and bf16, seeds near the uint32 wrap
   ties_leaf    B7, k in {1, 2, 4} (and 16), fp32 and bf16, a ragged leaf
   slerp        B8 reduce and combine, fp32 and bf16, u == v included
@@ -1591,6 +1597,91 @@ def test_cuda_moe_block_repeats_and_equals_cpu(impl, dtype):
     assert int((~want[1]).sum()) > 0          # tokens dropped
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int8, torch.float16])
+def test_cuda_tensor_digest_equals_cpu(dtype):
+    """Bitwise: `tensor_digest` of a CUDA tensor (its slices copied
+    through the page-locked staging buffers) equals the digest of the
+    same tensor on the CPU, for leaves of 0 and 1 elements, one just
+    past a staging slice, a strided view, and 16 leaves on the hashing
+    threads at once (`tensor_digests`, each thread its own buffer)."""
+    from repro_torch.core import hashing
+    g = torch.Generator().manual_seed(4)
+    slice_elems = hashing._SLICE_BYTES // torch.empty((), dtype=dtype) \
+        .element_size()
+    leaves = [(torch.randn((n,), generator=g) * 50).to(dtype)
+              for n in (0, 1, slice_elems + 3, 1000)]
+    leaves.append((torch.randn((64, 301), generator=g) * 50).to(dtype)
+                  [:, ::2])
+    for t in leaves:
+        assert hashing.tensor_digest(t.cuda()) == hashing.tensor_digest(t)
+    many = [(torch.randn((1 << 22,), generator=g) * 50).to(dtype)
+            for _ in range(16)]
+    assert hashing.tensor_digests([t.cuda() for t in many]) == \
+        [hashing.tensor_digest(t) for t in many]
+
+
+@pytest.mark.cuda
+def test_cuda_qwen3_train_step_smoke_deterministic_and_matches_cpu():
+    """Qwen3-MoE's smoke model with drops (capacity factor 0.5), the
+    router at 50x its init (top-2 gaps far wider than the two devices'
+    differences), fp32 compute, remat, grad_accum 2: `Model.loss` and
+    its gradients on the card under the train step's deterministic mode
+    (the gather dispatch's backward is an accumulating index-put) equal
+    the CPU's within the CPU tests' limits against JAX
+    (tests/test_torch_moe.py: ce within 1e-6 relative, aux within 1e-6,
+    each leaf's gradient within 2e-5 of its largest magnitude); two
+    train steps on the card give the same bits twice, and land within
+    1e-3 of each leaf's largest magnitude of the CPU's, as the minitron
+    and gemma2 tests above."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import (_deterministic, init_train_state,
+                                        make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("qwen3-moe-30b-a3b").replace(
+        compute_dtype="float32", remat="full", grad_accum=2)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+    toks = [np.random.default_rng(i).integers(0, cfg.vocab_size, (4, 32))
+            for i in range(2)]
+    grads = []
+    for device in ("cuda", "cpu"):
+        p = pytree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(), params)
+        with _deterministic(torch.device(device)):
+            loss, mets = model.loss(p, {"tokens": toks[0]})
+            loss.backward()
+        grads.append(([float(loss.detach()), float(mets["ce"].detach()),
+                       float(mets["aux"].detach())],
+                      [t.grad.cpu() for t in pytree.leaves(p)]))
+    (lc, gc), (lh, gh) = grads
+    assert abs(lc[0] - lh[0]) <= 1e-6 * abs(lh[0])
+    assert abs(lc[1] - lh[1]) <= 1e-6 * abs(lh[1])
+    assert abs(lc[2] - lh[2]) <= 1e-6 and lh[2] > 0.5
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= \
+            2e-5 * max(float(b.abs().max()), 1e-30)
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        state = init_train_state(model, params=pytree.tree_map(
+            lambda t: t.to(device, copy=True), params), device=device)
+        step = make_train_step(model, total_steps=10)
+        for t in toks:
+            state, _ = step(state, {"tokens": t})
+        runs.append([x.cpu() for x in pytree.leaves(state)])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    for a, b in zip(runs[0], runs[2]):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= \
+            1e-3 * max(float(b.abs().max()), 1e-30)
 
 
 @pytest.mark.cuda

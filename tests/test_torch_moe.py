@@ -738,13 +738,12 @@ def _port_config(name):
     return tbase.ModelConfig(**kw)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b",
-                                  "jamba-1.5-large-398b", "whisper-tiny",
+@pytest.mark.parametrize("name", ["deepseek-v2-236b", "whisper-tiny",
                                   "llama-3.2-vision-90b"])
 def test_other_families_still_refused(name):
-    """Exact: MLA (DeepSeek-V2, family moe), hybrid, encdec and vlm raise
-    `NotImplementedError` naming ROADMAP A7 (the SSM family is ported:
-    tests/test_torch_mamba.py)."""
+    """Exact: MLA (DeepSeek-V2, family moe), encdec and vlm raise
+    `NotImplementedError` naming ROADMAP A7 (the SSM and hybrid families
+    are ported: tests/test_torch_mamba.py, tests/test_torch_jamba.py)."""
     cfg = _port_config(name)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         Model(cfg)
