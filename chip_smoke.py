@@ -70,9 +70,10 @@ before it and read just after:
           opposite orders, which resolve histogram TIES and
           weight_average on the kernel routes (B1, B3-B5) to
           byte-identical trees and serve the TIES trees to
-          byte-identical tokens and logits; at 2 layers the served
-          forward with B9 against its plain version and the gather
-          dispatch against the einsum one; then the int8 weight average
+          byte-identical tokens and logits; at 1 layer (2 before the
+          whisper and vlm phases came) the served forward with B9
+          against its plain version and the gather dispatch against the
+          einsum one; then the int8 weight average
           of 2 contributions at 11 of its layers, where each stacked
           expert leaf holds 2,214,592,512 elements (past 2^31), merged
           on arrival through B2 with no slice densified and held
@@ -97,9 +98,10 @@ before it and read just after:
           weight_average on the kernel routes (B1, B3-B5) to
           byte-identical trees, each held leaf by leaf against the
           exact route on replica A, the TIES trees served
-          byte-identical; then 3 train steps at full
+          byte-identical; then 2 train steps at full
           width and depth (fp32 parameters and moments, bf16 compute,
-          remat, batch 4 x 4096 in 2 microbatches; the last traced),
+          remat, batch 4 x 4096 in 2 microbatches, the last traced;
+          3 before the whisper and vlm phases came),
           finite (the reference's masked decay gives a NaN gradient at
           chunk 256), every leaf changed, step 1 bitwise on a rerun.
 
@@ -123,6 +125,49 @@ before it and read just after:
           TIES trees serve byte-identical tokens and logits.
           `[kernels]` holds B9 at Jamba's shapes (64 query heads over
           8 KV heads of 128; prefill and decode, bf16).
+
+  whisper Whisper-tiny (configs/whisper_tiny.py), the enc-dec family, at
+          full width and depth (4 encoder and 4 decoder layers,
+          36,439,680 parameters): seeded in bf16, `greedy_decode` twice
+          (batch 32 clips of 1500 frames from `make_batch`, a 4-token
+          prompt, 224 tokens; B9 on every attention call: the encoder's
+          non-causal self-attention over 1500 frames, each decoder
+          layer's causal self-attention and its cross-attention over
+          the encoder output: exactly 12 + 224 x 8 launches a call),
+          byte-identical tokens and logits, one decode step and one
+          prefill traced, the served forward with B9 against its plain
+          version; the smoke model's loss and gradients card vs CPU;
+          trained in fp32 at full depth (3 steps of 64 x 448 tokens
+          with their frames in 2 microbatches, the last traced, resumed
+          bitwise from a checkpoint); two fine-tunes of the trained base
+          on task ids 1 and 2 land on two replicas in opposite orders,
+          which resolve histogram TIES and weight_average on the kernel
+          routes (B1, B3-B5) to byte-identical trees, each held leaf by
+          leaf against the exact route; the TIES trees serve
+          byte-identical tokens and logits.
+
+  vlm     Llama-3.2-Vision-90B (configs/llama_3_2_vision_90b.py), the VLM
+          family, at full width: 6 of its 20 periods (30 layers, 6 of
+          them gated cross-attention over 1601 patch embeddings;
+          27,770,986,508 bf16 parameters, 55.54 GB; its 100 layers are
+          175.3 GB) with the gates at 0.5 and -0.7 (at their init, 0,
+          tanh(0) hides the cross path), `greedy_decode` twice (batch 4,
+          a 4064-token prompt, 1601 patches a row, 32 tokens; B9 on
+          every self- and cross-attention call: 30 x 33 launches a
+          call), byte-identical tokens and logits, one decode step and
+          one prefill traced; at 1 period the served forward with B9
+          against its plain version, and two fine-tunes of the cross
+          sub-layer alone (its gates included) over a registered base
+          on two replicas in opposite orders: TIES and weight_average on
+          the kernel routes (B1, B3-B5) byte-identical, held against the
+          exact route, the gate leaves bit for bit, every other leaf the
+          base's own tensor; the TIES trees served byte-identical.
+          `[kernels]` holds B9 at both families' shapes (non-causal over
+          1500 frames and 1601 patches: Whisper's encoder, its cross
+          prefill and decode, its decoder's self decode; the VLM's
+          cross prefill and decode) and its gradient at Whisper's
+          training microbatch (the encoder's self-attention and the
+          decoder's cross-attention).
 
 The consortium (`[gossip]`, full width, 2 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
@@ -151,8 +196,9 @@ and 512^2, and the five whole-model strategies on the card against the
 CPU at 512^2.
 
 `[durable]` (inside the main paths, after int8) journals the four int8
-payloads, cut to 2 of their 32 layers (`first_layers`; 4 before the
-qwen3-moe phase came, all 32 before the gemma2 phase), through
+payloads, cut to 1 of their 32 layers (`first_layers`; 2 before the
+whisper and vlm phases came, 4 before the qwen3-moe phase, all 32
+before the gemma2 phase), through
 `Replica(path=)`, reopens it, and syncs for real: the
 recovered replica A, its storage handed to a `SyncNode`, and replica B
 on a `keep_quantized` node run an anti-entropy session over
@@ -202,9 +248,9 @@ step 2 bitwise the uninterrupted run. `[kernels]` holds B9's gradient
 at that microbatch (local and global, bf16 and fp32) beside
 `flex_attention`'s backward. `[qwen3-moe-train]` runs last: the
 Qwen3-MoE smoke model's loss, aux term and gradients on the card
-against the CPU, then Qwen3-MoE-30B-A3B at full width and 4 of its 48
-layers (3,114,813,440 fp32 parameters and moments, 49.8 GB of state,
-bf16 compute, remat) for 3 steps of batch 4 x 4096 in microbatches of
+against the CPU, then Qwen3-MoE-30B-A3B at full width and 1 of its 48
+layers (1,245,452,288 fp32 parameters and moments, 19.9 GB of state;
+4 layers before the whisper and vlm phases came; bf16 compute, remat) for 3 steps of batch 4 x 4096 in microbatches of
 2 under torch's deterministic mode (the gather dispatch's backward, an
 accumulating index-put, on torch's sorted path), the last traced with
 the routing / gather kernels a group of their own, a run resumed from a
@@ -381,11 +427,11 @@ G2_MERGE_LAYERS, G2_K, G2_PLAIN_LAYERS = 2, 2, 2
 # restored, step 3 again
 G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 1, 3
 G2_TRAIN_BATCH, G2_TRAIN_SEQ, G2_TRAIN_ACCUM = 2, 8192, 2
-# [durable] journals and syncs the int8 payloads of 2 of Phi-3-mini's 32
-# layers (4 before the [qwen3-moe] phase, all 32 before gemma2's, 16 in
-# its first runs): it is host-bound, and the later phases need its time
-# under the limit
-DURABLE_LAYERS = 2
+# [durable] journals and syncs the int8 payloads of 1 of Phi-3-mini's 32
+# layers (2 before the [whisper] and [vlm] phases, 4 before the
+# [qwen3-moe] phase, all 32 before gemma2's, 16 in its first runs): it is
+# host-bound, and the later phases need its time under the limit
+DURABLE_LAYERS = 1
 # [main] int8 merges the four int8 payloads at 8 of the 32 layers (all
 # 32 before the [qwen3-moe] phase): its planning digests each payload's
 # dequantized leaves on the host, 39 s of the script at full depth
@@ -402,7 +448,7 @@ INT8_LAYERS = 8
 # past 2^31 (a bf16 merge of 2 at that depth needs ~82 GB), each expert
 # leaf held against `quant_nary_ref` on windows of Q3_WINDOW elements
 QWEN3 = "qwen3-moe-30b-a3b"
-Q3_MERGE_LAYERS, Q3_K, Q3_PLAIN_LAYERS = 2, 4, 2
+Q3_MERGE_LAYERS, Q3_K, Q3_PLAIN_LAYERS = 2, 4, 1
 Q3_INT8_LAYERS, Q3_INT8_K = 11, 2
 Q3_WINDOW = 1 << 20
 EXPERT_LEAVES = tuple(f"['blocks']['sub0']['ffn']['experts']['{w}']"
@@ -422,7 +468,7 @@ MAMBA2 = "mamba2-780m"
 M2_PROMPT, M2_K = 4096, 4
 M2_CHECK_LAYERS, M2_CHECK_BATCH = 2, 2
 M2_DUAL_S, M2_DUAL_M, M2_CPU_S = 768, 256, 512
-M2_TRAIN_BATCH, M2_TRAIN_SEQ, M2_TRAIN_ACCUM, M2_TRAIN_STEPS = 4, 4096, 2, 3
+M2_TRAIN_BATCH, M2_TRAIN_SEQ, M2_TRAIN_ACCUM, M2_TRAIN_STEPS = 4, 4096, 2, 2
 # fp32 limits at M2_CHECK_LAYERS: the last logits' largest difference
 # (logits up to 3.3), and each layer's SSM state and conv cache as a
 # share of their largest magnitude. An H100 80GB HBM3 (700.00 W) read
@@ -434,16 +480,18 @@ M2_CPU_TOL = {"logits": 5e-5, "state": 2e-5, "conv": 1e-5}
 # [qwen3-moe-train]: Qwen3-MoE-30B-A3B trained at full width (fp32
 # parameters and AdamW moments, bf16 compute, each layer under remat) at
 # Q3_TRAIN_LAYERS of its 48 layers (623.1e6 parameters a layer and
-# 622.3e6 of embedding and head, 16 bytes each: 29.9 GB of state at 2
-# layers, 49.8 GB at 4), batch 4 x 4096 in 2 microbatches, 3 steps, the
-# last traced; a checkpoint written after step 2 and restored, step 3
-# again. Q3_CHECK: the smoke model on the card against the CPU (loss,
+# 622.3e6 of embedding and head, 16 bytes each: 19.9 GB of state at 1
+# layer, 49.8 GB at 4; 1 since the [whisper] and [vlm] phases came: the
+# checkpoint's 37.4 GB at 4 layers took a minute to write and read),
+# batch 4 x 4096 in 2 microbatches, 3 steps, the last traced; a
+# checkpoint written after step 2 and restored, step 3 again.
+# Q3_CHECK: the smoke model on the card against the CPU (loss,
 # aux, every gradient; the CPU tests' limits against JAX). Q3_BTM_*: one
 # Branch-Train-Merge round at full width and Q3_BTM_LAYERS layer (each
 # branch holds its own parameters and moments: a base state and two
 # branches of 1.245e9 parameters at 12 bytes, 44.8 GB, two 5.0 GB
 # contributions, the merge and the step's gradients)
-Q3_TRAIN_LAYERS = 4
+Q3_TRAIN_LAYERS = 1
 Q3_TRAIN_BATCH, Q3_TRAIN_SEQ, Q3_TRAIN_ACCUM, Q3_TRAIN_STEPS = 4, 4096, 2, 3
 Q3_BTM_LAYERS, Q3_BTM_BRANCHES, Q3_BTM_BATCH, Q3_BTM_SEQ = 1, 2, 4, 512
 Q3_CHECK_LIMITS = {"loss": 1e-6, "aux": 1e-6, "grad": 2e-5}
@@ -465,6 +513,42 @@ JAMBA = "jamba-1.5-large-398b"
 JB_SERVE_CUT = dict(n_layers=4, hybrid_period=4, hybrid_attn_index=0)
 JB_MERGE_CUT = dict(n_layers=2, hybrid_period=2, hybrid_attn_index=0)
 JB_PROMPT, JB_K = 4096, 2
+# [whisper]: Whisper-tiny (configs/whisper_tiny.py), the enc-dec family,
+# at full width and depth, uncut (4 encoder and 4 decoder layers,
+# 36,439,680 parameters). Served in bf16: batch WH_BATCH clips of 1500
+# frames (`make_batch`), a WH_PROMPT-token prompt and WH_GEN greedy
+# tokens (228 positions, inside Whisper's 448-token context). Trained in
+# fp32 at batch WH_TRAIN_BATCH x WH_TRAIN_SEQ (the decoder's context)
+# with their frames in WH_TRAIN_ACCUM microbatches, WH_TRAIN_STEPS
+# steps, the resume bitwise; then WH_K fine-tunes of the trained base,
+# WH_TUNE_STEPS steps each on task ids 1 .. WH_K, merged through two
+# replicas and served. WH_CHECK: the smoke model's loss and gradients on
+# the card against the CPU (the CPU tests' limits against JAX)
+WHISPER = "whisper-tiny"
+WH_BATCH, WH_PROMPT, WH_GEN = 32, 4, 224
+WH_TRAIN_BATCH, WH_TRAIN_SEQ, WH_TRAIN_ACCUM, WH_TRAIN_STEPS = 64, 448, 2, 3
+WH_K, WH_TUNE_STEPS = 2, 2
+WH_CHECK_LIMITS = {"loss": 1e-6, "grad": 2e-5}
+# [vlm]: Llama-3.2-Vision-90B (configs/llama_3_2_vision_90b.py), the VLM
+# family, at full width: periods of 4 self-attention + dense sub-layers
+# and a gated cross-attention + dense one over 1601 patch embeddings.
+# Served at VL_SERVE_PERIODS of its 20 periods (30 layers, 6 of them
+# cross-attention; 27,770,986,508 bf16 parameters, 55.54 GB; the config's
+# 100 layers are 175.3 GB, 7 periods 64.10 GB), batch 4, a 4064-token
+# prompt, 1601 patches a row, 32 tokens. At VL_MERGE_PERIODS
+# (6,379,626,498 parameters, 12.76 GB) B9 against its plain version and
+# the merge: a bf16 base and VL_K fine-tunes of the cross sub-layer alone
+# (855,654,402 parameters with its two gates; Llama 3.2 Vision trains its
+# cross-attention layers over a frozen language model) that leave the
+# rest to the base. The gates start at 0, and tanh(0) = 0 hides the
+# cross path: every model here has them at VL_GATES (`set_gates`), and
+# each fine-tune moves them
+VLM = "llama-3.2-vision-90b"
+VL_SERVE_PERIODS, VL_MERGE_PERIODS, VL_K = 6, 1, 2
+# rows of the served batch that B9 against its plain version runs over
+# (fp32 compute at a 4064-token prompt is the costly part)
+VL_PLAIN_ROWS = 2
+VL_GATES = {"gate_attn": 0.5, "gate_ffn": -0.7}
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -947,8 +1031,10 @@ def phase_kernels(cfg) -> dict:
     phase_qwen3_flash_kernel(rows, g)
     phase_qwen3_quant_kernel(rows, g)
     phase_jamba_flash_kernel(rows, g)
+    phase_encdec_vlm_flash_kernel(rows, g)
     phase_flash_backward(rows, cfg, g)
     phase_gemma2_flash_backward(rows, g)
+    phase_whisper_flash_backward(rows, g)
     return rows
 
 
@@ -1024,13 +1110,16 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 def flash_case(q, k, v, q_offset: int, window: int = 0,
                softcap: float = 0.0, scale: float = 0.0,
-               floor: float = FLASH_BF16_FLOOR["phi3"]) -> dict:
-    """B9 at one shape (causal, with gemma2's `window` and `softcap`
-    where given): held against its plain version (FLASH_F32_ATOL, or one
-    bf16 ulp + `floor`), then timed, the kernel and the library call
-    over 10 CUDA-event-timed calls, the plain version over 3. The
-    library call, on [B, H, S, D] copies: `scaled_dot_product_attention`
-    over the visible keys, or with a softcap or window `flex_attention`
+               floor: float = FLASH_BF16_FLOOR["phi3"],
+               causal: bool = True) -> dict:
+    """B9 at one shape (causal unless `causal` is False: every query sees
+    every key, the enc-dec and VLM cross-attention and Whisper's
+    encoder; with gemma2's `window` and `softcap` where given): held
+    against its plain version (FLASH_F32_ATOL, or one bf16 ulp +
+    `floor`), then timed, the kernel and the library call over 10
+    CUDA-event-timed calls, the plain version over 3. The library call,
+    on [B, H, S, D] copies: `scaled_dot_product_attention` over the
+    visible keys, or with a softcap or window `flex_attention`
     (`flex_library`). Bound: the operations of the (query, key) pairs
     each row sees (4 D flops a pair) and the bytes of q, the output and
     the keys some row sees, at the peak rate of q's type."""
@@ -1040,7 +1129,7 @@ def flash_case(q, k, v, q_offset: int, window: int = 0,
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     kw = dict(q_offset=q_offset, window=window, softcap=softcap,
-              scale=scale)
+              scale=scale, causal=causal)
 
     def kern():
         return flash_attention(q, k, v, **kw)
@@ -1064,10 +1153,11 @@ def flash_case(q, k, v, q_offset: int, window: int = 0,
                              f"kernel vs plain outside tolerance ({rule}, "
                              f"max abs err {max_err:.3e})")
     del got, err
-    kbeg, kmax = visible_keys(sq, sk, True, q_offset, window)
-    pairs = sum(min(sk, q_offset + i + 1)
-                - (max(0, q_offset + i - window + 1) if window else 0)
-                for i in range(sq))
+    kbeg, kmax = visible_keys(sq, sk, causal, q_offset, window)
+    pairs = sq * sk if not causal else sum(
+        min(sk, q_offset + i + 1)
+        - (max(0, q_offset + i - window + 1) if window else 0)
+        for i in range(sq))
     ops = 4.0 * d * b * h * pairs
     nbytes = (2 * b * sq * h * d + 2 * b * (kmax - kbeg) * hk * d) \
         * q.element_size()
@@ -1088,11 +1178,11 @@ def flash_case(q, k, v, q_offset: int, window: int = 0,
     else:
         qt, kt, vt = (x.transpose(1, 2).contiguous()
                       for x in (q, k[:, :kmax], v[:, :kmax]))
-        causal = sq > 1
+        lib_causal = causal and sq > 1
 
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale or None,
+                qt, kt, vt, is_causal=lib_causal, scale=scale or None,
                 enable_gqa=h != hk)
 
         out["library_ms"] = cuda_ms(library, 10)
@@ -1103,8 +1193,9 @@ def flash_case(q, k, v, q_offset: int, window: int = 0,
               "prefill on the tensor cores" if q.dtype == torch.bfloat16
               else "prefill, scalar fp32 instance")
     log(f"[kernels] flash_attention ({design}) q {list(q.shape)} k/v "
-        f"{list(k.shape)} {str(q.dtype)[6:]}, q_offset {q_offset}, window "
-        f"{window}, softcap {softcap}: {rule}, max abs err "
+        f"{list(k.shape)} {str(q.dtype)[6:]}, "
+        f"{'causal' if causal else 'non-causal'}, q_offset {q_offset}, "
+        f"window {window}, softcap {softcap}: {rule}, max abs err "
         f"{max_err:.3e}; {out['ms']:.3f} ms (bound {out['bound_ms']:.3f} ms "
         f"by {out['bound_by']}: {pairs} visible pairs, {ops:.3e} flops in "
         f"{t_ops:.3f} ms, {nbytes / 1e9:.3f} GB in {t_bytes:.3f} ms); plain "
@@ -1178,9 +1269,9 @@ def flex_grad_library(q, k, v, dout, window: int, softcap: float,
 
 
 def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
-                   scale: float = 0.0) -> dict:
-    """B9's gradient at one shape (q_offset 0, causal; with gemma2's
-    `window` and `softcap` where given): the LSE forward held bitwise
+                   scale: float = 0.0, causal: bool = True) -> dict:
+    """B9's gradient at one shape (q_offset 0, causal unless `causal` is
+    False; with gemma2's `window` and `softcap` where given): the LSE forward held bitwise
     against the served forward, the backward against its plain version
     (FLASH_BWD_*), then timed, the kernel and the library call over 10
     CUDA-event-timed calls, the plain version over 3, and the gradient's
@@ -1200,7 +1291,8 @@ def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
     sk, hk = k.shape[1], k.shape[2]
     # the options only where given, so the case also runs an older
     # checkout's wrappers (tools/b9bwd_time.py --root)
-    kw = dict(scale=scale, **({"window": window} if window else {}),
+    kw = dict(scale=scale, causal=causal,
+              **({"window": window} if window else {}),
               **({"softcap": softcap} if softcap else {}))
     out, lse = flash_attention_lse(q, k, v, **kw)
     if not torch.equal(bits(out), bits(flash_attention(q, k, v, **kw))):
@@ -1237,8 +1329,9 @@ def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
                              f"{q.dtype}: kernel vs plain outside "
                              f"tolerance ({rule}, max abs err {max_err:.3e})")
     del got, want, again
-    pairs = sum(min(sk, i + 1) - (max(0, i - window + 1) if window else 0)
-                for i in range(sq))
+    pairs = sq * sk if not causal else sum(
+        min(sk, i + 1) - (max(0, i - window + 1) if window else 0)
+        for i in range(sq))
     ops = 5 * 2.0 * d * b * h * pairs
     nbytes = ((3 * b * sq * h * d + 2 * b * sk * hk * d) * q.element_size()
               + b * h * sq * 4 + (b * sq * h * d + 2 * b * sk * hk * d)
@@ -1252,7 +1345,7 @@ def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
     else:
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                             scale=scale or None,
                                             enable_gqa=h != hk)
         gt = dout.transpose(1, 2)
@@ -1270,7 +1363,8 @@ def flash_bwd_case(q, k, v, dout, window: int = 0, softcap: float = 0.0,
     split = ", ".join(f"{k} {'not measured' if t is None else f'{t:.3f}'}"
                       for k, t in res["split_ms"].items())
     log(f"[kernels] flash_attention_backward q [{b}, {sq}, {h}, {d}], k, v "
-        f"[{b}, {sk}, {hk}, {d}] {str(q.dtype)[6:]}, causal, window "
+        f"[{b}, {sk}, {hk}, {d}] {str(q.dtype)[6:]}, "
+        f"{'causal' if causal else 'non-causal'}, window "
         f"{window}, softcap {softcap}: {rule}, max abs err {max_err:.3e}; "
         f"{res['ms']:.3f} ms (bound {res['bound_ms']:.3f} ms by "
         f"{res['bound_by']}: {pairs} visible pairs, {ops:.3e} flops in "
@@ -1480,6 +1574,12 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "jamba": ("flash_attention",),
                 "jamba merge": ("nary_accum", "block_amax", "block_hist",
                                 "ties_block"),
+                "whisper": ("flash_attention",),
+                "whisper merge": ("nary_accum", "block_amax", "block_hist",
+                                  "ties_block"),
+                "vlm": ("flash_attention",),
+                "vlm merge": ("nary_accum", "block_amax", "block_hist",
+                              "ties_block"),
                 "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
@@ -2358,9 +2458,11 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
     model = Model(cfg)
     params = init_from_schema(model.schema(), seed=SEED,
                               device=DEVICE, dtype=torch.bfloat16)
+    set_gates(model, params)
     nb, prompt = batch["tokens"].shape
     # router calls a forward: one a MoE sub-layer
     n_moe = model.n_periods * sum(sl.ffn == "moe" for sl in model.layout)
+    tail = bool(model.layout) and model.layout[-1].ffn == "moe"
     steps = 8
     for cd in ("bfloat16", "float32"):
         c = cfg.replace(compute_dtype=cd)
@@ -2373,7 +2475,7 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
         limit = SERVE_LOGIT_LIMIT[cd]
         same = (kt == pt).to(torch.int32).cumprod(dim=1).sum(dim=1)
         upto, flips = first_route_flips(ra, rb, nb, n_moe, steps,
-                                        tail=model.layout[-1].ffn == "moe",
+                                        tail=tail,
                                         fed=[int(n) for n in same])
         flip_ok = all(gap <= FLIP_GAP[cd] for _, _, gap, _ in flips)
         worst, compared, bad = 0.0, 0, []
@@ -2400,7 +2502,7 @@ def served_vs_plain(cfg, batch: dict, tag: str, other=None,
                             f"compared up to steps {upto}"
                             if flips else ""))
         log(f"[{tag}] {cfg.name} {what}, {cd} compute, {cfg.n_layers} "
-            "layers, batch "
+            f"{'decoder ' if model.encdec else ''}layers, batch "
             f"{nb}, prompt {prompt}, {steps} tokens: logits "
             f"max abs diff {worst:.3e} while the tokens agree (limit "
             f"{limit}); {compared} tokens past the margin rule, "
@@ -2996,6 +3098,81 @@ def phase_jamba_flash_kernel(rows: dict, g) -> None:
     rows["flash_attention"].update(cases)
 
 
+def phase_encdec_vlm_flash_kernel(rows: dict, g) -> None:
+    """B9 at Whisper-tiny's and Llama-3.2-Vision's serving shapes, held
+    against its plain version and timed beside
+    `scaled_dot_product_attention` (`enable_gqa` at H != HK), bf16,
+    non-causal over a ragged Sk (1500 % 64 = 28, 1601 % 64 = 1) unless
+    said: Whisper's encoder q, k, v [WH_BATCH, 1500, 6, 64]; its cross
+    prefill, q [WH_BATCH, WH_PROMPT, 6, 64] over the 1500 frames (the
+    decode design); a decode step over the cross cache, and over the
+    self cache (causal, 228 slots at q_offset 227); the VLM's cross
+    prefill q [4, 4064, 64, 128] over k, v [4, 1601, 8, 128], and a
+    decode step over the patches."""
+    from repro_torch.configs import get_config
+    dev = torch.device(DEVICE)
+    floor = FLASH_BF16_FLOOR["gemma2"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cases = {}
+    wc = get_config(WHISPER)
+    h, hk, d = wc.n_heads, wc.n_kv_heads, wc.resolved_head_dim
+    frames = wc.encoder_seq
+    kv = [randn(WH_BATCH, frames, hk, d) for _ in range(2)]
+    cases["whisper encoder bf16"] = flash_case(
+        randn(WH_BATCH, frames, h, d), *kv, 0, floor=floor, causal=False)
+    cases["whisper cross prefill bf16"] = flash_case(
+        randn(WH_BATCH, WH_PROMPT, h, d), *kv, 0, floor=floor,
+        causal=False)
+    cases["whisper cross decode bf16"] = flash_case(
+        randn(WH_BATCH, 1, h, d), *kv, 0, floor=floor, causal=False)
+    slots = WH_PROMPT + WH_GEN
+    kv = [randn(WH_BATCH, slots, hk, d) for _ in range(2)]
+    cases["whisper self decode bf16"] = flash_case(
+        randn(WH_BATCH, 1, h, d), *kv, slots - 1, floor=floor)
+    del kv
+    vc = get_config(VLM)
+    h, hk, d = vc.n_heads, vc.n_kv_heads, vc.resolved_head_dim
+    kv = [randn(SERVE_BATCH, vc.num_patches, hk, d) for _ in range(2)]
+    cases["vlm cross prefill bf16"] = flash_case(
+        randn(SERVE_BATCH, SERVE_PROMPT, h, d), *kv, 0, floor=floor,
+        causal=False)
+    cases["vlm cross decode bf16"] = flash_case(
+        randn(SERVE_BATCH, 1, h, d), *kv, 0, floor=floor, causal=False)
+    del kv
+    torch.cuda.empty_cache()
+    rows["flash_attention"].update(cases)
+
+
+def phase_whisper_flash_backward(rows: dict, g) -> None:
+    """B9's gradient at [whisper]'s training microbatch (WH_TRAIN_BATCH /
+    WH_TRAIN_ACCUM rows), bf16, non-causal: the encoder's self-attention
+    (q, k, v, dO [32, 1500, 6, 64]) and the decoder's cross-attention
+    (q, dO [32, 448, 6, 64] over k, v [32, 1500, 6, 64]), each held
+    against the plain backward (FLASH_BWD_*) and timed beside
+    `scaled_dot_product_attention`'s backward."""
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mb, frames = WH_TRAIN_BATCH // WH_TRAIN_ACCUM, cfg.encoder_seq
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cases = {}
+    for label, sq in (("encoder", frames), ("cross", WH_TRAIN_SEQ)):
+        q, dout = randn(mb, sq, h, d), randn(mb, sq, h, d)
+        k, v = randn(mb, frames, hk, d), randn(mb, frames, hk, d)
+        cases[f"whisper {label} bf16"] = flash_bwd_case(q, k, v, dout,
+                                                        causal=False)
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+    rows["flash_attention_backward"].update(cases)
+
+
 def phase_qwen3_quant_kernel(rows: dict, g) -> None:
     """B2 on a batch of one Qwen3-MoE expert leaf at Q3_INT8_LAYERS
     layers, Q3_INT8_K int8 rows of 2,214,592,512 elements (past 2^31),
@@ -3328,9 +3505,11 @@ def hold_leaves_vs_exact(tag: str, label: str, exact, kern,
 
 
 def merge_and_serve(cfg, k: int, tag: str, batch: dict,
-                    launches: dict) -> dict:
+                    launches: dict, models=None,
+                    gen: int = SERVE_GEN) -> dict:
     """A base and k contributions (base + 0.1 x a seeded delta,
-    `make_models`, bf16) at `cfg`'s depth go to two replicas in opposite
+    `make_models`, bf16; or `models`, (base, contributions), which it
+    empties) at `cfg`'s depth go to two replicas in opposite
     orders (B given A's eids, as a sync delivers them); each resolves
     histogram TIES and weight_average on the kernel routes
     (`engine.merge(..., kernels=True)` over its canonical order, with the
@@ -3338,8 +3517,8 @@ def merge_and_serve(cfg, k: int, tag: str, batch: dict,
     byte-identical trees, each held leaf by leaf
     against replica A's exact route (`hold_leaves_vs_exact`), and the
     TIES trees serve byte-identical tokens and logits through
-    `greedy_decode` (path `tag`, each call launching exactly
-    `launches`). Returns {"launches", "ms"}."""
+    `greedy_decode` of `gen` tokens (path `tag`, each call launching
+    exactly `launches`). Returns {"launches", "ms"}."""
     from repro_torch import pytree
     from repro_torch.api import MergeSpec, Replica
     from repro_torch.core import engine
@@ -3348,7 +3527,11 @@ def merge_and_serve(cfg, k: int, tag: str, batch: dict,
     from repro_torch.strategies import get_strategy
     from repro_torch.train.serve import greedy_decode
     t0 = time.perf_counter()
-    base, contribs = make_models(cfg, DEVICE, k=k)
+    if models is None:
+        base, contribs = make_models(cfg, DEVICE, k=k)
+    else:
+        base, contribs = models[0], list(models[1])
+        models[1].clear()
     rep_a = Replica(f"{tag}-a", device=DEVICE)
     eids = [rep_a.contribute(c) for c in contribs]
     ref_a = rep_a.register_base(base)
@@ -3414,14 +3597,14 @@ def merge_and_serve(cfg, k: int, tag: str, batch: dict,
     def serve(rl):
         def thunk():
             out[rl] = greedy_decode(model, merged[f"ties {rl}"], batch,
-                                    SERVE_GEN, return_logits=True)
+                                    gen, return_logits=True)
         return thunk
 
     calls = [(f"greedy_decode merged {rl}", serve(rl)) for rl in ("A", "B")]
     served = run_path(tag, calls, expect={label: launches for label, _ in
                                           calls})
     (ta, la), (tb, lb) = out.pop("A"), out.pop("B")
-    check_served(f"{tag} merged", ta, la[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    check_served(f"{tag} merged", ta, la[-1], cfg, ta.shape[0], gen)
     if not (torch.equal(ta, tb) and all(
             torch.equal(bits(a), bits(b)) for a, b in zip(la, lb))):
         raise AssertionError(f"[{tag}] the replicas' merged trees served "
@@ -4240,9 +4423,11 @@ def phase_durable(cts: list, eids, held: dict) -> dict:
                 weight_average(state, engine.EngineCache()))
 
     # one launch per fused group of the payloads' leaves, at
-    # DURABLE_LAYERS = 2 (the engine's packing: int8 payloads priced at
-    # a byte an element, decompressed ones at bf16's two; groups of 5 and
-    # 3 leaves, 4 leaves alone; at 4 layers groups of 5 and 2, 5 alone)
+    # DURABLE_LAYERS = 1 (the engine's packing, largest first under a cap
+    # of the largest leaf: int8 payloads priced at a byte an element,
+    # decompressed ones at bf16's two; groups of 5 and 5 leaves, the
+    # embedding and the head alone; at 2 layers groups of 5 and 3, 4
+    # alone; at 4 layers groups of 5 and 2, 5 alone)
     quant = {"quant_nary": 2}
     dense = {"nary_accum": 2}
     try:
@@ -5052,11 +5237,14 @@ def phase_gemma2_train() -> dict:
 
 
 def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
-                 accum: int, cut: str, routing: bool = False) -> dict:
+                 accum: int, cut: str, routing: bool = False,
+                 keep_params: bool = False) -> dict:
     """`cfg` trained on the card at full width (fp32 parameters and
     moments, bf16 compute, remat) from `init_from_schema`: `steps` steps
     of `make_train_step` at batch `batch_size` x `seq` in `accum`
-    microbatches on `SyntheticTask` batches. Per step: loss, grad norm,
+    microbatches on `make_batch` batches (`SyntheticTask` 0's tokens, and
+    the enc-dec family's frames or the VLM's patches). Per step: loss,
+    grad norm,
     seconds, tokens per second, peak device memory; the last step
     traced (with `routing`, the MoE routing / gather kernels a group of
     their own). B9's forward and backward launch exactly as the
@@ -5065,14 +5253,16 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
     the finished state fingerprinted (`bits_fingerprint`), the
     checkpoint restored and the last step run again: every leaf's
     fingerprint the uninterrupted run's. Returns {"launches",
-    "traced"}."""
+    "traced"}, and with `keep_params` "params", the trained parameters
+    (bitwise the uninterrupted run's)."""
     import gc
     import shutil
     import tempfile
     from repro_torch import kernels, pytree
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import ShapeSpec
     from repro_torch.core import engine
-    from repro_torch.data.synthetic import SyntheticTask
+    from repro_torch.data.synthetic import make_batch
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     from repro_torch.train.step import (init_train_state, make_train_step,
@@ -5096,11 +5286,11 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
         f"({held0 / 1e9:.2f} GB before it)")
     before = leaf_samples(state["params"])
     step_fn = make_train_step(model, total_steps=steps, grad_accum=accum)
-    task = SyntheticTask(cfg.vocab_size, seq, task_id=0)
+    shape = ShapeSpec("train", seq, batch_size, "train")
 
     def batch(i):
-        return {"tokens": torch.as_tensor(task.batch(i, batch_size),
-                                          device=DEVICE)}
+        return {k: torch.as_tensor(v, device=DEVICE)
+                for k, v in make_batch(cfg, shape, step=i).items()}
 
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     traced = {}
@@ -5149,16 +5339,16 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
                                  f"{shares}")
         if int(state["step"]) != steps:
             raise AssertionError(f"step counter {int(state['step'])}")
-        attn = model.n_periods * sum(sl.mixer == "attn"
-                                     for sl in model.layout)
-        micro = steps * accum * attn
-        want = {"flash_attention": micro * (2 if cfg.remat != "none"
-                                            else 1),
-                "flash_attention_backward": micro}
+        inner, outer = attention_calls(model)
+        micro = steps * accum
+        want = {"flash_attention": micro * (
+                    inner * (2 if cfg.remat != "none" else 1) + outer),
+                "flash_attention_backward": micro * (inner + outer)}
         got = {k: counts[k] for k in want}
-        log(f"[{tag}] launches {got} (expected {want}: {attn} attention "
-            f"layers x {accum} microbatches x {steps} steps, the forward "
-            "again in each remat); every parameter leaf changed (shares "
+        log(f"[{tag}] launches {got} (expected {want}: {inner} attention "
+            f"calls under remat and {outer} outside it x {accum} "
+            f"microbatches x {steps} steps, the forward again in each "
+            "remat); every parameter leaf changed (shares "
             f"of sampled elements changed {min(shares):.4f}-"
             f"{max(shares):.4f})")
         if got != want:
@@ -5192,12 +5382,36 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
         if same != len(want):
             raise AssertionError(f"{tag}: resume differs from the "
                                  "uninterrupted run")
+        kept = state["params"] if keep_params else None
         del state
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": counts, "traced": traced}
+    out = {"launches": counts, "traced": traced}
+    if keep_params:
+        out["params"] = kept
+    return out
+
+
+def attention_calls(model) -> tuple:
+    """(under remat, outside it): B9 launches of one training forward.
+    A period stack's attention and cross-attention sub-layers run under
+    remat; the enc-dec family's decoder layers (two calls each) too, its
+    encoder layers (one each) outside it, as the reference's."""
+    if model.encdec:
+        return 2 * model.cfg.n_layers, model.cfg.n_encoder_layers
+    return model.n_periods * sum(sl.mixer in ("attn", "cross")
+                                 for sl in model.layout), 0
+
+
+def serve_calls(model) -> tuple:
+    """(prefill, decode step): B9 launches of a served forward: every
+    attention and cross-attention sub-layer once (the enc-dec family:
+    the encoder's layers and each decoder layer's two in prefill, the
+    decoder's two a step)."""
+    inner, outer = attention_calls(model)
+    return inner + outer, inner
 
 
 def phase_jamba() -> dict:
@@ -5211,7 +5425,7 @@ def phase_jamba() -> dict:
     tokens and logits; the prefill alone for the split; one decode step
     and one prefill traced (routing / gather kernels a group of their
     own). At JB_MERGE_CUT the served forward with B9 against its plain
-    version (`served_vs_plain`), then `jamba_merge`."""
+    version (`served_vs_plain`), then `sparse_merge`."""
     import gc
     from repro_torch import pytree
     from repro_torch.configs import get_config
@@ -5308,24 +5522,30 @@ def phase_jamba() -> dict:
     torch.cuda.empty_cache()
     cfg2 = full.replace(**JB_MERGE_CUT)
     served_vs_plain(cfg2, batch, "jamba-vs-plain")
-    merged = jamba_merge(cfg2, batch)
+    merged = sparse_merge(cfg2, batch, "jamba", JB_K,
+                          keep=lambda path: "['experts']" not in path,
+                          left="expert leaves")
     launches = {k: path["launches"][k] + merged["launches"][k]
                 for k in path["launches"]}
     return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
 
 
-def jamba_merge(cfg, batch: dict) -> dict:
+def sparse_merge(cfg, batch: dict, tag: str, k: int, keep, left: str,
+                 prepare=None, tweak=None, bitwise=None) -> dict:
     """The merge of the paper's sparse contributions at `cfg`'s cut: a
-    bf16 base and JB_K fine-tunes of every leaf but the three expert
-    leaves (`sparse_update`) land on two replicas in opposite orders
+    bf16 base (`prepare(model, base)` adjusts it) and k fine-tunes of
+    the leaves whose path `keep` admits (`sparse_update`; `tweak(j,
+    tune)` adjusts fine-tune j) land on two replicas in opposite orders
     (`contribute(..., leaves=...)`, B given A's eids); each resolves
     histogram TIES and weight_average on the kernel routes
     (`engine.merge(..., kernels=True, coverages=...)` over its canonical
     order, with the registered base's leaf digests; B1 and B3-B5 on the
-    covered leaves' groups) to byte-identical trees whose expert leaves
-    are the base's own tensors (inherited, not copied); each tree held
-    leaf by leaf against replica A's exact `Replica.resolve`
-    (`hold_leaves_vs_exact`); the TIES trees served byte-identical."""
+    covered leaves' groups) to byte-identical trees whose other leaves
+    (`left` names them) are the base's own tensors (inherited, not
+    copied); each tree held leaf by leaf against replica A's exact
+    `Replica.resolve` (`hold_leaves_vs_exact`), and the leaves whose path
+    `bitwise` admits bit for bit; the TIES trees served
+    byte-identical."""
     import gc
     from repro_torch import pytree
     from repro_torch.api import MergeSpec, Replica
@@ -5335,13 +5555,17 @@ def jamba_merge(cfg, batch: dict) -> dict:
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     from repro_torch.train.serve import greedy_decode
-    tag = "jamba"
     t0 = time.perf_counter()
-    base = init_from_schema(Model(cfg).schema(), seed=SEED, device=DEVICE,
+    model = Model(cfg)
+    base = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
                             dtype=torch.bfloat16)
-    tunes = [sparse_update(cfg, base, SEED + 1 + j,
-                           keep=lambda path: "['experts']" not in path)
-             for j in range(JB_K)]
+    if prepare is not None:
+        prepare(model, base)
+    tunes = [sparse_update(cfg, base, SEED + 1 + j, keep=keep)
+             for j in range(k)]
+    if tweak is not None:
+        for j, tune in enumerate(tunes):
+            tweak(j, tune)
     cov = leaf_paths_of(tunes[0])
     torch.cuda.synchronize()
     t_make = time.perf_counter() - t0
@@ -5362,10 +5586,11 @@ def jamba_merge(cfg, batch: dict) -> dict:
     inherited = [i for i, p in enumerate(paths) if p not in set(cov)]
     n_base = sum(t.numel() for t in pytree.leaves(base))
     n_tune = sum(t.numel() for t in pytree.leaves(tunes[0]))
-    where = f"merged at {cfg.n_layers} sub-layers"
-    log(f"[{tag}] {where}: a base of {n_base} bf16 parameters and {JB_K} "
+    where = (f"merged at {cfg.n_layers} "
+             f"{'sub-layers' if cfg.family == 'hybrid' else 'layers'}")
+    log(f"[{tag}] {where}: a base of {n_base} bf16 parameters and {k} "
         f"fine-tunes of {n_tune} ({len(cov)} of {len(paths)} leaves; the "
-        f"{len(inherited)} expert leaves left to the base) made in "
+        f"{len(inherited)} {left} left to the base) made in "
         f"{t_make:.1f} s, contributed to A in {t_contrib:.1f} s, the base "
         f"registered in {t_base:.1f} s (its leaf digests kept for the "
         "planner) on each of two replicas")
@@ -5395,8 +5620,8 @@ def jamba_merge(cfg, batch: dict) -> dict:
         check_output(f"{tag} {label}", tree, base)
         leaves = pytree.leaves(tree)
         if not all(leaves[i] is base_leaves[i] for i in inherited):
-            raise AssertionError(f"[{tag}] {label}: an expert leaf is not "
-                                 "the base's own tensor")
+            raise AssertionError(f"[{tag}] {label}: one of the {left} is "
+                                 "not the base's own tensor")
     for name in ("ties", "weight_average"):
         differ = same_bytes(merged[f"{name} A"], merged[f"{name} B"])
         if differ:
@@ -5409,22 +5634,36 @@ def jamba_merge(cfg, batch: dict) -> dict:
         t_exact = time.perf_counter() - t0
         if not all(pytree.leaves(exact)[i] is base_leaves[i]
                    for i in inherited):
-            raise AssertionError(f"[{tag}] exact {name}: an expert leaf is "
-                                 "not the base's own tensor")
+            raise AssertionError(f"[{tag}] exact {name}: one of the {left} "
+                                 "is not the base's own tensor")
         hold_leaves_vs_exact(tag, f"{where}, {name} (exact resolve "
                              f"{t_exact:.1f} s)", exact,
                              merged[f"{name} A"], ties=name == "ties")
+        if bitwise is not None:
+            held = [(p, e, kt) for p, e, kt in zip(
+                paths, pytree.leaves(exact),
+                pytree.leaves(merged[f"{name} A"])) if bitwise(p)]
+            differ = [p for p, e, kt in held
+                      if not torch.equal(bits(e), bits(kt))]
+            log(f"[{tag}] {where}, {name}: {len(held)} leaves held bit for "
+                f"bit against the exact route "
+                + ", ".join(f"{p} {kt.float().tolist()}"
+                            for p, _, kt in held)
+                + f": {'FAIL ' + str(differ) if differ or not held else 'ok'}")
+            if differ or not held:
+                raise AssertionError(f"[{tag}] {name}: the kernel route "
+                                     f"differs from the exact route in "
+                                     f"{differ}")
         del exact
     log(f"[{tag}] {where}: replicas A and B (opposite orders) resolve "
         "histogram TIES and weight_average on the kernel routes to "
-        f"byte-identical trees; the {len(inherited)} expert leaves "
+        f"byte-identical trees; the {len(inherited)} {left} "
         f"({sum(base_leaves[i].numel() for i in inherited)} elements) are "
         "the base's tensors in every tree, the resolve copies none")
     del rep_a, rep_b, merges, merged["weight_average A"], \
         merged["weight_average B"]
     gc.collect()
     torch.cuda.empty_cache()
-    model = Model(cfg)
     out = {}
 
     def serve(rl):
@@ -5433,8 +5672,8 @@ def jamba_merge(cfg, batch: dict) -> dict:
                                     SERVE_GEN, return_logits=True)
         return thunk
 
-    attn = model.n_periods * sum(sl.mixer == "attn" for sl in model.layout)
-    launches = {"flash_attention": attn * (SERVE_GEN + 1)}
+    first, per_step = serve_calls(model)
+    launches = {"flash_attention": first + SERVE_GEN * per_step}
     calls = [(f"greedy_decode merged {rl}", serve(rl)) for rl in ("A", "B")]
     served = run_path(tag, calls, expect={label: launches for label, _ in
                                           calls})
@@ -5453,6 +5692,332 @@ def jamba_merge(cfg, batch: dict) -> dict:
                          + served["launches"][n]
                          for n in merge_path["launches"]},
             "ms": {**merge_path["ms"], **served["ms"]}}
+
+
+def set_gates(model, params) -> None:
+    """Every cross-attention sub-layer's gates (the VLM's) at VL_GATES:
+    at their init, 0, tanh(0) = 0 multiplies the cross path's output
+    away. A no-op for the other families."""
+    for j, sl in enumerate(model.layout):
+        if sl.mixer == "cross":
+            for name, value in VL_GATES.items():
+                params["blocks"][f"sub{j}"][name].fill_(value)
+
+
+def phase_whisper() -> dict:
+    """`[whisper]`: Whisper-tiny, the enc-dec family, on the card at full
+    width and depth. Served: its 36,439,680 parameters seeded in bf16
+    (`init_from_schema`), `greedy_decode` twice (batch WH_BATCH clips of
+    1500 frames, a WH_PROMPT-token prompt, WH_GEN tokens; B9 on every
+    attention call: the encoder's non-causal self-attention, each decoder
+    layer's causal self-attention and its cross-attention over the 1500
+    frames), byte-identical tokens and logits; the prefill alone for the
+    split; one decode step and one prefill traced; the served forward with
+    B9 against its plain version (`served_vs_plain`). Then
+    `whisper_train_check` (the smoke model, card against CPU),
+    `train_resume` at full depth in fp32 (WH_TRAIN_STEPS steps of
+    WH_TRAIN_BATCH x WH_TRAIN_SEQ tokens with their frames), WH_K
+    fine-tunes of the trained base (`whisper_finetunes`), and
+    `merge_and_serve` over them."""
+    import gc
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    log(f"[whisper] {cfg.name}: {n} bf16 parameters ({n * 2 / 1e6:.1f} MB; "
+        f"{cfg.n_encoder_layers} encoder layers over {cfg.encoder_seq} "
+        f"frames, {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, {cfg.mlp_variant} "
+        f"MLP of {cfg.d_ff}, vocabulary {cfg.vocab_size}, tied, sinusoidal "
+        f"positions, no RoPE) seeded in {time.perf_counter() - t0:.1f} s")
+    batch = serve_batch(cfg, WH_BATCH, WH_PROMPT)
+    first, per_step = serve_calls(model)
+    per_call = first + WH_GEN * per_step
+    out = {}
+
+    def serve(label):
+        def thunk():
+            out[label] = greedy_decode(model, params, batch, WH_GEN,
+                                       return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path("whisper", calls, expect={
+        label: {"flash_attention": per_call} for label, _ in calls})
+    serve_peak = torch.cuda.max_memory_allocated()
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served("whisper", tok1, lg1[-1], cfg, WH_BATCH, WH_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError("[whisper] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch,
+                                   max_len=WH_PROMPT + WH_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / WH_GEN
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in pytree.leaves(caches)) / 1e9
+    log(f"[whisper] batch {WH_BATCH} x {cfg.encoder_seq} frames, prompt "
+        f"{WH_PROMPT}, {WH_GEN} tokens: {per_call} B9 launches a call "
+        f"({first} in prefill, {per_step} a step); tokens and all "
+        f"{WH_GEN + 1} logits byte-identical across the two calls; "
+        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
+        f"call), {total:.3f} s (second) = prefill {t_prefill:.4f} s (timed "
+        f"alone) + {decode_ms:.2f} ms per decode step; "
+        f"{WH_BATCH * WH_GEN / total:.1f} generated tokens/s; cache "
+        f"{cache_gb:.3f} GB (self and cross); peak {serve_peak / 1e9:.2f} "
+        f"GB over the two calls; tokens[0][:16] {tok1[0, :16].tolist()}")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, WH_PROMPT), tag="whisper")
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=WH_PROMPT + WH_GEN), tag="whisper")
+    del params, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    served_vs_plain(cfg, batch, "whisper-vs-plain")
+    whisper_train_check()
+    tcfg = cfg.replace(grad_accum=WH_TRAIN_ACCUM)
+    train = train_resume(
+        "whisper-train", tcfg, WH_TRAIN_STEPS, WH_TRAIN_BATCH, WH_TRAIN_SEQ,
+        WH_TRAIN_ACCUM, f"full depth ({WH_TRAIN_SEQ} tokens a row, its "
+        f"context, and {cfg.encoder_seq} frames)", keep_params=True)
+    tunes, tuned = whisper_finetunes(tcfg, train["params"])
+    base = pytree.tree_map(lambda t: t.to(torch.bfloat16), train["params"])
+    del train["params"]
+    merged = merge_and_serve(cfg, WH_K, "whisper", batch,
+                             {"flash_attention": per_call},
+                             models=(base, tunes), gen=WH_GEN)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: path["launches"][k] + merged["launches"][k]
+                + train["launches"][k] + tuned[k] for k in path["launches"]}
+    return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
+
+
+def whisper_train_check() -> None:
+    """Whisper-tiny's smoke model, fp32 compute, remat: `Model.loss` and
+    its gradients (the encoder's through the cross-attention included)
+    on the card, under the train step's deterministic mode, against the
+    same on the CPU (the kernels' plain versions there): the loss within
+    WH_CHECK_LIMITS["loss"] relative, each leaf's gradient within
+    WH_CHECK_LIMITS["grad"] of its largest magnitude."""
+    from repro_torch import pytree
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import _deterministic
+    cfg = smoke_config(WHISPER).replace(compute_dtype="float32",
+                                        remat="full")
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=SEED, device="cpu")
+    batch = make_batch(cfg, ShapeSpec("check", 64, 2, "train"))
+    got = []
+    for device in (DEVICE, "cpu"):
+        p = pytree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(), params)
+        with _deterministic(torch.device(device)):
+            loss, _ = model.loss(p, batch)
+            loss.backward()
+        got.append((float(loss.detach()),
+                    [t.grad.cpu() for t in pytree.leaves(p)]))
+    (lc, gc), (lh, gh) = got
+    rel = abs(lc - lh) / abs(lh)
+    grad = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                1e-30)
+               for a, b in zip(gc, gh))
+    ok = rel <= WH_CHECK_LIMITS["loss"] and grad <= WH_CHECK_LIMITS["grad"]
+    log(f"[whisper-train] smoke model ({cfg.n_encoder_layers} encoder and "
+        f"{cfg.n_layers} decoder layers over {cfg.encoder_seq} frames), "
+        f"card vs CPU: loss {lc:.6f} / {lh:.6f} (relative {rel:.2e}), "
+        f"gradients {grad:.2e} of a leaf's largest magnitude at worst over "
+        f"{len(gc)} leaves (limits {WH_CHECK_LIMITS}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("whisper train check: card vs CPU outside "
+                             "the limits")
+
+
+def whisper_finetunes(cfg, base) -> tuple:
+    """WH_K fine-tunes of the trained fp32 `base`: each a copy of it with
+    zero moments, trained WH_TUNE_STEPS steps on task id j + 1 (its own
+    token stream, `make_batch`'s frames) at batch WH_TRAIN_BATCH x
+    WH_TRAIN_SEQ. Returns (the bf16 trees, the steps' launch counts)."""
+    from repro_torch import kernels, pytree
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import init_train_state, make_train_step
+    model = Model(cfg)
+    shape = ShapeSpec("tune", WH_TRAIN_SEQ, WH_TRAIN_BATCH, "train")
+    step_fn = make_train_step(model, total_steps=WH_TUNE_STEPS,
+                              grad_accum=WH_TRAIN_ACCUM)
+    tunes, losses = [], []
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    for j in range(WH_K):
+        state = init_train_state(model, params=clone_tree(base),
+                                 device=DEVICE)
+        for i in range(WH_TUNE_STEPS):
+            _, mets = step_fn(state, {
+                k: torch.as_tensor(v, device=DEVICE) for k, v in
+                make_batch(cfg, shape, step=i, task_id=j + 1).items()})
+            losses.append(float(mets["loss"]))
+        tunes.append(pytree.tree_map(lambda t: t.to(torch.bfloat16),
+                                     state["params"]))
+        del state
+    counts = kernels.launch_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper fine-tune losses {losses}")
+    log(f"[whisper-train] {WH_K} fine-tunes of the trained base, "
+        f"{WH_TUNE_STEPS} steps each on task ids 1 .. {WH_K}: losses "
+        f"{[round(x, 4) for x in losses]}, "
+        f"{time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return tunes, counts
+
+
+def phase_vlm() -> dict:
+    """`[vlm]`: Llama-3.2-Vision-90B, the VLM family, on the card at full
+    width. Served at VL_SERVE_PERIODS periods seeded in bf16
+    (`init_from_schema`, the gates at VL_GATES): `greedy_decode` twice
+    (batch 4, a SERVE_PROMPT-token prompt, 1601 patches a row from
+    `make_batch`, 32 tokens; B9 on every self-attention sub-layer and,
+    non-causal over the patches, every cross-attention one: 30 launches a
+    forward), byte-identical tokens and logits; the prefill alone for the
+    split; one decode step and one prefill traced. At VL_MERGE_PERIODS
+    the served forward with B9 against its plain version
+    (`served_vs_plain`), then `sparse_merge` of VL_K fine-tunes of the
+    cross sub-layer alone, its gate leaves held bit for bit against the
+    exact route."""
+    import gc
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(VLM)
+    period = full.cross_attn_interval
+    cfg = full.replace(n_layers=VL_SERVE_PERIODS * period)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    set_gates(model, params)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    log(f"[vlm] {cfg.name}: {n} bf16 parameters ({n * 2 / 1e9:.2f} GB) at "
+        f"full width, {model.n_periods} of the config's "
+        f"{full.n_layers // period} periods of "
+        f"{[f'{sl.mixer}+{sl.ffn}' for sl in model.layout]} (the config's "
+        f"{full.n_layers} layers hold {count_params(full)[0]}, "
+        f"{count_params(full)[0] * 2 / 1e9:.1f} GB); {cfg.n_heads} query / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, RoPE theta "
+        f"{cfg.rope_theta:g} on the self-attention; {cfg.num_patches} "
+        f"patches; gates {VL_GATES}; seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = serve_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    first, per_step = serve_calls(model)
+    per_call = first + SERVE_GEN * per_step
+    out = {}
+
+    def serve(label):
+        def thunk():
+            out[label] = greedy_decode(model, params, batch, SERVE_GEN,
+                                       return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path("vlm", calls, expect={
+        label: {"flash_attention": per_call} for label, _ in calls})
+    serve_peak = torch.cuda.max_memory_allocated()
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served("vlm", tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError("[vlm] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch,
+                                   max_len=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in pytree.leaves(caches)) / 1e9
+    log(f"[vlm] {cfg.n_layers} layers, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {cfg.num_patches} patches a row, {SERVE_GEN} "
+        f"tokens: {per_call} B9 launches a call; tokens and all "
+        f"{SERVE_GEN + 1} logits byte-identical across the two calls; "
+        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
+        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
+        f"alone) + {decode_ms:.2f} ms per decode step; "
+        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s; cache "
+        f"{cache_gb:.3f} GB (self KV and the patches' cross KV); peak "
+        f"{serve_peak / 1e9:.2f} GB over the two calls; tokens[0] "
+        f"{tok1[0].tolist()}")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, SERVE_PROMPT), tag="vlm")
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=SERVE_PROMPT + SERVE_GEN), tag="vlm")
+    del params, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg1 = full.replace(n_layers=VL_MERGE_PERIODS * period)
+    served_vs_plain(cfg1, {k: v[:VL_PLAIN_ROWS] for k, v in batch.items()},
+                    "vlm-vs-plain")
+    cross = f"['blocks']['sub{period - 1}']"
+
+    def tweak(j, tune):
+        sub = tune["blocks"][f"sub{period - 1}"]
+        sub["gate_attn"].add_(0.1 * (j + 1))
+        sub["gate_ffn"].sub_(0.05 * (j + 1))
+
+    merged = sparse_merge(cfg1, batch, "vlm", VL_K,
+                          keep=lambda path: path.startswith(cross),
+                          left="leaves outside the cross sub-layer",
+                          prepare=set_gates, tweak=tweak,
+                          bitwise=lambda path: "['gate_" in path)
+    launches = {k: path["launches"][k] + merged["launches"][k]
+                for k in path["launches"]}
+    return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
 
 
 def phase_qwen3_moe_train() -> dict:
@@ -5640,6 +6205,8 @@ def main() -> int:
     qwen3 = timed(phase_qwen3_moe)
     mamba2 = timed(phase_mamba2)
     jamba = timed(phase_jamba)
+    whisper = timed(phase_whisper)
+    vlm = timed(phase_vlm)
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
@@ -5653,7 +6220,7 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name] for p in
                               (main, serve, gemma2, qwen3, mamba2, jamba,
-                               train, btm, g2train, q3train))
+                               whisper, vlm, train, btm, g2train, q3train))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -6,8 +6,10 @@ Every architecture is a `ModelConfig` and every workload cell a
 reference so the two describe the same model and the same batch. The
 port registers the configurations it can run (the plain dense family:
 Phi-3-mini, MiniCPM-2B, Minitron-8B; Gemma-2 27B's local/global
-layout; Qwen3-MoE-30B-A3B's token-choice experts; and Mamba2-780M's SSD
-mixers); the rest arrive with ROADMAP A7.
+layout; Qwen3-MoE-30B-A3B's token-choice experts; Mamba2-780M's SSD
+mixers; Jamba-1.5-Large's hybrid periods; Whisper-tiny's encoder-decoder;
+and Llama-3.2-Vision-90B's gated cross-attention); DeepSeek-V2's MLA
+waits for ROADMAP A.8.
 """
 from __future__ import annotations
 
@@ -174,8 +176,9 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma2_27b, jamba_1_5_large_398b, mamba2_780m, minicpm_2b,
-        minitron_8b, phi3_mini_3_8b, qwen3_moe_30b_a3b)
+        gemma2_27b, jamba_1_5_large_398b, llama_3_2_vision_90b,
+        mamba2_780m, minicpm_2b, minitron_8b, phi3_mini_3_8b,
+        qwen3_moe_30b_a3b, whisper_tiny)
 
 
 # ---------------------------------------------------------------------------

@@ -74,8 +74,7 @@ from repro_torch.api.spec import coerce_spec, MergeSpec
 from repro_torch.core.compression import (
     compressed_tree_to_structure, CompressedLeaf, CompressedTree,
     dequantize_leaf)
-from repro_torch.core.hashing import (pytree_digest, tensor_digest,
-                                     tensor_digests)
+from repro_torch.core.hashing import pytree_digest, tensor_digests
 from repro_torch.dtypes import BY_NAME
 from repro_torch.obs import CounterView, MetricsRegistry, span
 from repro_torch.strategies import get_strategy
@@ -158,9 +157,9 @@ def contrib_meta(contribution: Any, *, eid: Optional[str] = None
     """Flatten + digest one contribution; memoized by content id.
 
     A `CompressedTree` is planned in place: its leaves are the int8
-    payloads, digests are taken on a transient dequantization of one
-    leaf at a time (never the densified model), and each int8 leaf is
-    priced at one byte per element."""
+    payloads, digests are taken on transient dequantizations of a few
+    leaves at a time (`tensor_digests`' `prepare`; never the densified
+    model), and each int8 leaf is priced at one byte per element."""
     if eid is not None and eid in _META_MEMO:
         _META_MEMO.move_to_end(eid)
         return _META_MEMO[eid]
@@ -175,12 +174,10 @@ def contrib_meta(contribution: Any, *, eid: Optional[str] = None
                 "torch.Tensor and CompressedLeaf leaves only")
     meta = ContribMeta(
         treedef=treedef,
-        # int8 leaves one at a time (each a transient dequantization on
-        # the device); dense ones on the hashing threads
-        digests=(tuple(tensor_digest(_dense_leaf(leaf, obs=None))
-                       for leaf in leaves)
-                 if any(_is_qleaf(leaf) for leaf in leaves)
-                 else tuple(tensor_digests(leaves))),
+        # int8 payloads digested on their transient dequantizations
+        digests=tuple(tensor_digests(leaves, prepare=_digest_leaf)
+                      if any(_is_qleaf(leaf) for leaf in leaves)
+                      else tensor_digests(leaves)),
         shapes=tuple(tuple(leaf.shape) for leaf in leaves),
         dtypes=tuple(leaf.dtype for leaf in leaves),
         paths=tuple(pytree.keystr(p) for p, _ in flat),
@@ -192,6 +189,12 @@ def contrib_meta(contribution: Any, *, eid: Optional[str] = None
     if eid is not None:
         _memoize(eid, meta)
     return meta
+
+
+def _digest_leaf(leaf: Any) -> torch.Tensor:
+    """The tensor a leaf's digest is taken on: an int8 payload's transient
+    dequantization, or the leaf itself."""
+    return _dense_leaf(leaf, obs=None)
 
 
 def _scales(scales: Sequence[Optional[float]]

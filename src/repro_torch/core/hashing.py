@@ -31,7 +31,7 @@ import hashlib
 import os
 import queue
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,8 +48,12 @@ _SUM_CHUNK = 1 << 30
 # bytes of a device tensor copied to the host at a time while hashing
 _SLICE_BYTES = 1 << 28
 # threads hashing a list of leaves; leaves below _THREAD_MIN_BYTES in all
-# are hashed on the caller's thread
+# are hashed on the caller's thread. Leaves given a `prepare` (an int8
+# payload's dequantization: a Qwen3-MoE expert leaf at 11 layers is 4.4 GB
+# in bf16, with fp32 temporaries twice that) are hashed on at most
+# _PREPARED_THREADS, which bounds the transient device copies in flight
 _HASH_THREADS = max(1, min(4, os.cpu_count() or 1))
+_PREPARED_THREADS = min(2, _HASH_THREADS)
 _THREAD_MIN_BYTES = 1 << 26
 # page-locked host buffers of _SLICE_BYTES that CUDA slices are copied
 # into, made on first need and kept: one for each digest in flight
@@ -93,16 +97,26 @@ def tensor_digest(t: torch.Tensor) -> bytes:
     return h.digest()
 
 
-def tensor_digests(leaves: Sequence[torch.Tensor]) -> List[bytes]:
+def tensor_digests(leaves: Sequence[Any],
+                   prepare: Optional[Callable[[Any], torch.Tensor]] = None
+                   ) -> List[bytes]:
     """`tensor_digest` of each leaf, in order, on up to _HASH_THREADS
-    threads."""
+    threads. With `prepare`, the digest of `prepare(leaf)`, made on the
+    hashing thread and dropped after it, on up to _PREPARED_THREADS."""
     leaves = list(leaves)
-    total = sum(t.numel() * t.element_size() for t in leaves
-                if isinstance(t, torch.Tensor))
-    if len(leaves) < 2 or total < _THREAD_MIN_BYTES or _HASH_THREADS < 2:
-        return [tensor_digest(t) for t in leaves]
-    with ThreadPoolExecutor(min(_HASH_THREADS, len(leaves))) as pool:
-        return list(pool.map(tensor_digest, leaves))
+    if prepare is None:
+        digest, threads = tensor_digest, _HASH_THREADS
+        if sum(t.numel() * t.element_size() for t in leaves
+               if isinstance(t, torch.Tensor)) < _THREAD_MIN_BYTES:
+            threads = 1
+    else:
+        def digest(leaf):
+            return tensor_digest(prepare(leaf))
+        threads = _PREPARED_THREADS
+    if len(leaves) < 2 or threads < 2:
+        return [digest(t) for t in leaves]
+    with ThreadPoolExecutor(min(threads, len(leaves))) as pool:
+        return list(pool.map(digest, leaves))
 
 
 def pytree_digest(tree) -> bytes:

@@ -10,9 +10,14 @@
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch qwen3-moe-30b-a3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --smoke --device cpu
 
 Runs on CUDA unless `--device` names another device; without CUDA the
-default raises. Weights come from `init_from_schema(seed=0)`, one seeded
+default raises. `make_batch` gives the enc-dec family its frames and the
+VLM its patches beside the prompt. Weights come from `init_from_schema(seed=0)`, one seeded
 `torch.Generator` per leaf, in the config's parameter dtype (fp32, as
 the reference's); the prompt batch from `make_batch`. At full size that
 bounds what fits one card: gemma2-27b's 27,227,128,320 fp32 parameters

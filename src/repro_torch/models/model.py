@@ -1,8 +1,10 @@
-"""The dense, MoE, SSM and hybrid model families (`repro.models.model`,
-`family` of "dense", "moe" without MLA, "ssm" and "hybrid"): their
-parameter layout and their serving path, prefill and decode, with
-gemma2's local/global layout, Qwen3-MoE's routed experts, Mamba2's SSD
-mixers and Jamba's periods that mix them.
+"""The dense, MoE, SSM, hybrid, enc-dec and VLM model families
+(`repro.models.model`, `family` of "dense", "moe" without MLA, "ssm",
+"hybrid", "encdec" and "vlm"): their parameter layout, their training
+forward and their serving path, prefill and decode, with gemma2's
+local/global layout, Qwen3-MoE's routed experts, Mamba2's SSD mixers,
+Jamba's periods that mix them, Whisper's encoder-decoder and the VLM's
+gated cross-attention.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
 does, in the reference's period layout (`period_layout`): a period of
@@ -19,7 +21,13 @@ parameters under `mixer`) and no FFN; the hybrid family (Jamba) has
 `hybrid_period`, attention at `hybrid_attn_index` and a Mamba2 mixer
 elsewhere, each with an FFN that is routed experts where j % interval
 == offset % interval and dense otherwise (n_periods = n_layers //
-hybrid_period); and with
+hybrid_period); the VLM family (Llama-3.2-Vision) has
+`cross_attn_interval`, self-attention sub-layers and last a `cross` one
+that attends, without a causal mask or RoPE, to the batch's "patches"
+(its keys and values projected from them, `kv_input_dim` = d_model) and
+scales its mixer's and its FFN's outputs by tanh of its 0-d `gate_attn`
+and `gate_ffn` (zeros at init, so the sub-layer starts as the identity);
+and with
 `sandwich_norms` each sub-layer norms its mixer's and its FFN's output
 (`post_mixer_norm`, `post_ffn_norm`) before the residual add. The stack
 runs as a Python loop over periods and, in each, over the sub-layers'
@@ -60,16 +68,22 @@ its reshape then fails).
 Training: `init(key)` draws the reference's parameters bit for bit
 (threefry, per leaf `fold_in(key, SHA-256(path)[:4])`); `loss` is the
 reference's training forward (no cache, no `inference_mode`) and its
-causal cross-entropy, with each sub-layer under
+causal cross-entropy, with each sub-layer (each decoder layer of the
+enc-dec family, whose encoder runs without it, as the reference's) under
 `torch.utils.checkpoint` (non-reentrant) when `cfg.remat != "none"`,
-the reference's `jax.checkpoint`. Under autograd every attention call
+the reference's `jax.checkpoint`. The enc-dec and VLM families need the
+batch's frames or patches (`_context`): without them `loss` and
+`prefill` raise `ValueError`, where the reference raises `KeyError`
+(its train CLI and Branch-Train-Merge feed tokens alone, and so do the
+port's). Under autograd every attention call
 goes to B9's autograd function (forward with the log-sum-exp,
 hand-written backward), with gemma2's softcap and, on its local
 sub-layers, its window: gemma2 trains over its local/global periods,
 sandwich norms, embedding scale and final softcap as the reference's
 `Model.loss` does. `loss` takes the stacked `blocks/sub{j}` leaves or,
 as the train step passes them, a list of per-period dicts for each
-sub-layer (views that are autograd leaves of their own, so a layer's
+sub-layer (and for `enc_blocks` / `dec_blocks` a list of per-layer
+dicts; views that are autograd leaves of their own, so a layer's
 gradient lands in its slice of the stacked gradient without a
 full-size zero tensor per layer).
 
@@ -79,7 +93,8 @@ the MoE sub-layers (under remat the term leaves each checkpointed layer
 beside its output), as the reference's `Model.loss` does (its dense
 sub-layers add exact zeros).
 
-The MLA (DeepSeek-V2), enc-dec and VLM families wait for ROADMAP A7.
+MLA (DeepSeek-V2) waits for ROADMAP A.8 and `pad_heads_to_tp` for A.10:
+both raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -102,7 +117,7 @@ from repro_torch.models.schema import init_from_key, PDef
 
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str            # attn | mamba (the others wait for ROADMAP A7)
+    mixer: str            # attn | mamba | cross (MLA waits for ROADMAP A.8)
     ffn: str              # dense | moe | none
     window: int = 0       # sliding window for attn (0 = global)
 
@@ -110,7 +125,8 @@ class SubLayer:
 def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
     """Returns (sub-layers of one period, n_periods) for the stack: the
     reference's layouts of the dense family, of MoE without MLA, of the
-    SSM family and of the hybrid family."""
+    SSM, hybrid and VLM families (the enc-dec family has no period
+    stack: the plain dense layout, as the reference returns it)."""
     if cfg.family == "ssm":
         return [SubLayer("mamba", "none")], cfg.n_layers
     if cfg.family == "hybrid":
@@ -121,6 +137,11 @@ def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
                             % cfg.moe.interval) else "dense"
             per.append(SubLayer(mixer, ffn))
         return per, cfg.n_layers // cfg.hybrid_period
+    if cfg.family == "vlm":
+        n = cfg.cross_attn_interval
+        per = [SubLayer("attn", "dense") for _ in range(n - 1)]
+        per.append(SubLayer("cross", "dense"))
+        return per, cfg.n_layers // n
     if cfg.family == "moe":
         return [SubLayer("attn", "moe")], cfg.n_layers
     if cfg.local_global_pattern:
@@ -140,18 +161,23 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None,
                  moe_impl: str = "gather"):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-                or cfg.mla is not None or cfg.pad_heads_to_tp:
+        if cfg.mla is not None:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense layouts (plain and gemma2's "
-                "local/global), MoE without MLA, the SSM family and the "
-                "hybrid family are ported; the other families wait for "
-                "ROADMAP A7")
+                f"{cfg.name}: MLA (DeepSeek-V2) waits for ROADMAP A.8")
+        if cfg.pad_heads_to_tp:
+            raise NotImplementedError(
+                f"{cfg.name}: pad_heads_to_tp (tensor-parallel head "
+                "padding) waits for ROADMAP A.10")
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
+                              "vlm"):
+            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}")
         self.cfg = cfg
         self.compute_dtype = BY_NAME[cfg.compute_dtype]
         self.attention = attention or flash_attention
         self.moe_impl = moe_impl
-        self.layout, self.n_periods = period_layout(cfg)
+        self.encdec = cfg.family == "encdec"
+        self.layout, self.n_periods = ([], 0) if self.encdec else \
+            period_layout(cfg)
 
     # ------------------------------------------------------------- schema
 
@@ -161,6 +187,11 @@ class Model:
         sub: Dict[str, Any] = {"pre_norm": L.rmsnorm_def(d)}
         if sl.mixer == "mamba":
             sub["mixer"] = M.mamba_def(cfg)
+        elif sl.mixer == "cross":
+            sub["attn"] = L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd,
+                                     0.02, kv_input_dim=d)
+            sub["gate_attn"] = PDef((), (), init="zeros")
+            sub["gate_ffn"] = PDef((), (), init="zeros")
         else:
             sub["attn"] = L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02)
         if sl.ffn != "none":
@@ -176,16 +207,34 @@ class Model:
     def schema(self) -> dict:
         cfg = self.cfg
         d = cfg.d_model
-        period = {f"sub{j}": self._sublayer_schema(sl)
-                  for j, sl in enumerate(self.layout)}
         sc: Dict[str, Any] = {
             "embed": PDef((cfg.vocab_size, d), ("tp", None), scale=0.02),
             "final_norm": L.rmsnorm_def(d),
-            "blocks": _stack(period, self.n_periods),
         }
         if not cfg.tie_embeddings:
             sc["lm_head"] = PDef((d, cfg.vocab_size), (None, "tp"),
                                  scale=0.02)
+        if self.encdec:
+            hd = cfg.resolved_head_dim
+
+            def attn():
+                return L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd, 0.02)
+
+            def ffn():
+                return L.mlp_def(d, cfg.d_ff, cfg.mlp_variant, 0.02)
+
+            enc = {"pre_norm": L.rmsnorm_def(d), "attn": attn(),
+                   "ffn_norm": L.rmsnorm_def(d), "ffn": ffn()}
+            dec = {"pre_norm": L.rmsnorm_def(d), "attn": attn(),
+                   "cross_norm": L.rmsnorm_def(d), "cross": attn(),
+                   "ffn_norm": L.rmsnorm_def(d), "ffn": ffn()}
+            sc["enc_blocks"] = _stack(enc, cfg.n_encoder_layers)
+            sc["enc_final_norm"] = L.rmsnorm_def(d)
+            sc["dec_blocks"] = _stack(dec, cfg.n_layers)
+            return sc
+        period = {f"sub{j}": self._sublayer_schema(sl)
+                  for j, sl in enumerate(self.layout)}
+        sc["blocks"] = _stack(period, self.n_periods)
         return sc
 
     def init(self, key, *, device: Any = "cuda") -> dict:
@@ -196,7 +245,10 @@ class Model:
     # ------------------------------------------------------------ training
 
     def loss(self, params, batch):
-        """batch: tokens [B, S]. Returns (loss, {"ce", "aux"}): ce, the
+        """batch: tokens [B, S], with the enc-dec family's "frames" [B,
+        encoder_seq, d] or the VLM's "patches" [B, num_patches, d]
+        (`ValueError` without them, `_context`). Returns (loss, {"ce",
+        "aux"}): ce, the
         causal cross-entropy of the training forward (`_logits`' head,
         logit multiplier and final softcap, then the mean over B x (S - 1)
         of logsumexp - the target's logit, computed by `_HeadCE`); aux,
@@ -204,8 +256,16 @@ class Model:
         without MoE); loss = ce + router_aux_coef x aux."""
         cfg = self.cfg
         tokens = self._tokens(params, batch["tokens"])
-        x = self._embed(params, tokens)
-        x, aux = self._run_stack(params, x, mode="train")
+        ctx = self._context(params, batch)
+        if self.encdec:
+            enc = self._encode(params, ctx["frames"])
+            x = self._run_encdec_stack(params, self._dec_inputs(params,
+                                                                tokens),
+                                       enc, mode="train")
+            aux = None
+        else:
+            x = self._embed(params, tokens)
+            x, aux = self._run_stack(params, x, mode="train", ctx=ctx)
         x, head = self._head_inputs(params, x)
         ce = _HeadCE.apply(x, head, tokens[:, 1:].long(),
                            float(cfg.logit_mult), float(cfg.final_softcap))
@@ -216,15 +276,33 @@ class Model:
 
     # --------------------------------------------------------- sub-layers
 
-    def _apply_mixer(self, sl: SubLayer, p, x, *, mode, cache, pos):
-        """Attention, plain or within `sl.window`, or a Mamba2 mixer;
-        `mode` is "train", "prefill" or "decode". `cache` (prefill and
-        decode): this layer's views, written in place: (k, v) of [B,
-        slots, HK, D], or (ssm, conv) for a Mamba mixer. Returns the
-        mixer's output."""
+    def _apply_mixer(self, sl: SubLayer, p, x, *, mode, cache, pos,
+                     ctx=None):
+        """Attention, plain or within `sl.window`, a Mamba2 mixer, or
+        cross-attention over `ctx["patches"]` (the VLM); `mode` is
+        "train", "prefill" or "decode". `cache` (prefill and decode): this
+        layer's views, written in place: (k, v) of [B, slots, HK, D],
+        (ssm, conv) for a Mamba mixer, or the cross-attention's static
+        (k, v) of [B, num_patches, HK, D], which prefill writes once and
+        decode reads whole. Returns the mixer's output."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
+        if sl.mixer == "cross":
+            if mode == "decode":
+                return self._attn_with_cache(p["attn"], x, *cache, pos,
+                                             q_offset=0, causal=False,
+                                             rope=False)
+            kv_x = ctx["patches"]
+            out = L.gqa_attention(
+                p["attn"], x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=hd, rope_theta=0.0, causal=False, compute_dtype=cd,
+                kv_x=kv_x, use_rope=False, attention=self.attention)
+            if mode == "prefill":
+                k, v = self._project_kv(p["attn"], kv_x, rope=False)
+                cache[0].copy_(k)
+                cache[1].copy_(v)
+            return out
         if sl.mixer == "mamba":
             if mode == "train":
                 return M.mamba_block(p["mixer"], x, cfg, cd)[0]
@@ -291,36 +369,45 @@ class Model:
         return k, v
 
     def _attn_with_cache(self, p, x, k_cache, v_cache, pos, *, q_offset,
-                         window=0):
+                         window=0, causal=True, rope=True):
         """Decode attention over the whole cache: B9 at `q_offset` sees
         slots 0 .. q_offset + i (and, with a `window`, those within it),
-        the reference's `kv_valid` mask. The queries sit at `pos` for
-        RoPE."""
+        the reference's `kv_valid` mask; without `causal` (a static
+        cross-attention cache: Whisper's encoder output, the VLM's
+        patches) it sees every slot. The queries sit at `pos` for RoPE
+        (none without `rope`)."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
         b, s, _ = x.shape
         q = (x.to(cd) @ p["wq"].to(cd)).reshape(b, s, cfg.n_heads, hd)
-        if cfg.rope_theta > 0:
+        if rope and cfg.rope_theta > 0:
             q = L.apply_rope(q, pos + torch.arange(s, device=x.device),
                              cfg.rope_theta)
-        out = self.attention(q, k_cache.to(cd), v_cache.to(cd), causal=True,
+        out = self.attention(q, k_cache.to(cd), v_cache.to(cd),
+                             causal=causal,
                              scale=cfg.query_scale, q_offset=q_offset,
                              window=window, softcap=cfg.attn_softcap)
         return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"].to(cd)
 
     def _apply_sublayer(self, sl: SubLayer, p, x, *, mode, cache=None,
-                        pos=None):
+                        pos=None, ctx=None):
         """(x, aux): the sub-layer's output and its router's
-        load-balancing term (None for a dense FFN or none)."""
+        load-balancing term (None for a dense FFN or none). A
+        cross-attention sub-layer scales its mixer's and its FFN's
+        outputs by tanh of its `gate_attn` and `gate_ffn` (0-d, fp32
+        tanh, cast to the output's dtype)."""
         cfg = self.cfg
         # the scale rounded to the residual's dtype, as a weak-typed
         # Python float meets a bf16 array in the reference
         rs = torch.tensor(cfg.residual_scale, dtype=x.dtype).item()
         h = L.rmsnorm(p["pre_norm"], x, cfg.rms_eps)
-        mix = self._apply_mixer(sl, p, h, mode=mode, cache=cache, pos=pos)
+        mix = self._apply_mixer(sl, p, h, mode=mode, cache=cache, pos=pos,
+                                ctx=ctx)
         if cfg.sandwich_norms:
             mix = L.rmsnorm(p["post_mixer_norm"], mix, cfg.rms_eps)
+        if sl.mixer == "cross":
+            mix = _gate(p["gate_attn"], mix)
         x = x + rs * mix
         if sl.ffn == "none":
             return x, None
@@ -333,14 +420,18 @@ class Model:
             y = L.mlp(p["ffn"], h, cfg.mlp_variant, self.compute_dtype)
         if cfg.sandwich_norms:
             y = L.rmsnorm(p["post_ffn_norm"], y, cfg.rms_eps)
+        if sl.mixer == "cross":
+            y = _gate(p["gate_ffn"], y)
         return x + rs * y, aux
 
     # ------------------------------------------------------------ drivers
 
-    def _run_stack(self, params, x, *, mode, caches=None, pos=None):
+    def _run_stack(self, params, x, *, mode, caches=None, pos=None,
+                   ctx=None):
         """The stack, period by period and in each the sub-layers in
         order, one layer's views of the stacked leaves at a time.
-        `caches`: {"sub{j}": (k, v)} of [n_periods, ...] tensors. In
+        `caches`: {"sub{j}": (k, v)} of [n_periods, ...] tensors; `ctx`:
+        the VLM's {"patches"}. In
         training each layer runs under `checkpoint` unless `cfg.remat`
         is "none" (its activations are recomputed in the backward).
         Returns (x, aux): aux sums the MoE layers' router terms in layer
@@ -351,31 +442,129 @@ class Model:
         for i in range(self.n_periods):
             for j, sl in enumerate(self.layout):
                 name = f"sub{j}"
-                sub = blocks[name]
-                bp = sub[i] if isinstance(sub, list) else \
-                    pytree.tree_map(lambda t: t[i], sub)
+                bp = _layer(blocks[name], i)
                 if remat:
                     x, aux = checkpoint(
-                        functools.partial(self._train_layer, sl), bp, x,
-                        use_reentrant=False, preserve_rng_state=False)
+                        functools.partial(self._train_layer, sl, ctx=ctx),
+                        bp, x, use_reentrant=False, preserve_rng_state=False)
                 else:
                     cache = None if caches is None else \
                         (caches[name][0][i], caches[name][1][i])
                     x, aux = self._apply_sublayer(sl, bp, x, mode=mode,
-                                                  cache=cache, pos=pos)
+                                                  cache=cache, pos=pos,
+                                                  ctx=ctx)
                 if aux is not None:
                     aux_sum = aux if aux_sum is None else aux_sum + aux
         return x, aux_sum
 
-    def _train_layer(self, sl, bp, x):
-        return self._apply_sublayer(sl, bp, x, mode="train")
+    def _train_layer(self, sl, bp, x, ctx=None):
+        return self._apply_sublayer(sl, bp, x, mode="train", ctx=ctx)
+
+    # ------------------------------------------------------ the enc-dec
+
+    def _encode(self, params, frames):
+        """The encoder (the reference's `_encode`): frames plus sinusoidal
+        positions in the compute dtype, then per layer a non-causal
+        self-attention without RoPE and the MLP, each pre-normed and
+        added to the residual; the final norm. Not under remat, as the
+        reference's encoder scan."""
+        cfg = self.cfg
+        cd = self.compute_dtype
+        x = frames.to(cd) + L.sinusoidal_positions(
+            frames.shape[1], cfg.d_model, frames.device).to(cd)
+        stack = params["enc_blocks"]
+        for i in range(cfg.n_encoder_layers):
+            bp = _layer(stack, i)
+            h = L.rmsnorm(bp["pre_norm"], x, cfg.rms_eps)
+            x = x + L.gqa_attention(bp["attn"], h, causal=False,
+                                    **self._encdec_attn())
+            h = L.rmsnorm(bp["ffn_norm"], x, cfg.rms_eps)
+            x = x + L.mlp(bp["ffn"], h, cfg.mlp_variant, cd)
+        return L.rmsnorm(params["enc_final_norm"], x, cfg.rms_eps)
+
+    def _encdec_attn(self) -> dict:
+        cfg = self.cfg
+        return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim, rope_theta=0.0,
+                    compute_dtype=self.compute_dtype, use_rope=False,
+                    attention=self.attention)
+
+    def _dec_inputs(self, params, tokens):
+        """The decoder's input: token embeddings plus sinusoidal positions
+        0 .. S - 1, in the compute dtype."""
+        x = self._embed(params, tokens)
+        return x + L.sinusoidal_positions(
+            tokens.shape[1], self.cfg.d_model, x.device).to(x.dtype)
+
+    def _dec_layer(self, bp, x, enc, *, mode, cache=None, pos=None):
+        """One decoder layer (the reference's `_run_encdec_stack` body):
+        causal self-attention, cross-attention over the encoder output
+        `enc`, the MLP, each pre-normed and added to the residual; no
+        RoPE. `cache` (prefill and decode): ((k, v) of the self cache,
+        (k, v) of the cross cache), this layer's views, written in place:
+        prefill writes the prompt's keys and values and the cross cache
+        once; decode writes its slots of the self cache and reads the
+        cross cache whole."""
+        cfg = self.cfg
+        kw = self._encdec_attn()
+        h = L.rmsnorm(bp["pre_norm"], x, cfg.rms_eps)
+        if mode == "decode":
+            (k_cache, v_cache), cross = cache
+            k_new, v_new = self._project_kv(bp["attn"], h, rope=False)
+            s = h.shape[1]
+            k_cache[:, pos:pos + s] = k_new.to(k_cache.dtype)
+            v_cache[:, pos:pos + s] = v_new.to(v_cache.dtype)
+            a = self._attn_with_cache(bp["attn"], h, k_cache, v_cache, pos,
+                                      q_offset=pos, rope=False)
+        else:
+            a = L.gqa_attention(bp["attn"], h, causal=True, **kw)
+            if mode == "prefill":
+                k, v = self._project_kv(bp["attn"], h, rope=False)
+                cache[0][0][:, :k.shape[1]] = k
+                cache[0][1][:, :v.shape[1]] = v
+        x = x + a
+        h = L.rmsnorm(bp["cross_norm"], x, cfg.rms_eps)
+        if mode == "decode":
+            a = self._attn_with_cache(bp["cross"], h, *cross, pos,
+                                      q_offset=0, causal=False, rope=False)
+        else:
+            a = L.gqa_attention(bp["cross"], h, causal=False, kv_x=enc, **kw)
+            if mode == "prefill":
+                k, v = self._project_kv(bp["cross"], enc, rope=False)
+                cache[1][0].copy_(k)
+                cache[1][1].copy_(v)
+        x = x + a
+        h = L.rmsnorm(bp["ffn_norm"], x, cfg.rms_eps)
+        return x + L.mlp(bp["ffn"], h, cfg.mlp_variant, self.compute_dtype)
+
+    def _run_encdec_stack(self, params, x, enc, *, mode, caches=None,
+                          pos=None):
+        """The decoder, layer by layer over the views of `dec_blocks`
+        (or the train step's per-layer list); in training each layer
+        runs under `checkpoint` unless `cfg.remat` is "none", as the
+        reference checkpoints its decoder body (not its encoder).
+        `caches`: {"self": (k, v), "cross": (k, v)} of [n_layers, ...]
+        tensors."""
+        stack = params["dec_blocks"]
+        remat = mode == "train" and self.cfg.remat != "none"
+        for i in range(self.cfg.n_layers):
+            bp = _layer(stack, i)
+            if remat:
+                x = checkpoint(functools.partial(self._dec_layer,
+                                                 mode="train"), bp, x, enc,
+                               use_reentrant=False, preserve_rng_state=False)
+                continue
+            cache = None if caches is None else tuple(
+                (caches[c][0][i], caches[c][1][i]) for c in ("self", "cross"))
+            x = self._dec_layer(bp, x, enc, mode=mode, cache=cache, pos=pos)
+        return x
 
     # -------------------------------------------------------- embeddings
 
     def _embed(self, params, tokens):
         """Token embeddings in the compute dtype. (The reference's
         `activation_constraint` is the identity on one device; sharding
-        waits for ROADMAP A8.)"""
+        waits for ROADMAP A.10.)"""
         cd = self.compute_dtype
         x = params["embed"][tokens.long()]
         # the scale rounded to the compute dtype on the host, as
@@ -402,6 +591,24 @@ class Model:
     def _tokens(params, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=params["embed"].device)
 
+    def _context(self, params, batch) -> dict:
+        """The batch's static context on the parameters' device: the
+        enc-dec family's {"frames"}, the VLM's {"patches"}, {} for the
+        others. Raises `ValueError` when the batch lacks it (the train
+        CLI and Branch-Train-Merge feed tokens alone, in the port as in
+        the reference, whose `Model.loss` raises `KeyError` there)."""
+        key = {"encdec": "frames", "vlm": "patches"}.get(self.cfg.family)
+        if key is None:
+            return {}
+        if key not in batch:
+            raise ValueError(
+                f"{self.cfg.name} ({self.cfg.family}) needs the batch's "
+                f"{key!r} beside its tokens; the train CLI and "
+                "Branch-Train-Merge feed tokens alone, as the reference's "
+                "do (their Model.loss raises KeyError)")
+        return {key: torch.as_tensor(batch[key],
+                                     device=params["embed"].device)}
+
     # ----------------------------------------------------------- serving
 
     @torch.inference_mode()
@@ -411,15 +618,26 @@ class Model:
         `max_len` pre-sizes the KV caches for decode; a cache is never
         shorter than the prompt, so without it (or below the prompt
         length) the cache holds the prompt alone and a decode step on it
-        raises. Returns (last-token logits [B, V] fp32, caches).
+        raises. The enc-dec family's batch carries "frames" and the VLM's
+        "patches" (`_context`): their cross-attention caches are written
+        here once. Returns (last-token logits [B, V] fp32, caches).
         """
         tokens = self._tokens(params, batch["tokens"])
         b, s = tokens.shape
-        caches = self.init_cache(b, max(max_len or s, s),
-                                 device=params["embed"].device)
-        x = self._embed(params, tokens)
-        x, _ = self._run_stack(params, x, mode="prefill",
-                               caches=caches["blocks"])
+        ctx = self._context(params, batch)
+        static = next(iter(ctx.values()), None)
+        caches = self.init_cache(
+            b, max(max_len or s, s), device=params["embed"].device,
+            context_len=None if static is None else static.shape[1])
+        if self.encdec:
+            enc = self._encode(params, ctx["frames"])
+            x = self._run_encdec_stack(params, self._dec_inputs(params,
+                                                                tokens),
+                                       enc, mode="prefill", caches=caches)
+        else:
+            x = self._embed(params, tokens)
+            x, _ = self._run_stack(params, x, mode="prefill",
+                                   caches=caches["blocks"], ctx=ctx)
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], caches
 
@@ -435,6 +653,21 @@ class Model:
         """
         tokens = self._tokens(params, token)
         s = tokens.shape[1]
+        if self.encdec:
+            slots = caches["self"][0].shape[2]
+            if int(pos) < 0 or int(pos) + s > slots:
+                raise ValueError(
+                    f"decode at position {int(pos)} of {s} token(s) does "
+                    f"not fit a {slots}-slot KV cache; pre-size it with "
+                    "prefill(..., max_len=...)")
+            # the reference adds position pos's vector to every token of
+            # the step (`_sinusoidal_at(pos)`)
+            x = self._embed(params, tokens)
+            x = x + L.sinusoidal_at(int(pos), self.cfg.d_model,
+                                    x.device).to(x.dtype)
+            x = self._run_encdec_stack(params, x, None, mode="decode",
+                                       caches=caches, pos=int(pos))
+            return self._logits(params, x)[:, 0], caches
         attn = [(sl, caches["blocks"][f"sub{j}"][0].shape[2])
                 for j, sl in enumerate(self.layout) if sl.mixer == "attn"]
         rings = [_is_ring(sl, n) for sl, n in attn]
@@ -448,7 +681,7 @@ class Model:
             raise ValueError(
                 f"a decode step of {s} tokens on a sliding-window ring "
                 "cache; step one token at a time")
-        if s > 1 and len(attn) < len(self.layout):
+        if s > 1 and any(sl.mixer == "mamba" for sl in self.layout):
             raise ValueError(
                 f"a decode step of {s} tokens on an SSM cache (its "
                 "recurrent update takes one token); step one token at a "
@@ -461,12 +694,25 @@ class Model:
     # ------------------------------------------------------------- cache
 
     def init_cache(self, batch_size: int, max_len: int, *,
-                   device: Any = "cuda"):
+                   device: Any = "cuda", context_len: Optional[int] = None):
         """Zeroed cache pytree for decode: max_len slots per global
-        sub-layer, min(window, max_len) per local one, and per Mamba
-        sub-layer its SSM state (fp32) and conv cache."""
+        sub-layer, min(window, max_len) per local one, per Mamba
+        sub-layer its SSM state (fp32) and conv cache, and per
+        cross-attention sub-layer `context_len` slots (the VLM's
+        num_patches unless given). The enc-dec family's is {"self": (k,
+        v), "cross": (k, v)} of [n_layers, B, slots, HK, D]: max_len
+        slots, and `context_len` (encoder_seq unless given) for the
+        cross-attention over the encoder output."""
         cfg = self.cfg
         kw = dict(dtype=self.compute_dtype, device=device)
+        hkd = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        if self.encdec:
+            kv = (cfg.n_layers, batch_size, max_len) + hkd
+            ckv = (cfg.n_layers, batch_size,
+                   context_len or cfg.encoder_seq) + hkd
+            return {"self": (torch.zeros(kv, **kw), torch.zeros(kv, **kw)),
+                    "cross": (torch.zeros(ckv, **kw),
+                              torch.zeros(ckv, **kw))}
         blocks = {}
         for j, sl in enumerate(self.layout):
             if sl.mixer == "mamba":
@@ -479,12 +725,27 @@ class Model:
                     torch.zeros((self.n_periods, batch_size, m.d_conv - 1,
                                  conv_dim), **kw))
                 continue
-            slots = min(sl.window, max_len) if sl.window else max_len
-            shape = (self.n_periods, batch_size, slots, cfg.n_kv_heads,
-                     cfg.resolved_head_dim)
+            if sl.mixer == "cross":
+                slots = context_len or cfg.num_patches
+            else:
+                slots = min(sl.window, max_len) if sl.window else max_len
+            shape = (self.n_periods, batch_size, slots) + hkd
             blocks[f"sub{j}"] = (torch.zeros(shape, **kw),
                                  torch.zeros(shape, **kw))
         return {"blocks": blocks}
+
+
+def _layer(stack, i: int):
+    """Layer i of a stacked subtree (views of its leaves), or of the
+    train step's per-layer list."""
+    if isinstance(stack, list):
+        return stack[i]
+    return pytree.tree_map(lambda t: t[i], stack)
+
+
+def _gate(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """tanh(g) y: the gate's tanh in fp32, cast to y's dtype."""
+    return torch.tanh(g.to(torch.float32)).to(y.dtype) * y
 
 
 def _is_ring(sl: SubLayer, slots: int) -> bool:

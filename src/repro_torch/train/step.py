@@ -2,8 +2,9 @@
 (`repro.train.step`).
 
 The step is a function over a plain-dict TrainState {'params', 'm', 'v',
-'step'}. Microbatch i is rows [i B / accum, (i + 1) B / accum) of the
-batch, as the reference's reshape takes them; gradients are summed in
+'step'}. Microbatch i is rows [i B / accum, (i + 1) B / accum) of every
+entry of the batch (tokens, and the enc-dec family's frames or the VLM's
+patches), as the reference's reshape takes them; gradients are summed in
 microbatch order from zero and divided by `accum` once, with the sum in
 fp32 (bf16 when the moments are not fp32), as the reference's scan.
 
@@ -79,7 +80,10 @@ def _leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def _grad_views(params: Dict, grads: Dict, n_periods: int) -> Dict:
     """The model's params as autograd leaves whose .grad are views of
-    `grads`; the stacked blocks become a list of per-layer dicts."""
+    `grads`. Each stacked subtree becomes per-layer views: the period
+    stack `blocks` a list of `n_periods` dicts per sub-layer, the
+    enc-dec family's `enc_blocks` and `dec_blocks` a list of per-layer
+    dicts (as many as their leaves' leading dimension)."""
     out = {}
     for name, sub in params.items():
         if name == "blocks":
@@ -88,6 +92,10 @@ def _grad_views(params: Dict, grads: Dict, n_periods: int) -> Dict:
                                     sub[s], grads[name][s])
                     for i in range(n_periods)]
                 for s in sub}
+        elif name in ("enc_blocks", "dec_blocks"):
+            out[name] = [pytree.tree_map(lambda p, g, i=i: _leaf(p[i], g[i]),
+                                         sub, grads[name])
+                         for i in range(pytree.leaves(sub)[0].shape[0])]
         else:
             out[name] = pytree.tree_map(_leaf, sub, grads[name])
     return out
@@ -127,7 +135,9 @@ def make_train_step(model: Model, total_steps: int = 10000,
     def train_step(state: Dict, batch: Dict) -> Tuple[Dict, Dict]:
         params = state["params"]
         device = state["step"].device
-        tokens = torch.as_tensor(batch["tokens"], device=device)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+        tokens = batch["tokens"]
         acc_dtype = (torch.float32 if cfg.opt_state_dtype == "float32"
                      else torch.bfloat16)
         n = max(accum, 1)
@@ -149,8 +159,8 @@ def make_train_step(model: Model, total_steps: int = 10000,
                     for g in pytree.leaves(grads):
                         g.zero_()
                 live = _grad_views(params, grads, model.n_periods)
-                loss, mets = loss_fn(live, {"tokens":
-                                            tokens[i * per:(i + 1) * per]})
+                loss, mets = loss_fn(live, {k: v[i * per:(i + 1) * per]
+                                            for k, v in batch.items()})
                 loss.backward()
                 del live, loss
                 if n == 1:

@@ -711,6 +711,20 @@ FLASH_SPECS = {
     # 4063 (the 16-row decode instance with 8 rows live)
     "qwen3_prefill": (2, 300, 300, 32, 4, 128, True, 0),
     "qwen3_decode": (2, 1, 4096, 32, 4, 128, True, 4063),
+    # Whisper-tiny's (6 heads of 64) and Llama-3.2-Vision's (64 over 8
+    # KV heads of 128) attention, non-causal over a ragged Sk (1500 % 64
+    # = 28, 1601 % 64 = 1): the encoder's self-attention, the cross
+    # prefill at the chip smoke's 4-token prompt (the decode design) and
+    # at 448 queries, a decode step over each cross cache, the VLM's
+    # cross prefill (its 4064 queries cut to 300), and Whisper's causal
+    # decoder decode over its 228-slot cache
+    "whisper_encoder": (2, 1500, 1500, 6, 6, 64, False, 0),
+    "whisper_cross_prompt": (2, 4, 1500, 6, 6, 64, False, 0),
+    "whisper_cross_448": (2, 448, 1500, 6, 6, 64, False, 0),
+    "whisper_cross_decode": (2, 1, 1500, 6, 6, 64, False, 0),
+    "whisper_self_decode": (2, 1, 228, 6, 6, 64, True, 150),
+    "vlm_cross_prefill": (1, 300, 1601, 64, 8, 128, False, 0),
+    "vlm_cross_decode": (2, 1, 1601, 64, 8, 128, False, 0),
 }
 
 
@@ -1053,16 +1067,19 @@ def test_cuda_flash_backward_peaked_fp32():
         assert torch.equal(_bits(x), _bits(y))
 
 
-def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0, **kw):
-    """`kw`: B9's window, softcap and scale."""
+def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0, sk=0,
+                          **kw):
+    """`kw`: B9's window, softcap and scale; `sk` keys (Sq = Sk unless
+    given)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_lse)
     b, s, h, hk, d = spec
+    sk = sk or s
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(s)
     q, k, v = (torch.randn(shape, generator=g).to(dt).cuda() for shape in
-               ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+               ((b, s, h, d), (b, sk, hk, d), (b, sk, hk, d)))
     q = q * q_mult
     dout = torch.randn((b, s, h, d), generator=g).to(dt).cuda()
     kw = dict(causal=causal, **kw)
@@ -1088,6 +1105,63 @@ def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0, **kw):
     assert flash_attention_backward.launches == b0 + 1
     for x, y in zip(grads, got):
         assert torch.equal(_bits(x), _bits(y))
+
+
+# B9's gradient at the enc-dec and VLM shapes, non-causal over a ragged
+# Sk: Whisper's encoder self-attention (Sq = Sk = 1500) and its
+# cross-attention (Sq = 448, the decoder's context, over 1500 frames);
+# the VLM's cross-attention over 1601 patches at H / HK = 8 (200
+# queries); rule as above
+FLASH_BWD_CROSS = {"whisper_encoder": ((2, 1500, 6, 6, 64), 1500),
+                   "whisper_cross": ((2, 448, 6, 6, 64), 1500),
+                   "vlm_cross": ((1, 200, 64, 8, 128), 1601)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CROSS))
+def test_cuda_flash_backward_cross_equals_plain(case, dtype):
+    """The checks of `test_cuda_flash_backward_equals_plain`, non-causal
+    with Sq != Sk (and Whisper's encoder, Sq = Sk = 1500)."""
+    spec, sk = FLASH_BWD_CROSS[case]
+    _check_flash_backward(spec, dtype, causal=False, sk=sk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-90b"])
+def test_cuda_encdec_vlm_smoke_greedy_decode_equals_cpu(arch):
+    """The enc-dec and VLM smoke configs with fp32 compute (the VLM's
+    gates set to 0.5 and -0.7, so its cross sub-layers count):
+    greedy_decode on the card launches B9 on every attention call (the
+    encoder's layers and each decoder layer's two, or each self and
+    cross sub-layer, in the prompt; each decoder attention a step) and
+    gives the CPU's tokens."""
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch).replace(compute_dtype="float32")
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    if cfg.family == "vlm":
+        for j, sl in enumerate(model.layout):
+            if sl.mixer == "cross":
+                params["blocks"][f"sub{j}"]["gate_attn"].fill_(0.5)
+                params["blocks"][f"sub{j}"]["gate_ffn"].fill_(-0.7)
+        per_step = cfg.n_layers
+        prompt = cfg.n_layers
+    else:
+        per_step = 2 * cfg.n_layers
+        prompt = cfg.n_encoder_layers + 2 * cfg.n_layers
+    batch = make_batch(cfg, ShapeSpec("s", 12, 3, "prefill"))
+    want = greedy_decode(model, params, batch, 8)
+    before = flash_attention.launches
+    got = greedy_decode(model, pytree.tree_map(lambda t: t.cuda(), params),
+                        batch, 8)
+    assert flash_attention.launches - before == prompt + 8 * per_step
+    assert got.is_cuda and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

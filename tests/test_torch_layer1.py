@@ -134,6 +134,25 @@ def test_tensor_digest_matches_reference(dtype, shape):
     assert thash.tensor_digest(t) == jhash.tensor_digest(a)
 
 
+@pytest.mark.parametrize("threads", [1, 2, 4])
+def test_tensor_digests_prepared_leaves_in_order(monkeypatch, threads):
+    """Exact: `tensor_digests(prepare=)` gives, in order and on any number
+    of hashing threads, the reference's digest of each prepared leaf (an
+    int8 payload's dequantization, as the planner takes it), and without
+    `prepare` the digests of the leaves themselves."""
+    from repro_torch.core.compression import compress_leaf, dequantize_leaf
+    monkeypatch.setattr(thash, "_PREPARED_THREADS", threads)
+    rng = np.random.default_rng(4)
+    arrays = [rng.standard_normal(n).astype(np.float32)
+              for n in (7, 300, 1, 64, 33)]
+    leaves = [compress_leaf(convert.from_numpy_tree(a, "cpu"))
+              for a in arrays]
+    dense = [dequantize_leaf(leaf) for leaf in leaves]
+    want = [jhash.tensor_digest(d.numpy()) for d in dense]
+    assert thash.tensor_digests(leaves, prepare=dequantize_leaf) == want
+    assert thash.tensor_digests(dense) == want
+
+
 def _random_state(seed, contribs):
     rng = np.random.default_rng(seed)
     s = TState()

@@ -741,12 +741,21 @@ def _port_config(name):
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "whisper-tiny",
                                   "llama-3.2-vision-90b"])
 def test_other_families_still_refused(name):
-    """Exact: MLA (DeepSeek-V2, family moe), encdec and vlm raise
-    `NotImplementedError` naming ROADMAP A7 (the SSM and hybrid families
-    are ported: tests/test_torch_mamba.py, tests/test_torch_jamba.py)."""
+    """Exact: MLA (DeepSeek-V2, family moe) raises `NotImplementedError`
+    naming ROADMAP A.8. The enc-dec and VLM families are ported
+    (tests/test_torch_whisper.py, tests/test_torch_vlm.py; the SSM and
+    hybrid families in tests/test_torch_mamba.py and
+    tests/test_torch_jamba.py): their reference configs build a port
+    model, and `pad_heads_to_tp` (tensor-parallel head padding) still
+    raises, naming ROADMAP A.10."""
     cfg = _port_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Model(cfg)
+    if cfg.mla is not None:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+            Model(cfg)
+        return
+    assert Model(cfg).cfg.family in ("encdec", "vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        Model(cfg.replace(pad_heads_to_tp=16))
 
 
 # ----------------------------------------------- int8 over expert leaves
