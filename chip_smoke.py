@@ -169,6 +169,27 @@ before it and read just after:
           training microbatch (the encoder's self-attention and the
           decoder's cross-attention).
 
+  deepseek  DeepSeek-V2-236B (configs/deepseek_v2_236b.py), multi-head
+          latent attention over fine-grained experts, at full width: 8
+          of its 60 layers (the dense layer 0 and 7 MLA + MoE layers;
+          29,191,377,920 bf16 parameters, 58.38 GB) seeded on the card,
+          `greedy_decode` twice (batch 4, a 4096-token prompt, a
+          multiple of the 512-query chunk, 32 tokens; the latent
+          attention's plain products, non-absorbed in prefill and
+          absorbed over the latent cache in decode: no kernel launched;
+          160 routed experts, top-6, and 2 shared, the gather
+          dispatch), byte-identical tokens and logits, one decode step
+          and one prefill traced; one layer's prefill attention alone
+          against its bound and `scaled_dot_product_attention` (q and k
+          of 192, v of 128) under each fused backend that accepts it;
+          at 2 layers two fine-tunes that leave the three expert leaves
+          to the base land on two replicas in opposite orders, which
+          resolve histogram TIES and weight_average on the kernel
+          routes (B1, B3-B5; kernel_dispatch_total grows on both) to
+          byte-identical trees whose expert leaves are the base's own
+          tensors, each held leaf by leaf against the exact route; the
+          TIES trees serve byte-identical tokens and logits.
+
 The consortium (`[gossip]`, full width, 2 of the 32 layers) runs after
 the main paths: 8 gossip nodes on the card with delta gossip, an
 attention update each and a dense fine-tune on nodes 0 and 1 (every
@@ -549,6 +570,28 @@ VL_SERVE_PERIODS, VL_MERGE_PERIODS, VL_K = 6, 1, 2
 # (fp32 compute at a 4064-token prompt is the costly part)
 VL_PLAIN_ROWS = 2
 VL_GATES = {"gate_attn": 0.5, "gate_ffn": -0.7}
+# [deepseek]: DeepSeek-V2-236B (configs/deepseek_v2_236b.py), multi-head
+# latent attention over fine-grained experts, at full width (d_model 5120,
+# 128 heads, kv_lora 512, q_lora 1536, 160 routed experts of 1536, top-6,
+# and 2 shared; vocabulary 102,400). Served at DS_SERVE_LAYERS of its 60
+# layers (the dense layer 0 and 7 MLA + MoE layers: 29,191,377,920 bf16
+# parameters, 58.38 GB; 12 layers would be 90.16 GB), batch 4, a
+# DS_PROMPT-token prompt (a multiple of the 512-query chunk: 4064 gives
+# 7 chunks that do not tile it, which the reference asserts against), 32
+# tokens. At DS_MERGE_LAYERS (layer 0 and one MLA + MoE layer:
+# 5,358,679,040 parameters, 10.72 GB) a bf16 base and DS_K fine-tunes of
+# every leaf but the routed experts' (1,583,805,440 parameters each;
+# the three expert leaves, 3,774,873,600 elements, stay the base's),
+# merged through two replicas and served
+DEEPSEEK = "deepseek-v2-236b"
+DS_SERVE_LAYERS, DS_MERGE_LAYERS, DS_K = 8, 2, 2
+DS_PROMPT = 4096
+# one layer's MLA prefill attention against SDPA's fused backends on the
+# same seeded inputs: the largest difference over the largest output
+# (outputs up to 4.3). An H100 80GB HBM3 (700.00 W) read 1.562e-2 / 4.312
+# = 3.6e-3 for cuDNN's and the memory-efficient backend (one bf16 ulp in
+# the outputs' top binade); the limit is twice that
+DS_SDPA_TOL = 2.0 ** -7
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -1580,6 +1623,9 @@ PATH_KERNELS = {"bf16": ("nary_accum", "block_amax", "block_hist",
                 "vlm": ("flash_attention",),
                 "vlm merge": ("nary_accum", "block_amax", "block_hist",
                               "ties_block"),
+                "deepseek": (),
+                "deepseek merge": ("nary_accum", "block_amax",
+                                   "block_hist", "ties_block"),
                 "durable": ("quant_nary", "nary_accum")}
 # the sparse path's adapter update: Phi-3-mini's four attention
 # projections, 4 x 32 x 3072 x 3072 = 1,207,959,552 parameters
@@ -5414,6 +5460,67 @@ def serve_calls(model) -> tuple:
     return inner + outer, inner
 
 
+def serve_twice(tag: str, model, params, batch: dict, prompt: int,
+                launches: dict, note: str, cache_note: str,
+                routing: bool = False) -> dict:
+    """The serving half of the `[jamba]`, `[vlm]` and `[deepseek]` phases:
+    `greedy_decode` twice (batch SERVE_BATCH, a `prompt`-token prompt,
+    SERVE_GEN tokens; path `tag`, each call launching exactly
+    `launches`), byte-identical tokens and logits; the prefill alone for
+    the split of a call into prefill and decode steps; one decode step
+    and one prefill traced (`routing`: the MoE routing / gather kernels a
+    group of their own). `note` describes the served shape in the log
+    line, `cache_note` the cache. Returns run_path's {"launches",
+    "ms"}."""
+    from repro_torch import pytree
+    from repro_torch.train.serve import greedy_decode
+    cfg = model.cfg
+    out = {}
+
+    def serve(label):
+        def thunk():
+            out[label] = greedy_decode(model, params, batch, SERVE_GEN,
+                                       return_logits=True)
+        return thunk
+
+    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
+    torch.cuda.reset_peak_memory_stats()
+    path = run_path(tag, calls, expect={label: launches for label, _ in
+                                        calls})
+    serve_peak = torch.cuda.max_memory_allocated()
+    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
+    check_served(tag, tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
+    if not (torch.equal(tok1, tok2) and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
+        raise AssertionError(f"[{tag}] two greedy_decode calls differ")
+    total = path["ms"]["greedy_decode 2"] / 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch, max_len=prompt + SERVE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in pytree.leaves(caches)) / 1e9
+    log(f"[{tag}] {note}, {SERVE_GEN} tokens: launches "
+        f"{launches or 'none'} a call; tokens and all "
+        f"{SERVE_GEN + 1} logits byte-identical across the two calls; "
+        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
+        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
+        f"alone) + {decode_ms:.2f} ms per decode step; "
+        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s; cache "
+        f"{cache_gb:.3f} GB ({cache_note}); peak {serve_peak / 1e9:.2f} GB "
+        f"over the two calls; tokens[0] {tok1[0].tolist()}")
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    trace_device("decode step", lambda: model.decode_step(
+        params, caches, tok, prompt), tag=tag, routing=routing)
+    del caches, logits, lg1, lg2
+    trace_device("prefill", lambda: model.prefill(
+        params, batch, max_len=prompt + SERVE_GEN), tag=tag,
+        routing=routing)
+    return path
+
+
 def phase_jamba() -> dict:
     """`[jamba]`: Jamba-1.5-Large-398B, the hybrid family, on the card at
     full width. Served at JB_SERVE_CUT (one period of 4 sub-layers:
@@ -5434,7 +5541,6 @@ def phase_jamba() -> dict:
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params
     from repro_torch.models.schema import init_from_schema
-    from repro_torch.train.serve import greedy_decode
     engine.clear_cache()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5469,55 +5575,14 @@ def phase_jamba() -> dict:
     del experts
     batch = serve_batch(cfg, SERVE_BATCH, JB_PROMPT)
     attn = model.n_periods * sum(sl.mixer == "attn" for sl in model.layout)
-    per_call = attn * (SERVE_GEN + 1)
-    out = {}
-
-    def serve(label):
-        def thunk():
-            out[label] = greedy_decode(model, params, batch, SERVE_GEN,
-                                       return_logits=True)
-        return thunk
-
-    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
-    torch.cuda.reset_peak_memory_stats()
-    path = run_path("jamba", calls, expect={
-        label: {"flash_attention": per_call} for label, _ in calls})
-    serve_peak = torch.cuda.max_memory_allocated()
-    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
-    check_served("jamba", tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
-    if not (torch.equal(tok1, tok2) and all(
-            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
-        raise AssertionError("[jamba] two greedy_decode calls differ")
-    total = path["ms"]["greedy_decode 2"] / 1e3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = model.prefill(params, batch,
-                                   max_len=JB_PROMPT + SERVE_GEN)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
-    cache_gb = sum(t.numel() * t.element_size()
-                   for t in pytree.leaves(caches)) / 1e9
-    log(f"[jamba] {cfg.n_layers} sub-layers, batch {SERVE_BATCH}, prompt "
+    path = serve_twice(
+        "jamba", model, params, batch, JB_PROMPT,
+        {"flash_attention": attn * (SERVE_GEN + 1)},
+        f"{cfg.n_layers} sub-layers, batch {SERVE_BATCH}, prompt "
         f"{JB_PROMPT} (expert capacity {_q3_capacity(cfg, JB_PROMPT)} slots "
-        f"a prefill group, {_q3_capacity(cfg, 1)} a decode step), "
-        f"{SERVE_GEN} tokens: {per_call} B9 launches a call; tokens and "
-        f"all {SERVE_GEN + 1} logits byte-identical across the two calls; "
-        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
-        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
-        f"alone) + {decode_ms:.2f} ms per decode step; "
-        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s; cache "
-        f"{cache_gb:.3f} GB (KV, SSM states, conv caches); peak "
-        f"{serve_peak / 1e9:.2f} GB over the two calls; tokens[0] "
-        f"{tok1[0].tolist()}")
-    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    trace_device("decode step", lambda: model.decode_step(
-        params, caches, tok, JB_PROMPT), tag="jamba", routing=True)
-    del caches, logits, lg1, lg2
-    trace_device("prefill", lambda: model.prefill(
-        params, batch, max_len=JB_PROMPT + SERVE_GEN), tag="jamba",
-        routing=True)
-    del params, calls      # the thunks hold the weights too
+        f"a prefill group, {_q3_capacity(cfg, 1)} a decode step)",
+        "KV, SSM states, conv caches", routing=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     cfg2 = full.replace(**JB_MERGE_CUT)
@@ -5614,7 +5679,16 @@ def sparse_merge(cfg, batch: dict, tag: str, k: int, keep, left: str,
                                             cfgd))
               for name, cfgd, _ in (STRATEGIES[2], STRATEGIES[0])
               for rl, rep, ref in (("A", rep_a, ref_a), ("B", rep_b, ref_b))]
+    disps = [Dispatches(rep.cache.obs) for rep in (rep_a, rep_b)]
+    before = [d.snapshot() for d in disps]
     merge_path = run_path(f"{tag} merge", merges)
+    grown = [d.grown(b) for d, b in zip(disps, before)]
+    if not all({"nary_accum", "ties_hist"} <= set(g) for g in grown):
+        raise AssertionError(f"[{tag}] kernel_dispatch_total{{nary_accum, "
+                             f"ties_hist}} did not grow on both replicas: "
+                             f"{grown}")
+    log(f"[{tag}] kernel_dispatch_total grew on replica A {grown[0]}, on "
+        f"B {grown[1]}")
     base_leaves = pytree.leaves(base)
     for label, tree in merged.items():
         check_output(f"{tag} {label}", tree, base)
@@ -5673,7 +5747,8 @@ def sparse_merge(cfg, batch: dict, tag: str, k: int, keep, left: str,
         return thunk
 
     first, per_step = serve_calls(model)
-    launches = {"flash_attention": first + SERVE_GEN * per_step}
+    n_b9 = first + SERVE_GEN * per_step
+    launches = {"flash_attention": n_b9} if n_b9 else {}
     calls = [(f"greedy_decode merged {rl}", serve(rl)) for rl in ("A", "B")]
     served = run_path(tag, calls, expect={label: launches for label, _ in
                                           calls})
@@ -5684,7 +5759,7 @@ def sparse_merge(cfg, batch: dict, tag: str, k: int, keep, left: str,
         raise AssertionError(f"[{tag}] the replicas' merged trees served "
                              "different tokens or logits")
     log(f"[{tag}] merged TIES trees serve byte-identical tokens and logits "
-        f"(launches {launches} each); tokens[0] {ta[0].tolist()}")
+        f"(launches {launches or 'none'} each); tokens[0] {ta[0].tolist()}")
     del merged, out, la, lb, calls, base, base_leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -5920,7 +5995,6 @@ def phase_vlm() -> dict:
     from repro_torch.models.model import Model
     from repro_torch.models.params import count_params
     from repro_torch.models.schema import init_from_schema
-    from repro_torch.train.serve import greedy_decode
     engine.clear_cache()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5951,53 +6025,13 @@ def phase_vlm() -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     batch = serve_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
     first, per_step = serve_calls(model)
-    per_call = first + SERVE_GEN * per_step
-    out = {}
-
-    def serve(label):
-        def thunk():
-            out[label] = greedy_decode(model, params, batch, SERVE_GEN,
-                                       return_logits=True)
-        return thunk
-
-    calls = [("greedy_decode 1", serve("1")), ("greedy_decode 2", serve("2"))]
-    torch.cuda.reset_peak_memory_stats()
-    path = run_path("vlm", calls, expect={
-        label: {"flash_attention": per_call} for label, _ in calls})
-    serve_peak = torch.cuda.max_memory_allocated()
-    (tok1, lg1), (tok2, lg2) = out.pop("1"), out.pop("2")
-    check_served("vlm", tok1, lg1[-1], cfg, SERVE_BATCH, SERVE_GEN)
-    if not (torch.equal(tok1, tok2) and all(
-            torch.equal(bits(a), bits(b)) for a, b in zip(lg1, lg2))):
-        raise AssertionError("[vlm] two greedy_decode calls differ")
-    total = path["ms"]["greedy_decode 2"] / 1e3
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = model.prefill(params, batch,
-                                   max_len=SERVE_PROMPT + SERVE_GEN)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    decode_ms = (total - t_prefill) * 1e3 / SERVE_GEN
-    cache_gb = sum(t.numel() * t.element_size()
-                   for t in pytree.leaves(caches)) / 1e9
-    log(f"[vlm] {cfg.n_layers} layers, batch {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {cfg.num_patches} patches a row, {SERVE_GEN} "
-        f"tokens: {per_call} B9 launches a call; tokens and all "
-        f"{SERVE_GEN + 1} logits byte-identical across the two calls; "
-        f"greedy_decode {path['ms']['greedy_decode 1'] / 1e3:.3f} s (first "
-        f"call), {total:.3f} s (second) = prefill {t_prefill:.3f} s (timed "
-        f"alone) + {decode_ms:.2f} ms per decode step; "
-        f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s; cache "
-        f"{cache_gb:.3f} GB (self KV and the patches' cross KV); peak "
-        f"{serve_peak / 1e9:.2f} GB over the two calls; tokens[0] "
-        f"{tok1[0].tolist()}")
-    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    trace_device("decode step", lambda: model.decode_step(
-        params, caches, tok, SERVE_PROMPT), tag="vlm")
-    del caches, logits, lg1, lg2
-    trace_device("prefill", lambda: model.prefill(
-        params, batch, max_len=SERVE_PROMPT + SERVE_GEN), tag="vlm")
-    del params, calls
+    path = serve_twice(
+        "vlm", model, params, batch, SERVE_PROMPT,
+        {"flash_attention": first + SERVE_GEN * per_step},
+        f"{cfg.n_layers} layers, batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {cfg.num_patches} patches a row",
+        "self KV and the patches' cross KV")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     cfg1 = full.replace(n_layers=VL_MERGE_PERIODS * period)
@@ -6018,6 +6052,170 @@ def phase_vlm() -> dict:
     launches = {k: path["launches"][k] + merged["launches"][k]
                 for k in path["launches"]}
     return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
+
+
+def phase_deepseek() -> dict:
+    """`[deepseek]`: DeepSeek-V2-236B, MLA over fine-grained experts, on
+    the card at full width. Served at DS_SERVE_LAYERS seeded in bf16
+    (`init_from_schema`, 58.38 GB): `greedy_decode` twice (batch 4, a
+    DS_PROMPT-token prompt, 32 tokens; the latent attention's plain
+    products in prefill (non-absorbed, 512-query chunks) and decode
+    (absorbed, over the latent cache), no kernel launched; the gather
+    dispatch on the MoE layers), byte-identical tokens and logits; the
+    prefill alone for the split; one decode step and one prefill traced
+    (routing / gather kernels a group of their own); one layer's prefill
+    attention alone against its bound and SDPA (`deepseek_attention`).
+    At DS_MERGE_LAYERS `sparse_merge` of DS_K fine-tunes that leave the
+    routed experts to the base."""
+    import gc
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import count_params
+    from repro_torch.models.schema import init_from_schema
+    engine.clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(DEEPSEEK)
+    cfg = full.replace(n_layers=DS_SERVE_LAYERS)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_from_schema(model.schema(), seed=SEED, device=DEVICE,
+                              dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    if n != count_params(cfg)[0]:
+        raise AssertionError(f"{n} parameters, count_params says "
+                             f"{count_params(cfg)[0]}")
+    m, moe = cfg.mla, cfg.moe
+    log(f"[deepseek] {cfg.name}: {n} bf16 parameters ({n * 2 / 1e9:.2f} "
+        f"GB) at full width, the dense layer 0 and {model.n_periods} of "
+        f"the config's {full.n_layers - 1} MLA + MoE layers (the config's "
+        f"{full.n_layers} layers hold {count_params(full)[0]}, "
+        f"{count_params(full)[1]} active); d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, kv_lora {m.kv_lora_rank}, q_lora "
+        f"{m.q_lora_rank}, nope / rope / v {m.d_head_nope} / "
+        f"{m.d_head_rope} / {m.d_head_v}; {moe.num_experts} experts of "
+        f"{moe.d_ff_expert}, top-{moe.top_k}, {moe.num_shared_experts} "
+        f"shared; layer 0's FFN {cfg.d_ff}; vocabulary {cfg.vocab_size}; "
+        f"seeded in {time.perf_counter() - t0:.1f} s")
+    batch = serve_batch(cfg, SERVE_BATCH, DS_PROMPT)
+    path = serve_twice(
+        "deepseek", model, params, batch, DS_PROMPT, {},
+        f"{cfg.n_layers} layers, batch {SERVE_BATCH}, prompt {DS_PROMPT} "
+        f"({DS_PROMPT // cfg.attn_q_chunk} query chunks of "
+        f"{cfg.attn_q_chunk}; expert capacity {_q3_capacity(cfg, DS_PROMPT)} "
+        f"slots a prefill group, {_q3_capacity(cfg, 1)} a decode step)",
+        "the MLA latents and rope keys", routing=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek_attention(cfg)
+    cfg2 = full.replace(n_layers=DS_MERGE_LAYERS)
+    merged = sparse_merge(cfg2, batch, "deepseek", DS_K,
+                          keep=lambda path: "['experts']" not in path,
+                          left="expert leaves")
+    launches = {k: path["launches"][k] + merged["launches"][k]
+                for k in path["launches"]}
+    return {"launches": launches, "ms": {**path["ms"], **merged["ms"]}}
+
+
+def deepseek_attention(cfg) -> None:
+    """One layer's MLA prefill attention alone (`mla.chunked_attention`,
+    the non-absorbed path's products and softmax) at the served shape,
+    batch SERVE_BATCH x DS_PROMPT, 128 heads, seeded bf16 inputs (q_nope
+    and k_nope 128, q_rope 64 and one rope key for all heads, v 128),
+    by CUDA events (median of 5), beside its bound (the visible pairs'
+    (192 + 128) x 2 flops at the bf16 peak, or each input and the
+    output's bytes once, whichever is larger) and
+    `scaled_dot_product_attention` with q and k of 192 and v of 128 under
+    each fused backend that accepts it. Each one's output is held
+    against the port's: no element beyond DS_SDPA_TOL of the largest
+    output (the port rounds the normalized probabilities to bf16, the
+    fused kernels their unnormalized exponentials); the share of
+    elements beyond one bf16 ulp of their own magnitude is logged."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.models import mla
+    m = cfg.mla
+    b, s, h = SERVE_BATCH, DS_PROMPT, cfg.n_heads
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    qn, qr = draw(b, s, h, m.d_head_nope), draw(b, s, h, m.d_head_rope)
+    kn, kr = draw(b, s, h, m.d_head_nope), draw(b, s, m.d_head_rope)
+    v = draw(b, s, h, m.d_head_v)
+    scale = (m.d_head_nope + m.d_head_rope) ** -0.5
+
+    def port():
+        with torch.inference_mode():
+            return mla.chunked_attention(qn, qr, kn, kr, v, scale=scale,
+                                         q_chunk=cfg.attn_q_chunk)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms = cuda_ms(port, 5)
+    peak = torch.cuda.max_memory_allocated() - held
+    out = port()
+    pairs = s * (s + 1) // 2
+    flops = 2.0 * pairs * b * h * (m.d_head_nope + m.d_head_rope + m.d_head_v)
+    nbytes = sum(t.numel() * t.element_size() for t in (qn, qr, kn, kr, v,
+                                                        out))
+    t_ops = flops / BF16_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else \
+        (t_bytes, "bytes")
+    log(f"[deepseek] MLA prefill attention alone, one layer [{b}, {s}, {h} "
+        f"heads], q/k {m.d_head_nope}+{m.d_head_rope}, v {m.d_head_v}, "
+        f"chunks of {cfg.attn_q_chunk}: {ms:.3f} ms (median of 5, CUDA "
+        f"events; fp32 logits from fp32 copies of the bf16 operands); "
+        f"bound {bound:.3f} ms ({by}: {pairs} visible pairs a row-head x "
+        f"{b * h} row-heads x {2 * (m.d_head_nope + m.d_head_rope + m.d_head_v)}"
+        f" = {flops:.4e} flops at the bf16 peak; bytes {t_bytes:.3f} ms), "
+        f"{bound / ms:.1%} of it; {peak / 1e9:.2f} GB of transients")
+    q = torch.cat([qn, qr], -1).transpose(1, 2)
+    k = torch.cat([kn, kr[:, :, None].expand(b, s, h, m.d_head_rope)],
+                  -1).transpose(1, 2)
+    vt = v.transpose(1, 2)
+    o32 = out.float()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def sdpa():
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    q, k, vt, is_causal=True, scale=scale)
+        try:
+            ref = sdpa().transpose(1, 2).float()
+        except RuntimeError as e:
+            log(f"[deepseek] scaled_dot_product_attention, {backend.name}: "
+                f"does not accept q/k of {m.d_head_nope + m.d_head_rope} "
+                f"with v of {m.d_head_v} ({str(e).splitlines()[0][:120]})")
+            continue
+        lib = cuda_ms(sdpa, 5)
+        d = (ref - o32).abs()
+        beyond = int((d > 1e-6 + 2.0 ** -8 * ref.abs()).sum())
+        top = float(ref.abs().max())
+        ok = float(d.max()) <= DS_SDPA_TOL * top
+        log(f"[deepseek] scaled_dot_product_attention, {backend.name}: "
+            f"{lib:.3f} ms (median of 5), {lib / ms:.3f} of the port's "
+            f"time; its output against the port's: largest difference "
+            f"{float(d.max()):.3e} (outputs up to {top:.3f}; rule <= "
+            f"{DS_SDPA_TOL} x that: {'ok' if ok else 'FAIL'}), {beyond} of "
+            f"{d.numel()} beyond one bf16 ulp of their own magnitude")
+        if not ok:
+            raise AssertionError(f"[deepseek] SDPA ({backend.name}) and the "
+                                 "port's MLA attention disagree")
+        del ref, d
+    del q, k, vt, qn, qr, kn, kr, v, out, o32
+    torch.cuda.empty_cache()
 
 
 def phase_qwen3_moe_train() -> dict:
@@ -6207,6 +6405,7 @@ def main() -> int:
     jamba = timed(phase_jamba)
     whisper = timed(phase_whisper)
     vlm = timed(phase_vlm)
+    deepseek = timed(phase_deepseek)
     timed(phase_whole, cfg)
     timed(phase_audits)
     timed(phase_gossip_tables)
@@ -6220,7 +6419,8 @@ def main() -> int:
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name] for p in
                               (main, serve, gemma2, qwen3, mamba2, jamba,
-                               whisper, vlm, train, btm, g2train, q3train))
+                               whisper, vlm, deepseek, train, btm, g2train,
+                               q3train))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -4,12 +4,13 @@ port needs).
 Every architecture is a `ModelConfig` and every workload cell a
 `ShapeSpec`, plain frozen dataclasses copied field for field from the
 reference so the two describe the same model and the same batch. The
-port registers the configurations it can run (the plain dense family:
+port registers the configurations (the plain dense family:
 Phi-3-mini, MiniCPM-2B, Minitron-8B; Gemma-2 27B's local/global
 layout; Qwen3-MoE-30B-A3B's token-choice experts; Mamba2-780M's SSD
 mixers; Jamba-1.5-Large's hybrid periods; Whisper-tiny's encoder-decoder;
-and Llama-3.2-Vision-90B's gated cross-attention); DeepSeek-V2's MLA
-waits for ROADMAP A.8.
+Llama-3.2-Vision-90B's gated cross-attention; and DeepSeek-V2's
+multi-head latent attention over fine-grained experts): all ten of the
+reference's.
 """
 from __future__ import annotations
 
@@ -149,6 +150,14 @@ class ModelConfig:
         from repro_torch.models.params import count_params  # lazy
         return count_params(self)
 
+    def shapes(self) -> Tuple[ShapeSpec, ...]:
+        """The workload cells this arch runs: train_4k, prefill_32k,
+        decode_32k, and long_500k where `supports_long_context`."""
+        out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+        if self.supports_long_context:
+            out.append(LONG_500K)
+        return tuple(out)
+
 
 # registry ------------------------------------------------------------------
 
@@ -176,9 +185,9 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma2_27b, jamba_1_5_large_398b, llama_3_2_vision_90b,
-        mamba2_780m, minicpm_2b, minitron_8b, phi3_mini_3_8b,
-        qwen3_moe_30b_a3b, whisper_tiny)
+        deepseek_v2_236b, gemma2_27b, jamba_1_5_large_398b,
+        llama_3_2_vision_90b, mamba2_780m, minicpm_2b, minitron_8b,
+        phi3_mini_3_8b, qwen3_moe_30b_a3b, whisper_tiny)
 
 
 # ---------------------------------------------------------------------------

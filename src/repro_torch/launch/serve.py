@@ -14,6 +14,8 @@
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama-3.2-vision-90b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-236b --smoke --device cpu
 
 Runs on CUDA unless `--device` names another device; without CUDA the
 default raises. `make_batch` gives the enc-dec family its frames and the
@@ -25,7 +27,8 @@ take 108.9 GB, past an H100's 80 GB, so on one card the CLI serves it
 at smoke size only (`chip_smoke.py` serves the full model from bf16
 weights, `init_from_schema(..., dtype=torch.bfloat16)`, 54.45 GB), and
 so is qwen3-moe-30b-a3b (30,532,110,336 parameters: 122.1 GB in fp32,
-61.06 GB in bf16).
+61.06 GB in bf16) and deepseek-v2-236b (235,741,434,880 parameters;
+`chip_smoke.py` serves 8 of its 60 layers in bf16, 58.38 GB).
 """
 from __future__ import annotations
 

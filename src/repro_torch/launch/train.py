@@ -10,7 +10,8 @@ decentralised multi-branch flow see `repro_torch.train.btm`.
 The reference's flags, plus `--device` (CUDA unless another is named;
 without CUDA the default raises). The parameters are the reference's bit
 for bit (`Model.init`, whose threefry draws on the host: minutes at a
-full-size model). `--mesh` takes 1x1 only: meshes wait for ROADMAP A.10.
+full-size model). `--mesh` takes 1x1 only: the port runs on one card,
+and meshes beyond it are out of scope (ROADMAP, "Out of scope").
 The state is updated in place, step by step (the reference donates
 it).
 """
@@ -41,7 +42,7 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model; only 1x1 (meshes: ROADMAP A.10)")
+                    help="data x model; only 1x1 (one card)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -51,8 +52,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
-        raise SystemExit(f"--mesh {args.mesh}: the port runs 1x1 only "
-                         "(meshes wait for ROADMAP A.10)")
+        raise SystemExit(f"--mesh {args.mesh}: the port runs 1x1 only, on "
+                         "one card; meshes beyond 1x1 are out of scope "
+                         "(ROADMAP, \"Out of scope\")")
     # torch's deterministic mode (the train step's, on CUDA) asks for it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 

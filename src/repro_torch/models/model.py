@@ -1,10 +1,10 @@
 """The dense, MoE, SSM, hybrid, enc-dec and VLM model families
-(`repro.models.model`, `family` of "dense", "moe" without MLA, "ssm",
-"hybrid", "encdec" and "vlm"): their parameter layout, their training
-forward and their serving path, prefill and decode, with gemma2's
-local/global layout, Qwen3-MoE's routed experts, Mamba2's SSD mixers,
-Jamba's periods that mix them, Whisper's encoder-decoder and the VLM's
-gated cross-attention.
+(`repro.models.model`, `family` of "dense", "moe" with or without MLA,
+"ssm", "hybrid", "encdec" and "vlm"): their parameter layout, their
+training forward and their serving path, prefill and decode, with
+gemma2's local/global layout, Qwen3-MoE's routed experts, DeepSeek-V2's
+latent attention, Mamba2's SSD mixers, Jamba's periods that mix them,
+Whisper's encoder-decoder and the VLM's gated cross-attention.
 
 Layers are stacked along a leading axis, as the reference's `_stack`
 does, in the reference's period layout (`period_layout`): a period of
@@ -14,10 +14,14 @@ has one sub-layer (`sub0`, n_periods = n_layers), and so does the MoE
 family, whose sub-layer's FFN is `models.moe`'s routed experts
 (`moe_block`, the gather dispatch unless `Model(moe_impl="einsum")`;
 groups are the batch rows, so a decode step routes each row's token
-alone); gemma2's `local_global_pattern` has two, `sub0` attending
-within its sliding window and `sub1` globally (n_periods = n_layers //
-2); the SSM family has one, a Mamba2 mixer (`models.mamba`, its
-parameters under `mixer`) and no FFN; the hybrid family (Jamba) has
+alone); with `cfg.mla` (DeepSeek-V2) that sub-layer's mixer is
+`models.mla`'s latent attention (its parameters under `attn`), and layer
+0 sits outside the stack as `first`, MLA with a dense FFN of d_ff
+(n_periods = n_layers - 1; `_apply_first`); gemma2's
+`local_global_pattern` has two, `sub0` attending within its sliding
+window and `sub1` globally (n_periods = n_layers // 2); the SSM family
+has one, a Mamba2 mixer (`models.mamba`, its parameters under `mixer`)
+and no FFN; the hybrid family (Jamba) has
 `hybrid_period`, attention at `hybrid_attn_index` and a Mamba2 mixer
 elsewhere, each with an FFN that is routed experts where j % interval
 == offset % interval and dense otherwise (n_periods = n_layers //
@@ -63,7 +67,13 @@ written in place by prefill (the prompt's final state) and by each
 decode step (the recurrent update); it has no slots, so no length
 bounds a decode, and a step of more than one token on it raises
 `ValueError` (the reference's recurrent branch reads token 0 alone and
-its reshape then fails).
+its reshape then fails). An MLA sub-layer's cache is (c, k_rope): the
+normalized latent [n_periods, B, slots, kv_lora_rank] and the rotated
+rope key [n_periods, B, slots, d_rope] in the compute dtype (`first`'s
+under "first", without the period axis), written in place by prefill
+(the reference pads a copy, `_pad_seq`) and by each decode step; a step
+of more than one token on it raises `ValueError` (the reference's
+absorbed decode fixes a single position).
 
 Training: `init(key)` draws the reference's parameters bit for bit
 (threefry, per leaf `fold_in(key, SHA-256(path)[:4])`); `loss` is the
@@ -93,8 +103,11 @@ the MoE sub-layers (under remat the term leaves each checkpointed layer
 beside its output), as the reference's `Model.loss` does (its dense
 sub-layers add exact zeros).
 
-MLA (DeepSeek-V2) waits for ROADMAP A.8 and `pad_heads_to_tp` for A.10:
-both raise `NotImplementedError`.
+`cfg.pad_heads_to_tp` rounds the query and KV head counts up to a
+multiple of it (Megatron-style tensor-parallel padding), as the
+reference's `Model` does; `param_shapes` and `logical_specs` are the
+reference's dry-run views of the schema (meta tensors and logical
+sharding axes, `repro_torch.sharding.policy`).
 """
 from __future__ import annotations
 
@@ -111,22 +124,26 @@ from repro_torch.dtypes import BY_NAME
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.schema import init_from_key, PDef
+from repro_torch.models.schema import (init_from_key, meta_from_schema, PDef,
+                                       specs_from_schema)
 
 
 @dataclass(frozen=True)
 class SubLayer:
-    mixer: str            # attn | mamba | cross (MLA waits for ROADMAP A.8)
+    mixer: str            # attn | mla | mamba | cross
     ffn: str              # dense | moe | none
     window: int = 0       # sliding window for attn (0 = global)
 
 
 def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
     """Returns (sub-layers of one period, n_periods) for the stack: the
-    reference's layouts of the dense family, of MoE without MLA, of the
-    SSM, hybrid and VLM families (the enc-dec family has no period
-    stack: the plain dense layout, as the reference returns it)."""
+    reference's layouts of the dense family, of MoE with and without
+    MLA (DeepSeek-V2's layer 0, dense, is `first`, outside the stack),
+    of the SSM, hybrid and VLM families (the enc-dec family has no
+    period stack: the plain dense layout, as the reference returns
+    it)."""
     if cfg.family == "ssm":
         return [SubLayer("mamba", "none")], cfg.n_layers
     if cfg.family == "hybrid":
@@ -142,6 +159,8 @@ def period_layout(cfg: ModelConfig) -> Tuple[List[SubLayer], int]:
         per = [SubLayer("attn", "dense") for _ in range(n - 1)]
         per.append(SubLayer("cross", "dense"))
         return per, cfg.n_layers // n
+    if cfg.family == "moe" and cfg.mla is not None:
+        return [SubLayer("mla", "moe")], cfg.n_layers - 1
     if cfg.family == "moe":
         return [SubLayer("attn", "moe")], cfg.n_layers
     if cfg.local_global_pattern:
@@ -161,13 +180,12 @@ class Model:
     def __init__(self, cfg: ModelConfig,
                  attention: Optional[Callable] = None,
                  moe_impl: str = "gather"):
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA (DeepSeek-V2) waits for ROADMAP A.8")
-        if cfg.pad_heads_to_tp:
-            raise NotImplementedError(
-                f"{cfg.name}: pad_heads_to_tp (tensor-parallel head "
-                "padding) waits for ROADMAP A.10")
+        if cfg.pad_heads_to_tp and cfg.n_heads:
+            # round the head counts up to a multiple of the tensor-parallel
+            # degree (minicpm's 36 heads, whisper's 6), as the reference
+            m = cfg.pad_heads_to_tp
+            cfg = cfg.replace(n_heads=_round_up(cfg.n_heads, m),
+                              n_kv_heads=_round_up(cfg.n_kv_heads, m))
         if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
                               "vlm"):
             raise NotImplementedError(f"{cfg.name}: family {cfg.family!r}")
@@ -187,6 +205,8 @@ class Model:
         sub: Dict[str, Any] = {"pre_norm": L.rmsnorm_def(d)}
         if sl.mixer == "mamba":
             sub["mixer"] = M.mamba_def(cfg)
+        elif sl.mixer == "mla":
+            sub["attn"] = MLA.mla_def(cfg)
         elif sl.mixer == "cross":
             sub["attn"] = L.attn_def(d, cfg.n_heads, cfg.n_kv_heads, hd,
                                      0.02, kv_input_dim=d)
@@ -235,12 +255,24 @@ class Model:
         period = {f"sub{j}": self._sublayer_schema(sl)
                   for j, sl in enumerate(self.layout)}
         sc["blocks"] = _stack(period, self.n_periods)
+        if cfg.mla is not None:      # DeepSeek-V2's dense layer 0
+            sc["first"] = self._sublayer_schema(FIRST)
         return sc
 
     def init(self, key, *, device: Any = "cuda") -> dict:
         """The reference's `model.init(key)`, bit for bit, on `device`;
         `key` is a threefry key (`random.PRNGKey(seed)`)."""
         return init_from_key(self.schema(), key, device=device)
+
+    def param_shapes(self) -> dict:
+        """The parameters' shapes and dtypes as meta tensors (the
+        reference's `ShapeDtypeStruct` tree)."""
+        return meta_from_schema(self.schema())
+
+    def logical_specs(self) -> dict:
+        """Each parameter's logical sharding axes ("fsdp", "tp", "ep" or
+        None a dimension), the reference's `logical_specs`."""
+        return specs_from_schema(self.schema())
 
     # ------------------------------------------------------------ training
 
@@ -265,6 +297,7 @@ class Model:
             aux = None
         else:
             x = self._embed(params, tokens)
+            x = self._apply_first(params, x, mode="train")
             x, aux = self._run_stack(params, x, mode="train", ctx=ctx)
         x, head = self._head_inputs(params, x)
         ce = _HeadCE.apply(x, head, tokens[:, 1:].long(),
@@ -278,13 +311,14 @@ class Model:
 
     def _apply_mixer(self, sl: SubLayer, p, x, *, mode, cache, pos,
                      ctx=None):
-        """Attention, plain or within `sl.window`, a Mamba2 mixer, or
+        """Attention, plain or within `sl.window`, MLA, a Mamba2 mixer, or
         cross-attention over `ctx["patches"]` (the VLM); `mode` is
         "train", "prefill" or "decode". `cache` (prefill and decode): this
         layer's views, written in place: (k, v) of [B, slots, HK, D],
-        (ssm, conv) for a Mamba mixer, or the cross-attention's static
-        (k, v) of [B, num_patches, HK, D], which prefill writes once and
-        decode reads whole. Returns the mixer's output."""
+        (c, k_rope) of [B, slots, R] and [B, slots, Dr] for MLA, (ssm,
+        conv) for a Mamba mixer, or the cross-attention's static (k, v)
+        of [B, num_patches, HK, D], which prefill writes once and decode
+        reads whole. Returns the mixer's output."""
         cfg = self.cfg
         cd = self.compute_dtype
         hd = cfg.resolved_head_dim
@@ -302,6 +336,19 @@ class Model:
                 k, v = self._project_kv(p["attn"], kv_x, rope=False)
                 cache[0].copy_(k)
                 cache[1].copy_(v)
+            return out
+        if sl.mixer == "mla":
+            if mode == "decode":
+                return MLA.mla_decode(p["attn"], x, *cache, pos, cfg, cd)
+            out = MLA.mla_attention(p["attn"], x, cfg,
+                                    q_chunk=cfg.attn_q_chunk,
+                                    compute_dtype=cd,
+                                    latent=mode == "prefill")
+            if mode == "train":
+                return out
+            out, (c, k_rope) = out
+            cache[0][:, :c.shape[1]] = c
+            cache[1][:, :k_rope.shape[1]] = k_rope
             return out
         if sl.mixer == "mamba":
             if mode == "train":
@@ -460,6 +507,16 @@ class Model:
     def _train_layer(self, sl, bp, x, ctx=None):
         return self._apply_sublayer(sl, bp, x, mode="train", ctx=ctx)
 
+    def _apply_first(self, params, x, *, mode, cache=None, pos=None):
+        """DeepSeek-V2's layer 0 (MLA + dense FFN, `params["first"]`),
+        outside the stack and, in training, outside remat, as the
+        reference's `_apply_first`; the identity without MLA. `cache`:
+        its (c, k_rope) of [B, slots, ...]."""
+        if self.cfg.mla is None:
+            return x
+        return self._apply_sublayer(FIRST, params["first"], x, mode=mode,
+                                    cache=cache, pos=pos)[0]
+
     # ------------------------------------------------------ the enc-dec
 
     def _encode(self, params, frames):
@@ -563,8 +620,8 @@ class Model:
 
     def _embed(self, params, tokens):
         """Token embeddings in the compute dtype. (The reference's
-        `activation_constraint` is the identity on one device; sharding
-        waits for ROADMAP A.10.)"""
+        `activation_constraint` is the identity on one device, and the
+        port runs on one.)"""
         cd = self.compute_dtype
         x = params["embed"][tokens.long()]
         # the scale rounded to the compute dtype on the host, as
@@ -636,6 +693,8 @@ class Model:
                                        enc, mode="prefill", caches=caches)
         else:
             x = self._embed(params, tokens)
+            x = self._apply_first(params, x, mode="prefill",
+                                  cache=caches.get("first"))
             x, _ = self._run_stack(params, x, mode="prefill",
                                    caches=caches["blocks"], ctx=ctx)
         logits = self._logits(params, x[:, -1:])
@@ -647,9 +706,9 @@ class Model:
 
         Returns (logits [B, V] fp32, caches), the caches written in place.
         Raises `ValueError` when the step's positions pos .. pos + s - 1
-        run past the global caches (the reference clamps the slot to the
-        last one), or when a step of s > 1 tokens meets a ring cache or
-        an SSM cache.
+        run past the global caches or the MLA latent caches (the
+        reference clamps the slot to the last one), or when a step of s >
+        1 tokens meets a ring cache, an SSM cache or an MLA cache.
         """
         tokens = self._tokens(params, token)
         s = tokens.shape[1]
@@ -669,9 +728,12 @@ class Model:
                                        caches=caches, pos=int(pos))
             return self._logits(params, x)[:, 0], caches
         attn = [(sl, caches["blocks"][f"sub{j}"][0].shape[2])
-                for j, sl in enumerate(self.layout) if sl.mixer == "attn"]
+                for j, sl in enumerate(self.layout)
+                if sl.mixer in ("attn", "mla")]
         rings = [_is_ring(sl, n) for sl, n in attn]
         held = [n for (_, n), ring in zip(attn, rings) if not ring]
+        if "first" in caches:
+            held.append(caches["first"][0].shape[1])
         if int(pos) < 0 or (held and int(pos) + s > min(held)):
             raise ValueError(
                 f"decode at position {int(pos)} of {s} token(s) does not "
@@ -686,7 +748,14 @@ class Model:
                 f"a decode step of {s} tokens on an SSM cache (its "
                 "recurrent update takes one token); step one token at a "
                 "time")
+        if s > 1 and self.cfg.mla is not None:
+            raise ValueError(
+                f"a decode step of {s} tokens on an MLA latent cache (the "
+                "absorbed decode takes one position, as the reference's); "
+                "step one token at a time")
         x = self._embed(params, tokens)
+        x = self._apply_first(params, x, mode="decode",
+                              cache=caches.get("first"), pos=int(pos))
         x, _ = self._run_stack(params, x, mode="decode",
                                caches=caches["blocks"], pos=int(pos))
         return self._logits(params, x)[:, 0], caches
@@ -696,7 +765,9 @@ class Model:
     def init_cache(self, batch_size: int, max_len: int, *,
                    device: Any = "cuda", context_len: Optional[int] = None):
         """Zeroed cache pytree for decode: max_len slots per global
-        sub-layer, min(window, max_len) per local one, per Mamba
+        sub-layer, min(window, max_len) per local one, per MLA sub-layer
+        its latent and rope-key caches of max_len slots (and
+        DeepSeek-V2's layer 0's under "first"), per Mamba
         sub-layer its SSM state (fp32) and conv cache, and per
         cross-attention sub-layer `context_len` slots (the VLM's
         num_patches unless given). The enc-dec family's is {"self": (k,
@@ -725,6 +796,10 @@ class Model:
                     torch.zeros((self.n_periods, batch_size, m.d_conv - 1,
                                  conv_dim), **kw))
                 continue
+            if sl.mixer == "mla":
+                blocks[f"sub{j}"] = self._mla_cache(
+                    (self.n_periods, batch_size, max_len), **kw)
+                continue
             if sl.mixer == "cross":
                 slots = context_len or cfg.num_patches
             else:
@@ -732,7 +807,24 @@ class Model:
             shape = (self.n_periods, batch_size, slots) + hkd
             blocks[f"sub{j}"] = (torch.zeros(shape, **kw),
                                  torch.zeros(shape, **kw))
-        return {"blocks": blocks}
+        if cfg.mla is None:
+            return {"blocks": blocks}
+        return {"blocks": blocks,
+                "first": self._mla_cache((batch_size, max_len), **kw)}
+
+    def _mla_cache(self, lead: tuple, **kw) -> tuple:
+        """(c, k_rope) zeros of lead + [kv_lora_rank] and + [d_rope]."""
+        m = self.cfg.mla
+        return (torch.zeros(lead + (m.kv_lora_rank,), **kw),
+                torch.zeros(lead + (m.d_head_rope,), **kw))
+
+
+# DeepSeek-V2's layer 0 (`first`): MLA with a dense FFN of d_ff
+FIRST = SubLayer("mla", "dense")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m if x else x
 
 
 def _layer(stack, i: int):

@@ -137,6 +137,15 @@ def meta_from_schema(schema, dtype: Optional[torch.dtype] = None) -> dict:
     return out
 
 
+def specs_from_schema(schema) -> dict:
+    """Each leaf's logical sharding axes, as the reference's
+    `specs_from_schema`."""
+    out: dict = {}
+    for path, pdef in _flatten_schema(schema):
+        _insert(out, path, pdef.spec)
+    return out
+
+
 def param_count(schema) -> int:
     n = 0
     for _, pdef in _flatten_schema(schema):

@@ -34,6 +34,10 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                gradients under the train step's deterministic mode
                equal the CPU's within the CPU tests' limits, and two
                train steps repeat bitwise on the card
+  MLA          DeepSeek-V2's smoke model (`q_lora_rank` 24) on the card:
+               prefill logits and latent caches, greedy decode (no B9
+               launch), the bf16 decode repeated bitwise, the loss and
+               its gradients, each against the CPU
   hashing      `tensor_digest` of CUDA leaves (through the page-locked
                staging buffers, on the hashing threads) equals the
                CPU's
@@ -1780,3 +1784,67 @@ def test_cuda_qwen3_smoke_greedy_decode_equals_cpu():
                         batch, 8)
     assert flash_attention.launches - before == cfg.n_layers * 9
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_smoke_equals_cpu():
+    """DeepSeek-V2's smoke config with `q_lora_rank` 24, fp32 compute,
+    the router at 50x its init and the latent-attention projections at
+    10x (so neither routing nor attention is flat): the prefill's
+    logits and latent caches on the card within 2e-5 of the CPU's, a
+    greedy decode of 8 tokens past a 64-token prompt (two query chunks)
+    the CPU's tokens with no B9 launch (MLA runs on plain products, as
+    the reference's einsums), the same decode in bf16 byte-identical on
+    two calls, and `Model.loss` with its gradients under the train
+    step's deterministic mode within the CPU tests' limits of the CPU's
+    (tests/test_torch_mla.py: 1e-6 relative, each leaf's gradient within
+    2e-5 of its largest magnitude)."""
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.serve import greedy_decode
+    from repro_torch.train.step import _deterministic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config("deepseek-v2-236b").replace(compute_dtype="float32")
+    cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, q_lora_rank=24))
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+    for attn in (params["first"]["attn"], params["blocks"]["sub0"]["attn"]):
+        for w in ("w_q", "w_dq", "w_dkv", "w_uk"):
+            attn[w].mul_(10.0)
+    batch = make_batch(cfg, ShapeSpec("s", 64, 3, "prefill"))
+    cuda = pytree.tree_map(lambda t: t.cuda(), params)
+    want_l, want_c = model.prefill(params, batch, max_len=72)
+    got_l, got_c = model.prefill(cuda, batch, max_len=72)
+    assert float((got_l.cpu() - want_l).abs().max()) <= 2e-5
+    for a, b in zip(pytree.leaves(got_c), pytree.leaves(want_c)):
+        assert float((a.cpu() - b).abs().max()) <= 2e-5
+    want = greedy_decode(model, params, batch, 8)
+    before = flash_attention.launches
+    got = greedy_decode(model, cuda, batch, 8)
+    assert flash_attention.launches == before
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    b16 = Model(cfg.replace(compute_dtype="bfloat16"))
+    wb = pytree.tree_map(lambda t: t.to(torch.bfloat16), cuda)
+    runs = [greedy_decode(b16, wb, batch, 8, return_logits=True)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64))
+    out = []
+    for device in ("cuda", "cpu"):
+        p = pytree.tree_map(
+            lambda t: t.to(device, copy=True).requires_grad_(), params)
+        with _deterministic(torch.device(device)):
+            loss, mets = model.loss(p, {"tokens": toks})
+            loss.backward()
+        out.append((float(loss.detach()), float(mets["aux"].detach()),
+                    [t.grad.cpu() for t in pytree.leaves(p)]))
+    (lc, ac, gc), (lh, ah, gh) = out
+    assert abs(lc - lh) <= 1e-6 * abs(lh) and abs(ac - ah) <= 1e-6
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= \
+            2e-5 * max(float(b.abs().max()), 1e-30)

@@ -741,21 +741,28 @@ def _port_config(name):
 @pytest.mark.parametrize("name", ["deepseek-v2-236b", "whisper-tiny",
                                   "llama-3.2-vision-90b"])
 def test_other_families_still_refused(name):
-    """Exact: MLA (DeepSeek-V2, family moe) raises `NotImplementedError`
-    naming ROADMAP A.8. The enc-dec and VLM families are ported
-    (tests/test_torch_whisper.py, tests/test_torch_vlm.py; the SSM and
-    hybrid families in tests/test_torch_mamba.py and
-    tests/test_torch_jamba.py): their reference configs build a port
-    model, and `pad_heads_to_tp` (tensor-parallel head padding) still
-    raises, naming ROADMAP A.10."""
+    """Exact: the last families are ported (MLA, DeepSeek-V2, family moe:
+    tests/test_torch_mla.py; the enc-dec and VLM families:
+    tests/test_torch_whisper.py, tests/test_torch_vlm.py): each
+    reference config builds a port model of its family and layout, and
+    with `pad_heads_to_tp` 16 (tensor-parallel head padding) the head
+    counts the reference's `Model` pads to. What is still refused is a
+    family the reference does not have: `NotImplementedError`."""
     cfg = _port_config(name)
+    model = Model(cfg)
+    assert model.cfg.family == {"deepseek-v2-236b": "moe",
+                                "whisper-tiny": "encdec",
+                                "llama-3.2-vision-90b": "vlm"}[name]
     if cfg.mla is not None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            Model(cfg)
-        return
-    assert Model(cfg).cfg.family in ("encdec", "vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        Model(cfg.replace(pad_heads_to_tp=16))
+        assert [sl.mixer for sl in model.layout] == ["mla"]
+        assert "first" in model.schema()
+    padded = Model(cfg.replace(pad_heads_to_tp=16)).cfg
+    want = JModel(jget_config(name).replace(pad_heads_to_tp=16)).cfg
+    assert (padded.n_heads, padded.n_kv_heads) == \
+        (want.n_heads, want.n_kv_heads)
+    assert padded.n_heads % 16 == 0
+    with pytest.raises(NotImplementedError, match="family 'rnn'"):
+        Model(cfg.replace(family="rnn"))
 
 
 # ----------------------------------------------- int8 over expert leaves

@@ -42,7 +42,7 @@ from repro_torch import convert, pytree  # noqa: E402
 from repro_torch import random as prng  # noqa: E402
 from repro_torch.api import MergeSpec, Replica  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
-from repro_torch.configs.base import MLAConfig, SHAPES, ShapeSpec  # noqa: E402,E501
+from repro_torch.configs.base import SHAPES, ShapeSpec  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -498,18 +498,20 @@ def test_serve_cli_defaults_to_cuda():
 
 
 def test_model_scope():
-    """What is still to port raises, naming its ROADMAP item: MLA
-    (A.8; training is ported: tests/test_torch_train.py; MoE without MLA
-    in tests/test_torch_moe.py, which holds the rest of the refusals;
-    the SSM family, tests/test_torch_mamba.py; the enc-dec and VLM
-    families, tests/test_torch_whisper.py and tests/test_torch_vlm.py).
-    Sandwich norms (gemma2's) on this
+    """Every family of the reference is ported (MLA in
+    tests/test_torch_mla.py; MoE without MLA in tests/test_torch_moe.py,
+    which holds the other families' builds; the SSM family,
+    tests/test_torch_mamba.py; the enc-dec and VLM families,
+    tests/test_torch_whisper.py and tests/test_torch_vlm.py): an MLA
+    config builds, and a family the reference does not have raises
+    `NotImplementedError`. Sandwich norms (gemma2's) on this
     config: `Model.init` bitwise the reference's, prefill logits within
     LIMITS in fp32 (tests/test_torch_gemma2.py holds
     gemma2's whole layout). The cache has the reference's structure and
     shapes."""
-    with pytest.raises(NotImplementedError, match="A.8"):
-        Model(smoke_config(ARCH).replace(mla=MLAConfig()))
+    assert Model(smoke_config("deepseek-v2-236b")).layout[0].mixer == "mla"
+    with pytest.raises(NotImplementedError, match="family 'rnn'"):
+        Model(smoke_config(ARCH).replace(family="rnn"))
     cfg, jcfg = _configs(2, "bfloat16")
     scfg, sjcfg = (c.replace(sandwich_norms=True, compute_dtype="float32")
                    for c in (cfg, jcfg))
