@@ -261,12 +261,12 @@ join, every alive branch byte-identical after each merge.
 `[gemma2-train]` runs next: Gemma-2 27B at full width and 1 of its 23
 periods (2 layers, a local and a global one; 2 periods before the
 [qwen3-moe] phase came; fp32 parameters and moments, 37.0 GB of state,
-bf16 compute, remat), 3 steps of batch 2 x 8192 in
+bf16 compute, remat), 2 steps of batch 2 x 8192 in
 microbatches of 1, every attention call on B9's forward and gradient
 with the softcap and, on the local sub-layer, the 4096-key window; the
-last step traced, and a run resumed from a checkpoint written after
-step 2 bitwise the uninterrupted run. `[kernels]` holds B9's gradient
-at that microbatch (local and global, bf16 and fp32) beside
+last step traced (3 steps and a run resumed from a checkpoint before
+the vlm-train and deepseek-train phases came). `[kernels]` holds B9's
+gradient at that microbatch (local and global, bf16 and fp32) beside
 `flex_attention`'s backward. `[qwen3-moe-train]` runs last: the
 Qwen3-MoE smoke model's loss, aux term and gradients on the card
 against the CPU, then Qwen3-MoE-30B-A3B at full width and 1 of its 48
@@ -277,7 +277,24 @@ accumulating index-put, on torch's sorted path), the last traced with
 the routing / gather kernels a group of their own, a run resumed from a
 checkpoint written after step 2 with every leaf's bit fingerprint the
 uninterrupted run's, and one Branch-Train-Merge round at 1 layer whose
-merge is bitwise a `Replica`'s weight_average.
+merge is bitwise a `Replica`'s weight_average. `[vlm-train]` follows:
+the VLM's smoke model (gates set) card against CPU, then
+Llama-3.2-Vision-90B at full width and 1 of its 20 periods (4
+self-attention and a gated cross-attention sub-layer, with the embedding
+and the head: 6,379,626,498 parameters) under the dry run's `parambf16`
+variant (bf16 parameters, gradients and moments, 51.0 GB of state), 2
+steps of batch 2 x 4096 tokens with 1601 patches a row in microbatches
+of 1, the gates at 0.5 / -0.7 and moving, B9 and its gradient on every
+self-attention (causal) and cross-attention (non-causal over the
+patches) call, the last step traced. `[deepseek-train]` runs last:
+DeepSeek-V2's smoke model (`q_lora_rank` 24) card against CPU, then
+DeepSeek-V2-236B at full width and 2 of its 60 layers (the dense layer
+0 and an MLA layer of 160 routed experts, top-6, and 2 shared), 2 steps
+of 2 x 4096 in microbatches of 1 under the deterministic mode, the last
+traced with a routing / gather group, and one MLA mixer's forward and
+backward timed alone beside the traced step. `[kernels]` holds B9 and
+its gradient at the VLM's training microbatch (self causal over 4096
+keys, cross non-causal over 1601).
 
 Prints one line per phase, then a JSON line with every kernel's numbers,
 the card's name and power limit, and as the last line
@@ -444,9 +461,11 @@ G2_MERGE_LAYERS, G2_K, G2_PLAIN_LAYERS = 2, 2, 2
 # needed their time: the resume's checkpoint is 27.7 GB rather than
 # 41.3), batch 2 x 8192 (its context, so the local layers' 4096-key
 # window binds in the backward; at 4096 it would not) in microbatches of
-# 1; 3 steps, the last traced; a checkpoint written after step 2 and
-# restored, step 3 again
-G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 1, 3
+# 1; 2 steps, the last traced. No resume since the [vlm-train] and
+# [deepseek-train] phases came (its 27.75 GB checkpoint's save and
+# restore took 42 s of the script; a resume stays held bitwise in
+# [train-d2] and [qwen3-moe-train]); 3 steps before
+G2_TRAIN_PERIODS, G2_TRAIN_STEPS = 1, 2
 G2_TRAIN_BATCH, G2_TRAIN_SEQ, G2_TRAIN_ACCUM = 2, 8192, 2
 # [durable] journals and syncs the int8 payloads of 1 of Phi-3-mini's 32
 # layers (2 before the [whisper] and [vlm] phases, 4 before the
@@ -592,6 +611,43 @@ DS_PROMPT = 4096
 # = 3.6e-3 for cuDNN's and the memory-efficient backend (one bf16 ulp in
 # the outputs' top binade); the limit is twice that
 DS_SDPA_TOL = 2.0 ** -7
+# [vlm-train]: Llama-3.2-Vision-90B trained at full width at VT_PERIODS of
+# its 20 periods (4 self-attention + dense sub-layers and a gated
+# cross-attention + dense one, with the embedding and the head:
+# 6,379,626,498 parameters) under the dry run's `parambf16` variant: bf16
+# parameters and gradients beside the config's bf16 moments, 8 bytes a
+# parameter, 51.0 GB of state (fp32 parameters would be 76.6 GB); bf16
+# compute, remat; batch VT_BATCH x VT_SEQ in VT_ACCUM microbatches, each
+# row with make_batch's 1601 patches, the gates at VL_GATES; VT_STEPS
+# steps, the last traced; no resume (a 51 GB checkpoint would spend the
+# phase on disk; resume is held bitwise in [train-d2] and
+# [qwen3-moe-train], and bf16 checkpoints round-trip in the CPU tests)
+VT_PERIODS = 1
+VT_BATCH, VT_SEQ, VT_ACCUM, VT_STEPS = 2, 4096, 2, 2
+# the learning rate of a bf16-parameter run, from the first step (warmup
+# 1): the configs' schedule gives 3e-6 at step 0 (3e-4 after 100 warmup
+# steps), under half a bf16 ulp of nearly every weight, of the norms at
+# 1.0 and of the gates at 0.5 and -0.7 (2^-10 to 2^-8), so nothing would
+# move; Adam's first step is +-lr an element (less lr x 0.1 x p of weight
+# decay) where the gradient is well above Adam's eps, and 5e-3 moves each
+# of them either way (a norm at 1.0 up by 4.5e-3, past the 3.9e-3
+# midpoint to 1 + 2^-7)
+BF16_TRAIN_LR = 5e-3
+# [deepseek-train]: DeepSeek-V2-236B trained at full width at
+# DS_TRAIN_LAYERS of its 60 layers (the dense layer 0, outside remat as
+# the reference's, and one MLA layer with 160 routed experts, top-6, and
+# 2 shared: 5,358,679,040 parameters) under DS_TRAIN_VARIANT `parambf16`:
+# bf16 parameters and gradients beside the config's bf16 moments, 8 bytes
+# a parameter, 42.9 GB (the config's fp32 parameters, 12 bytes a
+# parameter, 64.3 GB, ran out of memory on an H100 80GB HBM3 at 83.81 GB
+# in the first step: layer 0's attention saved outside remat and the
+# recomputed layer's expert weights cast to bf16 beside the state), bf16
+# compute, remat; batch DS_TRAIN_BATCH x DS_TRAIN_SEQ (8 query chunks of
+# 512) in DS_TRAIN_ACCUM microbatches, DS_TRAIN_STEPS steps, the last
+# traced, no resume (as [vlm-train]), learning rate BF16_TRAIN_LR
+DS_TRAIN_LAYERS, DS_TRAIN_VARIANT = 2, "parambf16"
+DS_TRAIN_BATCH, DS_TRAIN_SEQ, DS_TRAIN_ACCUM, DS_TRAIN_STEPS = \
+    2, 4096, 2, 2
 PERLEAF_MAX_DIFF_SHARE = {"slerp k=2": 0.103, "slerp k=4 fold": 0.705,
                           "slerp k=4 tree": 0.567, "slerp k=2 fp32": 0.0,
                           "slerp k=4 fold fp32": 0.0,
@@ -1078,6 +1134,7 @@ def phase_kernels(cfg) -> dict:
     phase_flash_backward(rows, cfg, g)
     phase_gemma2_flash_backward(rows, g)
     phase_whisper_flash_backward(rows, g)
+    phase_vlm_flash_train(rows, g)
     return rows
 
 
@@ -5279,28 +5336,29 @@ def phase_gemma2_train() -> dict:
         G2_TRAIN_ACCUM, f"{G2_TRAIN_PERIODS} of 23 periods (sub-layers "
         f"with windows {windows}; depth cut so that 16 bytes a parameter "
         f"and the logits stage of a {G2_TRAIN_SEQ}-token microbatch fit "
-        "80 GB)")
+        "80 GB)", resume=False)
 
 
 def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
                  accum: int, cut: str, routing: bool = False,
-                 keep_params: bool = False) -> dict:
-    """`cfg` trained on the card at full width (fp32 parameters and
-    moments, bf16 compute, remat) from `init_from_schema`: `steps` steps
-    of `make_train_step` at batch `batch_size` x `seq` in `accum`
+                 keep_params: bool = False, resume: bool = True) -> dict:
+    """`cfg` trained on the card at full width (its parameter, moment
+    and compute dtypes and remat) from `init_from_schema` drawn in the
+    parameter dtype (the VLM's gates at VL_GATES, `set_gates`): `steps`
+    steps of `make_train_step` at batch `batch_size` x `seq` in `accum`
     microbatches on `make_batch` batches (`SyntheticTask` 0's tokens, and
     the enc-dec family's frames or the VLM's patches). Per step: loss,
-    grad norm,
-    seconds, tokens per second, peak device memory; the last step
-    traced (with `routing`, the MoE routing / gather kernels a group of
-    their own). B9's forward and backward launch exactly as the
+    grad norm, seconds, tokens per second, peak device memory; the last
+    step traced (with `routing`, the MoE routing / gather kernels a group
+    of their own). B9's forward and backward launch exactly as the
     attention sub-layers, microbatches and remat ask; every parameter
-    leaf changes. Resume: a checkpoint written after step `steps` - 1,
-    the finished state fingerprinted (`bits_fingerprint`), the
-    checkpoint restored and the last step run again: every leaf's
-    fingerprint the uninterrupted run's. Returns {"launches",
-    "traced"}, and with `keep_params` "params", the trained parameters
-    (bitwise the uninterrupted run's)."""
+    leaf changes, but a bf16 leaf whose update `rounded_back` shows to
+    round back to it everywhere. With `resume`: a checkpoint written
+    after step `steps` - 1, the finished state fingerprinted
+    (`bits_fingerprint`), the checkpoint restored and the last step run
+    again: every leaf's fingerprint the uninterrupted run's. Returns
+    {"launches", "traced"}, and with `keep_params` "params", the trained
+    parameters (bitwise the uninterrupted run's)."""
     import gc
     import shutil
     import tempfile
@@ -5309,6 +5367,7 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
     from repro_torch.configs import ShapeSpec
     from repro_torch.core import engine
     from repro_torch.data.synthetic import make_batch
+    from repro_torch.dtypes import BY_NAME
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
     from repro_torch.train.step import (init_train_state, make_train_step,
@@ -5321,7 +5380,9 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
     held0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_train_state(model, params=init_from_schema(
-        model.schema(), seed=SEED, device=DEVICE), device=DEVICE)
+        model.schema(), seed=SEED, device=DEVICE,
+        dtype=BY_NAME[cfg.param_dtype]), device=DEVICE)
+    set_gates(model, state["params"])
     torch.cuda.synchronize()
     n = sum(t.numel() for t in pytree.leaves(state["params"]))
     log(f"[{tag}] {cfg.name} at full width, {cut}, {n:,} parameters "
@@ -5371,7 +5432,7 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 raise AssertionError(f"{tag} step {i + 1}: loss {loss}, "
                                      f"grad norm {gnorm}")
-            if i == steps - 2:
+            if resume and i == steps - 2:
                 t0 = time.perf_counter()
                 ckpt_path = save_checkpoint(
                     tmp, state, i + 1, metadata={"data_step": i + 1})
@@ -5380,7 +5441,8 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
         after = leaf_samples(state["params"])
         shares = [float((a != b).float().mean())
                   for a, b in zip(before, after)]
-        if min(shares) == 0.0:
+        rounded = rounded_back(state, cfg, steps, shares)
+        if min(shares) == 0.0 and len(rounded) < shares.count(0.0):
             raise AssertionError(f"a parameter leaf did not change: "
                                  f"{shares}")
         if int(state["step"]) != steps:
@@ -5391,43 +5453,47 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
                     inner * (2 if cfg.remat != "none" else 1) + outer),
                 "flash_attention_backward": micro * (inner + outer)}
         got = {k: counts[k] for k in want}
+        moved = [x for x in shares if x > 0.0]
         log(f"[{tag}] launches {got} (expected {want}: {inner} attention "
             f"calls under remat and {outer} outside it x {accum} "
             f"microbatches x {steps} steps, the forward again in each "
-            "remat); every parameter leaf changed (shares "
-            f"of sampled elements changed {min(shares):.4f}-"
-            f"{max(shares):.4f})")
+            f"remat); {len(moved)} of {len(shares)} parameter leaves "
+            f"changed (shares of sampled elements changed "
+            f"{min(moved):.4f}-{max(moved):.4f})"
+            + "".join(f"; {name} did not: {why}"
+                      for name, why in rounded.items()))
         if got != want:
             raise AssertionError(f"{tag} launches {got} != {want}")
         del before, after
-        # resume: the finished state's fingerprints, the checkpoint back
-        # on the card (two states do not fit), the last step again
-        t0 = time.perf_counter()
-        want = [bits_fingerprint(t) for t in pytree.leaves(state)]
-        t_print = time.perf_counter() - t0
-        del state
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        state, meta = restore_checkpoint(ckpt_path, train_state_shapes(model),
-                                         device=DEVICE)
-        torch.cuda.synchronize()
-        t_restore = time.perf_counter() - t0
-        for i in range(int(meta["data_step"]), steps):
-            state, _ = step_fn(state, batch(i))
-        got = [bits_fingerprint(t) for t in pytree.leaves(state)]
-        same = sum(x == y for x, y in zip(got, want))
-        size = sum(os.path.getsize(os.path.join(ckpt_path, f))
-                   for f in os.listdir(ckpt_path))
-        log(f"[{tag}] resume: {steps} steps straight vs {steps - 1} + save "
-            f"({size / 1e9:.2f} GB, {t_save:.1f} s) + restore "
-            f"({t_restore:.1f} s) + 1: {same} of {len(want)} leaves "
-            "(params, m, v, step) with the uninterrupted run's bit "
-            "fingerprint (bits_fingerprint, not an element-wise "
-            f"comparison; {t_print:.1f} s for the state)")
-        if same != len(want):
-            raise AssertionError(f"{tag}: resume differs from the "
-                                 "uninterrupted run")
+        if resume:
+            # resume: the finished state's fingerprints, the checkpoint
+            # back on the card (two states do not fit), the last step
+            t0 = time.perf_counter()
+            want = [bits_fingerprint(t) for t in pytree.leaves(state)]
+            t_print = time.perf_counter() - t0
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            state, meta = restore_checkpoint(
+                ckpt_path, train_state_shapes(model), device=DEVICE)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            for i in range(int(meta["data_step"]), steps):
+                state, _ = step_fn(state, batch(i))
+            got = [bits_fingerprint(t) for t in pytree.leaves(state)]
+            same = sum(x == y for x, y in zip(got, want))
+            size = sum(os.path.getsize(os.path.join(ckpt_path, f))
+                       for f in os.listdir(ckpt_path))
+            log(f"[{tag}] resume: {steps} steps straight vs {steps - 1} + "
+                f"save ({size / 1e9:.2f} GB, {t_save:.1f} s) + restore "
+                f"({t_restore:.1f} s) + 1: {same} of {len(want)} leaves "
+                "(params, m, v, step) with the uninterrupted run's bit "
+                "fingerprint (bits_fingerprint, not an element-wise "
+                f"comparison; {t_print:.1f} s for the state)")
+            if same != len(want):
+                raise AssertionError(f"{tag}: resume differs from the "
+                                     "uninterrupted run")
         kept = state["params"] if keep_params else None
         del state
     finally:
@@ -5437,6 +5503,43 @@ def train_resume(tag: str, cfg, steps: int, batch_size: int, seq: int,
     out = {"launches": counts, "traced": traced}
     if keep_params:
         out["params"] = kept
+    return out
+
+
+def rounded_back(state: dict, cfg, steps: int, shares: list) -> dict:
+    """{leaf name: why} for the bf16 parameter leaves of which no sampled
+    element moved (`shares` 0) although the update reached them: their
+    first moment is nonzero at some sampled element (a gradient
+    arrived) and the last AdamW step, recomputed from the final
+    moments at the last step's learning rate (m^ / (sqrt(v^) + eps) +
+    weight decay x p, times lr), rounds back to the unchanged bf16 value
+    at every sampled element. A step under half a bf16 ulp is lost to
+    the parameter dtype, as in the reference's `parambf16`; fp32
+    parameters keep it. Other unchanged leaves are not listed."""
+    from repro_torch import pytree
+    from repro_torch.optim import adamw
+    if cfg.param_dtype == "float32" or 0.0 not in shares:
+        return {}
+    flat, _ = pytree.flatten_with_path(state["params"])
+    ms = leaf_samples(state["m"])
+    vs = leaf_samples(state["v"])
+    ps = leaf_samples(state["params"])
+    lr = float(adamw.lr_schedule(steps - 1, cfg, steps))
+    c1, c2 = 1.0 - adamw.B1 ** steps, 1.0 - adamw.B2 ** steps
+    out = {}
+    for i, share in enumerate(shares):
+        if share:
+            continue
+        p, m, v = (x[i].float() for x in (ps, ms, vs))
+        step = lr * ((m / c1) / ((v / c2).sqrt() + adamw.EPS)
+                     + adamw.WEIGHT_DECAY * p)
+        back = torch.equal((p - step).to(ps[i].dtype), ps[i])
+        if back and bool((m != 0).any()):
+            out[pytree.keystr(flat[i][0])] = (
+                f"its last step at most {float(step.abs().max()):.2e} "
+                f"rounds back to every sampled element (first moment up "
+                f"to {float(m.abs().max()):.2e}; Adam's eps "
+                f"{adamw.EPS:g})")
     return out
 
 
@@ -5893,46 +5996,62 @@ def phase_whisper() -> dict:
 
 
 def whisper_train_check() -> None:
-    """Whisper-tiny's smoke model, fp32 compute, remat: `Model.loss` and
-    its gradients (the encoder's through the cross-attention included)
-    on the card, under the train step's deterministic mode, against the
-    same on the CPU (the kernels' plain versions there): the loss within
-    WH_CHECK_LIMITS["loss"] relative, each leaf's gradient within
-    WH_CHECK_LIMITS["grad"] of its largest magnitude."""
-    from repro_torch import pytree
+    """Whisper-tiny's smoke model, fp32 compute, remat: `train_check`
+    over 2 rows of 64 tokens with their frames (the encoder's gradient
+    through the cross-attention included) at WH_CHECK_LIMITS (the CPU
+    tests' limits against JAX)."""
     from repro_torch.configs import ShapeSpec, smoke_config
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
-    from repro_torch.train.step import _deterministic
     cfg = smoke_config(WHISPER).replace(compute_dtype="float32",
                                         remat="full")
+    params = init_from_schema(Model(cfg).schema(), seed=SEED, device="cpu")
+    train_check("whisper-train", f"smoke model ({cfg.n_encoder_layers} "
+                f"encoder and {cfg.n_layers} decoder layers over "
+                f"{cfg.encoder_seq} frames)", cfg, params,
+                make_batch(cfg, ShapeSpec("check", 64, 2, "train")),
+                WH_CHECK_LIMITS)
+
+
+def train_check(tag: str, label: str, cfg, params, batch: dict,
+                limits: dict) -> None:
+    """`Model.loss` of `cfg` (a smoke config) and its gradients on the
+    card, under the train step's deterministic mode, against the same on
+    the CPU (the kernels' plain versions there), from the CPU `params`
+    on `batch`: the loss and its cross-entropy within limits["loss"]
+    relative, an MoE config's aux term within limits["aux"], each
+    leaf's gradient within limits["grad"] of its largest magnitude."""
+    from repro_torch import pytree
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import _deterministic
     model = Model(cfg)
-    params = init_from_schema(model.schema(), seed=SEED, device="cpu")
-    batch = make_batch(cfg, ShapeSpec("check", 64, 2, "train"))
     got = []
     for device in (DEVICE, "cpu"):
         p = pytree.tree_map(
             lambda t: t.to(device, copy=True).requires_grad_(), params)
         with _deterministic(torch.device(device)):
-            loss, _ = model.loss(p, batch)
+            loss, mets = model.loss(p, batch)
             loss.backward()
-        got.append((float(loss.detach()),
+        got.append(([float(loss.detach()), float(mets["ce"].detach()),
+                     float(mets["aux"].detach())],
                     [t.grad.cpu() for t in pytree.leaves(p)]))
     (lc, gc), (lh, gh) = got
-    rel = abs(lc - lh) / abs(lh)
+    rel = [abs(a - b) / abs(b) for a, b in zip(lc[:2], lh[:2])]
+    aux = abs(lc[2] - lh[2])
     grad = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                 1e-30)
                for a, b in zip(gc, gh))
-    ok = rel <= WH_CHECK_LIMITS["loss"] and grad <= WH_CHECK_LIMITS["grad"]
-    log(f"[whisper-train] smoke model ({cfg.n_encoder_layers} encoder and "
-        f"{cfg.n_layers} decoder layers over {cfg.encoder_seq} frames), "
-        f"card vs CPU: loss {lc:.6f} / {lh:.6f} (relative {rel:.2e}), "
-        f"gradients {grad:.2e} of a leaf's largest magnitude at worst over "
-        f"{len(gc)} leaves (limits {WH_CHECK_LIMITS}): "
-        f"{'ok' if ok else 'FAIL'}")
+    ok = max(rel) <= limits["loss"] and grad <= limits["grad"] and \
+        (not cfg.moe or aux <= limits["aux"])
+    moe = (f", aux {lc[2]:.6f} / {lh[2]:.6f} ({aux:.2e})" if cfg.moe
+           else "")
+    log(f"[{tag}] {label}, card vs CPU: loss {lc[0]:.6f} / {lh[0]:.6f} "
+        f"(relative {rel[0]:.2e}), ce {rel[1]:.2e}{moe}, gradients "
+        f"{grad:.2e} of a leaf's largest magnitude at worst over "
+        f"{len(gc)} leaves (limits {limits}): {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("whisper train check: card vs CPU outside "
+        raise AssertionError(f"{tag} train check: card vs CPU outside "
                              "the limits")
 
 
@@ -6237,74 +6356,49 @@ def phase_qwen3_moe_train() -> dict:
         f"(16 bytes a parameter; {cfg.moe.num_experts} experts, top-"
         f"{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor})",
         routing=True)
-    t = out["traced"]
-    if t:
-        busy = sum(t["groups"].values())
-        routing = sorted(((k, v) for k, v in t["by_kernel"].items()
-                          if any(w in k.lower() for w in ROUTING_WORDS)),
-                         key=lambda kv: -kv[1])
-        index = sum(v for k, v in routing if "index" in k.lower())
-        log(f"[qwen3-moe-train] the traced step's routing / gather "
-            f"kernels {t['groups']['routing']:.2f} ms, "
-            f"{t['groups']['routing'] / busy:.3f} of the busy "
-            f"{busy:.2f} ms (the deterministic index-put backward's and "
-            f"the gathers' kernels, names with 'index' {index:.2f} ms, "
-            f"{index / busy:.3f}); costliest: "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in routing[:4]))
+    log_routing("qwen3-moe-train", out["traced"])
     btm = q3_btm(cfg)
     return {"launches": {k: out["launches"][k] + btm["launches"][k]
                          for k in out["launches"]}}
 
 
+def log_routing(tag: str, t: dict) -> None:
+    """The traced train step's routing / gather group (ROUTING_WORDS):
+    its share of the busy time, the deterministic index-put backward's
+    and the gathers' ('index' in the name) share, the costliest four."""
+    if not t:
+        return
+    busy = sum(t["groups"].values())
+    routing = sorted(((k, v) for k, v in t["by_kernel"].items()
+                      if any(w in k.lower() for w in ROUTING_WORDS)),
+                     key=lambda kv: -kv[1])
+    index = sum(v for k, v in routing if "index" in k.lower())
+    log(f"[{tag}] the traced step's routing / gather kernels "
+        f"{t['groups']['routing']:.2f} ms, "
+        f"{t['groups']['routing'] / busy:.3f} of the busy {busy:.2f} ms "
+        f"(the deterministic index-put backward's and the gathers' "
+        f"kernels, names with 'index' {index:.2f} ms, {index / busy:.3f}); "
+        "costliest: " + ", ".join(f"{k} {v:.2f} ms" for k, v in routing[:4]))
+
+
 def q3_train_check() -> None:
     """Qwen3-MoE's smoke model with drops (capacity factor 0.5), the
-    router at 50x its init, fp32 compute, remat: `Model.loss` and its
-    gradients on the card, under the train step's deterministic mode,
-    against the same on the CPU (the kernels' plain versions there):
-    ce and the total within Q3_CHECK_LIMITS["loss"] relative, aux within
-    Q3_CHECK_LIMITS["aux"], each leaf's gradient within
-    Q3_CHECK_LIMITS["grad"] of its largest magnitude (the CPU tests'
-    limits against JAX)."""
+    router at 50x its init, fp32 compute, remat: `train_check` over 2
+    rows of 64 tokens at Q3_CHECK_LIMITS (the CPU tests' limits against
+    JAX)."""
     import dataclasses
     import numpy as np
-    from repro_torch import pytree
     from repro_torch.configs import smoke_config
     from repro_torch.models.model import Model
     from repro_torch.models.schema import init_from_schema
-    from repro_torch.train.step import _deterministic
     cfg = smoke_config(QWEN3).replace(compute_dtype="float32", remat="full")
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
-    model = Model(cfg)
-    params = init_from_schema(model.schema(), seed=SEED, device="cpu")
+    params = init_from_schema(Model(cfg).schema(), seed=SEED, device="cpu")
     params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
     toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 64))
-    got = []
-    for device in (DEVICE, "cpu"):
-        p = pytree.tree_map(
-            lambda t: t.to(device, copy=True).requires_grad_(), params)
-        with _deterministic(torch.device(device)):
-            loss, mets = model.loss(p, {"tokens": toks})
-            loss.backward()
-        got.append(([float(loss.detach()), float(mets["ce"].detach()),
-                     float(mets["aux"].detach())],
-                    [t.grad.cpu() for t in pytree.leaves(p)]))
-    (lc, gc), (lh, gh) = got
-    rel = [abs(a - b) / abs(b) for a, b in zip(lc[:2], lh[:2])]
-    aux = abs(lc[2] - lh[2])
-    grad = max(float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                1e-30)
-               for a, b in zip(gc, gh))
-    ok = max(rel) <= Q3_CHECK_LIMITS["loss"] and \
-        aux <= Q3_CHECK_LIMITS["aux"] and grad <= Q3_CHECK_LIMITS["grad"]
-    log(f"[qwen3-moe-train] smoke model ({cfg.n_layers} layers, capacity "
-        f"factor 0.5), card vs CPU: loss {lc[0]:.6f} / {lh[0]:.6f} "
-        f"(relative {rel[0]:.2e}), ce {rel[1]:.2e}, aux {lc[2]:.6f} / "
-        f"{lh[2]:.6f} ({aux:.2e}), gradients {grad:.2e} of a leaf's "
-        f"largest magnitude at worst over {len(gc)} leaves (limits "
-        f"{Q3_CHECK_LIMITS}): {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("qwen3-moe train check: card vs CPU outside "
-                             "the limits")
+    train_check("qwen3-moe-train", f"smoke model ({cfg.n_layers} layers, "
+                "capacity factor 0.5)", cfg, params, {"tokens": toks},
+                Q3_CHECK_LIMITS)
 
 
 def q3_btm(cfg) -> dict:
@@ -6375,6 +6469,192 @@ def q3_btm(cfg) -> dict:
     return {"launches": counts}
 
 
+def phase_vlm_flash_train(rows: dict, g) -> None:
+    """B9 and its gradient at [vlm-train]'s microbatch (VT_BATCH /
+    VT_ACCUM rows of VT_SEQ tokens), bf16, 64 query heads over 8 KV heads
+    of 128: the self-attention, causal, q, k, v [1, 4096, ...], and the
+    cross-attention, non-causal over the 1601 patches (1601 % 64 = 1),
+    the forward held against its plain version by `flash_case`'s rule
+    and the gradient by FLASH_BWD_*, each timed beside
+    `scaled_dot_product_attention`'s forward or backward
+    (`enable_gqa`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM)
+    dev = torch.device(DEVICE)
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mb = VT_BATCH // VT_ACCUM
+    floor = FLASH_BF16_FLOOR["gemma2"]
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    fwd, bwd = {}, {}
+    for label, sk, causal in (("self", VT_SEQ, True),
+                              ("cross", cfg.num_patches, False)):
+        q, dout = randn(mb, VT_SEQ, h, d), randn(mb, VT_SEQ, h, d)
+        k, v = randn(mb, sk, hk, d), randn(mb, sk, hk, d)
+        fwd[f"vlm train {label} bf16"] = flash_case(q, k, v, 0, floor=floor,
+                                                    causal=causal)
+        bwd[f"vlm train {label} bf16"] = flash_bwd_case(q, k, v, dout,
+                                                        causal=causal)
+        del q, k, v, dout
+    torch.cuda.empty_cache()
+    rows["flash_attention"].update(fwd)
+    rows["flash_attention_backward"].update(bwd)
+
+
+def phase_vlm_train() -> dict:
+    """[vlm-train]: Llama-3.2-Vision-90B trained on the card. First the
+    smoke model (gates at VL_GATES, fp32 compute, remat) card against
+    CPU (`train_check` at TRAIN_LOSS_RTOL / TRAIN_GRAD_TOL); then
+    `train_resume` at full width and VT_PERIODS of its 20 periods under
+    `parambf16` (bf16 parameters, gradients and moments; learning rate
+    BF16_TRAIN_LR), the gates at VL_GATES, without the resume: B9 and
+    its gradient on every self-attention sub-layer (causal over the
+    tokens) and on the cross-attention one (non-causal over the
+    patches); the gates' values after the steps."""
+    from repro_torch.configs import ShapeSpec, get_config, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    smoke = smoke_config(VLM).replace(compute_dtype="float32", remat="full")
+    params = init_from_schema(Model(smoke).schema(), seed=SEED,
+                              device="cpu")
+    set_gates(Model(smoke), params)
+    train_check("vlm-train", f"smoke model ({smoke.n_layers} layers in "
+                f"periods of {smoke.cross_attn_interval}, "
+                f"{smoke.num_patches} patches, gates {VL_GATES})", smoke,
+                params, make_batch(smoke, ShapeSpec("check", 64, 2,
+                                                    "train")),
+                {"loss": TRAIN_LOSS_RTOL, "grad": TRAIN_GRAD_TOL})
+    full = get_config(VLM)
+    period = full.cross_attn_interval
+    cfg = apply_variant(full, "parambf16").replace(
+        n_layers=VT_PERIODS * period, grad_accum=VT_ACCUM,
+        learning_rate=BF16_TRAIN_LR, warmup_steps=1)
+    out = train_resume(
+        "vlm-train", cfg, VT_STEPS, VT_BATCH, VT_SEQ, VT_ACCUM,
+        f"{VT_PERIODS} of 20 periods ({period - 1} self-attention + "
+        f"dense sub-layers and a gated cross-attention + dense one over "
+        f"{cfg.num_patches} patches a row; 8 bytes a parameter under "
+        f"parambf16; learning rate {BF16_TRAIN_LR} from step 1)",
+        keep_params=True, resume=False)
+    cross = out.pop("params")["blocks"][f"sub{period - 1}"]
+    gates = {k: cross[k].float().tolist() for k in VL_GATES}
+    log(f"[vlm-train] the gates after {VT_STEPS} steps: {gates} (set to "
+        f"{VL_GATES}, bf16)")
+    for k, v in VL_GATES.items():
+        start = torch.tensor(v).to(torch.bfloat16)
+        if bool((cross[k] == start.to(cross[k].device)).any()):
+            raise AssertionError(f"[vlm-train] {k} did not move")
+    del cross
+    torch.cuda.empty_cache()
+    return {"launches": out["launches"]}
+
+
+def phase_deepseek_train() -> dict:
+    """[deepseek-train]: DeepSeek-V2-236B trained on the card. First the
+    smoke model (`q_lora_rank` 24, the router at 50x its init and the
+    latent-attention projections at 10x so that neither routing nor
+    attention is flat; fp32 compute, remat) card against CPU
+    (`train_check` at TRAIN_LOSS_RTOL / TRAIN_GRAD_TOL, aux within
+    Q3_CHECK_LIMITS["aux"]); then `train_resume` at full width and
+    DS_TRAIN_LAYERS of its 60 layers with DS_TRAIN_VARIANT's dtypes,
+    without the resume, the traced step's routing / gather group
+    (`log_routing`) and MLA's share of it (`mla_train_share`)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    smoke = smoke_config(DEEPSEEK).replace(compute_dtype="float32",
+                                           remat="full")
+    smoke = smoke.replace(mla=dataclasses.replace(smoke.mla,
+                                                  q_lora_rank=24))
+    params = init_from_schema(Model(smoke).schema(), seed=SEED,
+                              device="cpu")
+    params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+    for attn in (params["first"]["attn"], params["blocks"]["sub0"]["attn"]):
+        for w in ("w_q", "w_dq", "w_dkv", "w_uk"):
+            attn[w].mul_(10.0)
+    toks = np.random.default_rng(SEED).integers(0, smoke.vocab_size,
+                                                (2, 64))
+    train_check("deepseek-train", f"smoke model ({smoke.n_layers} layers, "
+                f"q_lora {smoke.mla.q_lora_rank}, 2 query chunks of "
+                f"{smoke.attn_q_chunk})", smoke, params, {"tokens": toks},
+                {"loss": TRAIN_LOSS_RTOL, "aux": Q3_CHECK_LIMITS["aux"],
+                 "grad": TRAIN_GRAD_TOL})
+    full = get_config(DEEPSEEK)
+    cfg = apply_variant(full, DS_TRAIN_VARIANT).replace(
+        n_layers=DS_TRAIN_LAYERS, grad_accum=DS_TRAIN_ACCUM)
+    if cfg.param_dtype != "float32":
+        cfg = cfg.replace(learning_rate=BF16_TRAIN_LR, warmup_steps=1)
+    size = {"float32": 4, "bfloat16": 2}[cfg.param_dtype]
+    out = train_resume(
+        "deepseek-train", cfg, DS_TRAIN_STEPS, DS_TRAIN_BATCH, DS_TRAIN_SEQ,
+        DS_TRAIN_ACCUM, f"{DS_TRAIN_LAYERS} of 60 layers (the dense layer "
+        f"0 and {DS_TRAIN_LAYERS - 1} MLA + MoE; {2 * size + 4} bytes a "
+        f"parameter; {DS_TRAIN_SEQ // cfg.attn_q_chunk} query chunks of "
+        f"{cfg.attn_q_chunk})", routing=True, resume=False)
+    log_routing("deepseek-train", out["traced"])
+    mla_train_share(cfg, out["traced"])
+    return {"launches": out["launches"]}
+
+
+def mla_train_share(cfg, traced: dict) -> None:
+    """One MLA mixer (`mla.mla_attention`: the latent and query
+    projections, the chunked attention, the output projection) at
+    [deepseek-train]'s microbatch, its parameters seeded in the config's
+    parameter dtype and cast inside as the step does, timed alone by
+    CUDA events under the train step's deterministic mode: the forward
+    without a graph and the forward + backward. A microbatch runs the
+    dense layer 0's mixer forward + backward (outside remat) and each
+    stack layer's forward, then forward + backward (remat); those times
+    over the traced step's microbatches, beside its busy time."""
+    from repro_torch import pytree
+    from repro_torch.dtypes import BY_NAME
+    from repro_torch.models import mla
+    from repro_torch.models.schema import init_from_schema
+    from repro_torch.train.step import _deterministic
+    if not traced:
+        return
+    mb = DS_TRAIN_BATCH // DS_TRAIN_ACCUM
+    p = init_from_schema(mla.mla_def(cfg), seed=SEED, device=DEVICE,
+                         dtype=BY_NAME[cfg.param_dtype])
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    x, dout = (torch.randn((mb, DS_TRAIN_SEQ, cfg.d_model), generator=g,
+                           device=DEVICE, dtype=torch.bfloat16)
+               for _ in range(2))
+    leaves = [x.requires_grad_()] + [t.requires_grad_()
+                                     for t in pytree.leaves(p)]
+
+    def fwd():
+        with torch.no_grad():
+            return mla.mla_attention(p, x, cfg, q_chunk=cfg.attn_q_chunk)
+
+    def fwd_bwd():
+        out = mla.mla_attention(p, x, cfg, q_chunk=cfg.attn_q_chunk)
+        return torch.autograd.grad(out, leaves, dout)
+
+    with _deterministic(torch.device(DEVICE)):
+        f_ms, fb_ms = cuda_ms(fwd, 3), cuda_ms(fwd_bwd, 3)
+    stack = DS_TRAIN_LAYERS - 1
+    total = DS_TRAIN_ACCUM * (DS_TRAIN_LAYERS * fb_ms + stack * f_ms)
+    busy = sum(traced["groups"].values())
+    log(f"[deepseek-train] one MLA mixer alone at [{mb}, {DS_TRAIN_SEQ}] "
+        f"({cfg.param_dtype} parameters, bf16 compute; CUDA events, median "
+        f"of 3): forward {f_ms:.2f} ms, forward + backward {fb_ms:.2f} ms; "
+        f"x ({DS_TRAIN_LAYERS} forward + backward + {stack} remat "
+        f"forward) x {DS_TRAIN_ACCUM} microbatches = {total:.1f} ms, "
+        f"{total / busy:.3f} of the traced step's busy {busy:.1f} ms "
+        "(timed apart, not read from the trace)")
+    del p, x, dout, leaves
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6416,11 +6696,13 @@ def main() -> int:
     timed(phase_merge_cli, pending)
     g2train = timed(phase_gemma2_train)
     q3train = timed(phase_qwen3_moe_train)
+    vltrain = timed(phase_vlm_train)
+    dstrain = timed(phase_deepseek_train)
     for name, row in rows.items():
         row["launches"] = sum(p["launches"][name] for p in
                               (main, serve, gemma2, qwen3, mamba2, jamba,
                                whisper, vlm, deepseek, train, btm, g2train,
-                               q3train))
+                               q3train, vltrain, dstrain))
     log(f"[done] {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": list(rows.values())}))
     print(dev["smi"])

@@ -16,8 +16,11 @@ contributions (each leaf merged over its covering subset; an uncovered
 leaf inherits the base; `sparse_reference_apply` is the engine-free
 definition); whole-model strategies probe their cache entry before
 touching a payload. Also `IncrementalMean` (O(p) running weight
-average) and the deprecated `resolve(state, name, **cfg)` shim, which
-the gossip nodes' string form calls.
+average) and the reference's deprecated shims: `resolve(state, name,
+**cfg)`, which the gossip nodes' string form calls, `apply_strategy`
+(`reference_apply` under its old name) and the string form of
+`hierarchical_resolve`; each warns `DeprecationWarning` and gives the
+bytes of the path it names.
 
 Fetch-on-resolve: under a sharded blob store (`net.store`) a replica's
 store holds only the payloads placed on it, so a resolve takes a
@@ -289,20 +292,27 @@ def resolve(state: CRDTMergeState, spec: Any, base: Any = None, *,
                         fetch=fetch, cache=cache, use_cache=use_cache)
 
 
-def hierarchical_resolve(states: List[CRDTMergeState], spec: MergeSpec,
+def hierarchical_resolve(states: List[CRDTMergeState], spec: Any,
                          group_size: int = 8, base: Any = None, *,
+                         reduction: Optional[str] = None,
                          fetch: Optional[FetchHook] = None,
                          cache: Optional[EngineCache] = None,
-                         use_cache: bool = True) -> Any:
+                         use_cache: bool = True, **cfg) -> Any:
     """Two-level resolve over the join of `states` (paper §7.2 L3
     mitigation 2): `resolve_spec` with the spec's `group_size`, or
-    `group_size` where the spec sets none. The reference's deprecated
-    string form (a strategy name and kwargs) is not ported."""
+    `group_size` where the spec sets none. `spec` is a MergeSpec; the
+    historical form `hierarchical_resolve(states, "ties", group_size=4,
+    **cfg)` is DEPRECATED: it wraps the unvalidated kwargs in a lenient
+    MergeSpec, warns, and gives the same bytes."""
     if not states:
         raise ValueError("hierarchical_resolve() requires >= 1 state")
-    if not isinstance(spec, MergeSpec):
-        raise TypeError(f"hierarchical_resolve() requires a MergeSpec, "
-                        f"got {type(spec).__name__}")
+    if isinstance(spec, MergeSpec):
+        spec = coerce_spec(spec, cfg, reduction=reduction)
+    else:
+        _warn_shim("hierarchical_resolve(states, strategy_name, **cfg)",
+                   "resolve(state, MergeSpec(strategy, cfg, "
+                   "group_size=...))")
+        spec = coerce_spec(spec, cfg, reduction=reduction, lenient=True)
     if spec.group_size is None:
         spec = spec.replace(group_size=group_size)
     merged = states[0]
@@ -323,6 +333,16 @@ def reference_apply(strategy_name: str, contribs: List[Any], *, base=None,
         return pairwise_fold(contribs, lambda x, y, sd: strat(
             [x, y], base=base, seed=sd, **cfg), seed, reduction)
     return strat(contribs, base=base, seed=seed, **cfg)
+
+
+def apply_strategy(strategy_name: str, contribs: List[Any], *, base=None,
+                   seed: int = 0, reduction: str = "fold", **cfg) -> Any:
+    """DEPRECATED alias of `reference_apply` (the old public name)."""
+    _warn_shim("apply_strategy()", "reference_apply() (byte-exact "
+               "reference) or engine.merge(spec=MergeSpec(...)) "
+               "(cached/planned execution)")
+    return reference_apply(strategy_name, contribs, base=base, seed=seed,
+                           reduction=reduction, **cfg)
 
 
 def sparse_reference_apply(strategy_name: str, contribs: List[Any],

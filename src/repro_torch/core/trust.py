@@ -8,9 +8,10 @@ the same scores and the same gating decision at the Layer-2 boundary.
 converged score falls below the threshold; `resolve_spec` then runs on
 the gated set (a spec's `trust_threshold`).
 
-The reference's deprecated `gated_resolve` shim is not ported: its
-replacement is `resolve_spec(state, MergeSpec(..., trust_threshold=...),
-trust=...)` or `Replica.resolve`.
+`gated_resolve` is the reference's deprecated shim over that path: it
+warns and calls `resolve_spec(state, MergeSpec.lenient(...,
+trust_threshold=...), trust=...)`, as `Replica.resolve` does with a
+spec's threshold.
 """
 from __future__ import annotations
 
@@ -75,3 +76,22 @@ def gated_visible(state: CRDTMergeState, trust: TrustState,
     """Deterministic trust gate at the Layer-2 boundary."""
     return frozenset(e for e in state.visible()
                      if trust.score(e) >= threshold)
+
+
+def gated_resolve(state: CRDTMergeState, trust: TrustState,
+                  strategy: str, base=None, threshold: float = 0.5, **cfg):
+    """DEPRECATED: resolve with the trust gate folded into the spec,
+    `resolve_spec(state, MergeSpec(strategy, cfg, trust_threshold=...),
+    trust=trust)` (or `Replica.resolve` on a replica holding the trust
+    state). `reduction` and `fetch` are taken out of `cfg`; the rest is
+    the lenient spec's unvalidated cfg. The same bytes as that path: the
+    seed derives from the Merkle root of the gated id set."""
+    from repro_torch.api.spec import MergeSpec
+    from repro_torch.core.resolve import _warn_shim, resolve_spec
+    _warn_shim("gated_resolve()", "resolve(state, MergeSpec(strategy, cfg, "
+               "trust_threshold=...), trust=trust) or Replica.resolve(spec)")
+    reduction = cfg.pop("reduction", "fold")
+    fetch = cfg.pop("fetch", None)
+    spec = MergeSpec.lenient(strategy, cfg, reduction=reduction,
+                             trust_threshold=threshold)
+    return resolve_spec(state, spec, base=base, trust=trust, fetch=fetch)

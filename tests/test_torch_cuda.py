@@ -38,6 +38,9 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                prefill logits and latent caches, greedy decode (no B9
                launch), the bf16 decode repeated bitwise, the loss and
                its gradients, each against the CPU
+  VLM, MLA     the VLM's (gates set) and DeepSeek-V2's smoke train steps
+  training     with fp32 and with bf16 parameters (`parambf16`): two
+               steps on the card repeat bitwise and land near the CPU's
   hashing      `tensor_digest` of CUDA leaves (through the page-locked
                staging buffers, on the hashing threads) equals the
                CPU's
@@ -60,7 +63,9 @@ tests/test_torch_cuda.py` (the shared `tests/conftest.py` imports JAX).
                and bf16, ragged tiles, one row, non-causal, Minitron-8B's
                32:8 GQA at D = 128, MiniCPM-2B's 36 heads; q x8 in bf16;
                gemma2's softcap 50 and 2 and windows 1, 5 and 64, one row
-               included, and its 32:16 heads at D = 128), bitwise
+               included, and its 32:16 heads at D = 128; the VLM's 8:1
+               at D = 128, causal and non-causal over ragged Sq and Sk
+               as its training runs them), bitwise
                repeatable, and q x8 in fp32 against a float64 oracle
                (ROADMAP C4), reached once each through autograd; rows
                that see one key (one row, a window of 1) give dq and dk
@@ -937,6 +942,7 @@ FLASH_BWD_SPECS = {
     "win64_cap50": (1, 200, 8, 2, 96),
     "d16_win5_cap50": (2, 37, 4, 2, 16),
     "gemma2_heads": (1, 300, 32, 16, 128),
+    "vlm_self_narrow": (2, 321, 16, 2, 128),
 }
 FLASH_BWD_PEAKED = (2, 200, 4, 2, 96)
 FLASH_BWD_OPTS = {"full": {"causal": False},
@@ -1115,10 +1121,13 @@ def _check_flash_backward(spec, dtype, causal=True, q_mult=1.0, sk=0,
 # Sk: Whisper's encoder self-attention (Sq = Sk = 1500) and its
 # cross-attention (Sq = 448, the decoder's context, over 1500 frames);
 # the VLM's cross-attention over 1601 patches at H / HK = 8 (200
-# queries); rule as above
+# queries), and narrow (16 heads over 2, D = 128) with ragged Sq and Sk
+# (321 % 64 = 1, 777 % 64 = 9), as the VLM's training runs it at
+# 4096 / 1601; rule as above
 FLASH_BWD_CROSS = {"whisper_encoder": ((2, 1500, 6, 6, 64), 1500),
                    "whisper_cross": ((2, 448, 6, 6, 64), 1500),
-                   "vlm_cross": ((1, 200, 64, 8, 128), 1601)}
+                   "vlm_cross": ((1, 200, 64, 8, 128), 1601),
+                   "vlm_cross_narrow": ((2, 321, 16, 2, 128), 777)}
 
 
 @pytest.mark.cuda
@@ -1784,6 +1793,104 @@ def test_cuda_qwen3_smoke_greedy_decode_equals_cpu():
                         batch, 8)
     assert flash_attention.launches - before == cfg.n_layers * 9
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def _smoke_train_case(arch):
+    """(config, CPU params, batch): the VLM's smoke model with its gates
+    at 0.5 / -0.7 and 12 patches a row, or DeepSeek-V2's with
+    `q_lora_rank` 24, the router at 50x and the latent-attention
+    projections at 10x; fp32 compute, remat, grad_accum 2; 4 rows of 64
+    tokens (two of DeepSeek's query chunks), two batches."""
+    import dataclasses
+    from repro_torch.configs import ShapeSpec, smoke_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.model import Model
+    from repro_torch.models.schema import init_from_schema
+    cfg = smoke_config(arch).replace(compute_dtype="float32", remat="full",
+                                     grad_accum=2)
+    if cfg.mla is not None:
+        cfg = cfg.replace(mla=dataclasses.replace(cfg.mla, q_lora_rank=24))
+    model = Model(cfg)
+    params = init_from_schema(model.schema(), seed=0, device="cpu")
+    if cfg.family == "vlm":
+        for j, sl in enumerate(model.layout):
+            if sl.mixer == "cross":
+                params["blocks"][f"sub{j}"]["gate_attn"].fill_(0.5)
+                params["blocks"][f"sub{j}"]["gate_ffn"].fill_(-0.7)
+    else:
+        params["blocks"]["sub0"]["ffn"]["router"].mul_(50.0)
+        for attn in (params["first"]["attn"],
+                     params["blocks"]["sub0"]["attn"]):
+            for w in ("w_q", "w_dq", "w_dkv", "w_uk"):
+                attn[w].mul_(10.0)
+    return cfg, params, [make_batch(cfg, ShapeSpec("s", 64, 4, "train"),
+                                    step=i) for i in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "deepseek-v2-236b"])
+def test_cuda_vlm_mla_train_steps_smoke_match_cpu(arch, param_dtype):
+    """The VLM's and DeepSeek-V2's smoke train steps (`_smoke_train_case`)
+    with fp32 parameters or the dry run's `parambf16` (bf16 parameters,
+    gradients and moments; learning rate 5e-3 from the first step, as
+    the chip smoke's bf16 runs): two steps on the card repeat bitwise,
+    launch B9's gradient once an attention sub-layer a microbatch (the
+    VLM's; DeepSeek's MLA launches none), and land near the CPU's: each
+    parameter within `near` (fp32 parameters: 1e-3 of its leaf's largest
+    magnitude, as the minitron test above; bf16: one bf16 ulp, 2^-8 of
+    its magnitude) of the CPU's, but at most 1e-3 of them, which may
+    differ by up to 2.5 times the two steps' learning rates plus twice
+    `near` (Adam's step is about +-lr by the gradient's sign, so an
+    element whose gradient is near zero can move the other way); the
+    bf16 moments within 2^-6 of each leaf's largest magnitude (two bf16
+    ulps)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward)
+    from repro_torch.launch.dryrun import apply_variant
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import lr_schedule
+    from repro_torch.train.step import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, batches = _smoke_train_case(arch)
+    if param_dtype == "bfloat16":
+        cfg = apply_variant(cfg, "parambf16").replace(
+            learning_rate=5e-3, warmup_steps=1)
+    model = Model(cfg)
+    attn = model.n_periods * sum(sl.mixer in ("attn", "cross")
+                                 for sl in model.layout)
+    runs = []
+    for device in ("cuda", "cuda", "cpu"):
+        state = init_train_state(model, params=pytree.tree_map(
+            lambda t: t.to(device, copy=True), params), device=device)
+        step = make_train_step(model, total_steps=10)
+        before = flash_attention_backward.launches
+        for b in batches:
+            state, _ = step(state, b)
+        if device == "cuda":
+            assert flash_attention_backward.launches - before == \
+                2 * cfg.grad_accum * attn
+        runs.append({part: [x.cpu().float() for x in
+                            pytree.leaves(state[part])]
+                     for part in ("params", "m", "v")})
+    for part in runs[0]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][part],
+                                                      runs[1][part]))
+    for part in ("m", "v"):
+        for a, b in zip(runs[0][part], runs[2][part]):
+            assert float((a - b).abs().max()) <= \
+                2.0 ** -6 * max(float(b.abs().max()), 1e-30)
+    lrs = sum(float(lr_schedule(i, cfg, 10)) for i in range(2))
+    beyond = total = 0
+    for a, b in zip(runs[0]["params"], runs[2]["params"]):
+        d = (a - b).abs()
+        near = (1e-3 * max(float(b.abs().max()), 1e-30)
+                if param_dtype == "float32" else 2.0 ** -8 * b.abs())
+        assert bool((d <= 2.5 * lrs + 2 * near).all())
+        beyond += int((d > near).sum())
+        total += d.numel()
+    assert beyond <= 1e-3 * total
 
 
 @pytest.mark.cuda

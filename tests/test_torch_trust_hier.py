@@ -229,8 +229,16 @@ def test_equivalence_grid_hierarchical(reduction):
 
 
 def test_hierarchical_resolve_wants_a_spec():
-    s, _ = _states(_contribs(2, seed=7))
-    with pytest.raises(TypeError, match="MergeSpec"):
-        hierarchical_resolve([s], "ties")
+    """The reference's deprecated string form: a strategy name with its
+    cfg and `group_size` warns `DeprecationWarning` once and gives the
+    MergeSpec form's bytes; no state at all is a `ValueError`."""
+    s, _ = _states(_contribs(5, seed=7))
+    with pytest.warns(DeprecationWarning,
+                      match="hierarchical_resolve") as rec:
+        got = hierarchical_resolve([s], "ties", group_size=2, trim=0.3)
+    assert len(rec) == 1
+    want = hierarchical_resolve([s], MergeSpec("ties", {"trim": 0.3}),
+                                group_size=2)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
     with pytest.raises(ValueError, match=">= 1 state"):
         hierarchical_resolve([], MergeSpec("ties"))
