@@ -1,0 +1,6 @@
+"""The share of the traced stretch of resolves in which no operation ran
+on the device."""
+
+
+def read(view):
+    return None if view.trace is None else view.trace.idle_pct()
